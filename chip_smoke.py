@@ -9,15 +9,27 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
 
 1. build the kernels;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path's first batch (bit-exact);
-3. decode the committed fixtures ``tests/fixtures/{bf16_gauss,fp16_mixed,
-   fp8_gauss}.znn`` through ``ZipNN(engine="cuda")``;
-4. the main path: a bf16 buffer of ``--mib`` MiB + 6002 bytes, N(0, 0.05)
-   from ``--seed``, compressed with the golden encoder and decompressed by
+   shapes of its path's first batch (bit-exact): ``huf_pc_decode`` on the
+   bf16 and fp32 paths, ``huf_shared_decode`` on the shared-table path,
+   ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32);
+3. decode the committed libzstd-made fixtures ``tests/fixtures/
+   {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
+   containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
+   written by the port's golden encoder) through ``ZipNN(engine="cuda")``;
+4. three paths at full width, each decompressed by
    ``ZipNN(input_format="torch", engine="cuda")`` into a CUDA tensor that
-   must equal the original, with the kernels' launches counted;
-5. a flipped bit inside a Huffman stream must raise ``CorruptChunkError``
-   naming its plane, chunk and stream.
+   must equal the original, with the kernels' launches counted from 0 for
+   that call:
+   a. bf16, per-chunk tables: ``--mib`` MiB + 6002 bytes;
+   b. fp32, per-chunk tables: ``--mib`` MiB + 6004 bytes;
+   c. bf16, shared table (the sampled stride-8 table): ``--mib`` MiB +
+      6002 bytes, which must launch ``huf_shared_decode`` and not
+      ``huf_pc_decode``;
+   all N(0, 0.05) from ``--seed``, compressed by the golden encoder
+   (cached in ``zipnn_tpu_torch/_build/``);
+5. a flipped bit inside a Huffman stream, per-chunk and shared-table, must
+   raise ``CorruptChunkError`` naming the plane and chunk the golden
+   decoder names, and the stream.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises, so
@@ -37,7 +49,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-TAIL = 6002
+TAIL_BF16 = 6002
+TAIL_FP32 = 6004  # 1501 trailing floats: a short tail chunk
+SMALL_MIB = 8  # the shared-table fixtures
 
 
 def log(*a):
@@ -66,16 +80,197 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
-def synth_bf16(nbytes: int, seed: int) -> np.ndarray:
-    """N(0, 0.05) bf16 bit patterns (the upper half of each float32)."""
+def host_ms(fn):
+    """(result, milliseconds) of one call, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def gauss_f32(n: int, seed: int) -> np.ndarray:
+    """n values of N(0, 0.05) as float32, made in 32 Mi-value steps."""
     rng = np.random.default_rng(seed)
-    out = np.empty(nbytes // 2, dtype=np.uint16)
+    out = np.empty(n, dtype=np.float32)
     step = 32 << 20
-    for off in range(0, out.size, step):
-        n = min(step, out.size - off)
-        vals = (rng.standard_normal(n) * 0.05).astype(np.float32)
-        out[off : off + n] = (vals.view(np.uint32) >> 16).astype(np.uint16)
+    for off in range(0, n, step):
+        m = min(step, n - off)
+        out[off : off + m] = rng.standard_normal(m) * 0.05
     return out
+
+
+def synth(dtype: torch.dtype, nbytes: int, seed: int) -> torch.Tensor:
+    """A CPU tensor of ``nbytes`` bytes of N(0, 0.05) in ``dtype`` (bf16 as
+    the upper half of each float32)."""
+    size = nbytes // torch.empty(0, dtype=dtype).element_size()
+    vals = gauss_f32(size, seed)
+    if dtype == torch.bfloat16:
+        bits = (vals.view(np.uint32) >> 16).astype(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    if dtype == torch.float16:
+        return torch.from_numpy(vals.astype(np.float16))
+    return torch.from_numpy(vals).to(dtype)
+
+
+def compressed(cache_dir: Path, tag: str, x: torch.Tensor, profile: str) -> bytes:
+    """``x`` compressed by the golden encoder, cached in ``cache_dir``."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+
+    cache = cache_dir / f"smoke_{tag}_{x.numel() * x.element_size()}_{profile}.znn"
+    t0 = time.perf_counter()
+    if cache.exists():
+        comp = cache.read_bytes()
+        how = f"read from {cache.name}"
+    else:
+        comp = ZipNN(input_format="torch", engine="numpy",
+                     huffman_table=profile).compress(x)
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        cache.write_bytes(comp)
+        how = f"compressed in {time.perf_counter() - t0:.1f} s"
+    n = x.numel() * x.element_size()
+    log(f"[{tag}] {n} bytes {x.dtype} ({profile}) -> {len(comp)} bytes "
+        f"(ratio {len(comp) / n:.4f}), {how}")
+    return comp
+
+
+def plan_of(container: bytes, dev):
+    """(plan, device inputs, first batch's full chunks) of a container."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.core import dtypes  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode  # noqa: PLC0415
+
+    z = ZipNN(engine="cuda")
+    after = z._retrieve_header(memoryview(container))
+    plan = decode.build_plan(memoryview(container)[after:],
+                             dtypes.groups_for_decompress(z.dtype), z._bit_reorder,
+                             z._byte_reorder, z.compression_chunk, z.original_len)
+    lo, hi = decode.plan_batches(plan.g.n_chunks, plan.g.chunk_size)[0]
+    hi = min(hi, z.original_len // plan.g.chunk_size)  # full chunks only
+    check(hi - lo >= 64, f"first batch has {hi - lo} full chunks, want >= 64")
+    return plan, decode.DeviceInputs(plan, dev), (lo, hi)
+
+
+def hold_decode(label, wrapper, plain, args, table_bytes):
+    """A decode kernel against its plain version: bit-exact symbols and
+    bits_left, every stream consumed exactly; its time and byte bound
+    (``table_bytes``: the tables and per-stream table indices it reads)."""
+    sym_k, bl_k = wrapper(*args)
+    (sym_p, bl_p), plain_ms = host_ms(lambda: plain(*args))
+    err = int((sym_k.int() - sym_p.int()).abs().max())
+    check(torch.equal(sym_k, sym_p) and torch.equal(bl_k, bl_p), f"{label} != plain")
+    check(int(bl_k.abs().max()) == 0, f"{label}: streams not fully consumed")
+    ms = cuda_ms(lambda: wrapper(*args))
+    S = int(args[1].numel())
+    # stream bytes, the per-stream arrays, the tables, symbols and bits_left
+    nbytes = (int(args[2].sum()) + S * (8 + 4 + 4 + 8 + 4) + table_bytes
+              + args[-1] + 4 * S)
+    log(f"[kernels] {label}: {S} streams, {ms:.3f} ms (plain {plain_ms:.1f} ms), "
+        f"bit-exact")
+    return sym_k, {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def hold_combine(label, plan, k2a, original: torch.Tensor, lo, hi):
+    """K2 against its plain version and the original bytes."""
+    from zipnn_tpu_torch.ops import combine, decode  # noqa: PLC0415
+
+    total = k2a[6]
+    out_k = torch.empty(-(-total // 4) * 4, dtype=torch.uint8, device="cuda")
+    out_p = torch.empty_like(out_k)
+    combine.combine_cells(*k2a, out_k)
+    _, plain_ms = host_ms(lambda: combine.combine_cells_plain(*k2a, out_p))
+    err = int((out_k.int() - out_p.int()).abs().max())
+    check(torch.equal(out_k, out_p), f"{label} != plain")
+    check(torch.equal(out_k[:total].cpu(), original.view(torch.uint8)[:total]),
+          f"{label}: output != original")
+    ms = cuda_ms(lambda: combine.combine_cells(*k2a, out_k))
+    want = plan.g.want[:, lo:hi]
+    kind = plan.g.kind[:, lo:hi]
+    nbytes = (int(want[kind != decode.KIND_RLE].sum())
+              + 12 * int(k2a[2].numel()) + out_k.numel())
+    log(f"[kernels] {label}: {hi - lo} chunks, {ms:.3f} ms "
+        f"(plain {plain_ms:.1f} ms), bit-exact")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def drive(label, container, x_cpu, must_launch, must_not_launch, smi):
+    """One path: decompress into a CUDA tensor with the launch counts set
+    to 0 just before and read just after; a second call for its time."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, kernels  # noqa: PLC0415
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[x_cpu.element_size()]
+    x_dev = x_cpu.to("cuda")
+    nbytes = x_cpu.numel() * x_cpu.element_size()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ZipNN(input_format="torch", engine="cuda").decompress(container)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    kms = decode.kernel_ms()
+    timings = dict(decode.last_timings)
+    check(y.is_cuda and y.dtype == x_cpu.dtype and y.shape == x_cpu.shape,
+          f"{label} gave {y.device} {y.dtype} {tuple(y.shape)}")
+    check(torch.equal(y.view(ints), x_dev.view(ints)), f"{label} mismatch")
+    for k in must_launch:
+        check(launches[k] > 0, f"kernel {k} not launched on the {label} path")
+    for k in must_not_launch:
+        check(launches[k] == 0, f"kernel {k} launched on the {label} path")
+    del y
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ZipNN(input_format="torch", engine="cuda").decompress(container)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    check(torch.equal(y.view(ints), x_dev.view(ints)), f"second {label} run mismatch")
+    del y, x_dev
+    ktxt = ", ".join(f"{k} {v:.3f} ms" for k, v in kms.items())
+    log(f"[{label}] {nbytes} bytes {x_cpu.dtype} -> CUDA tensor, bit-exact; "
+        f"plan {timings['plan_s']:.3f} s, upload {timings['upload_s']:.3f} s, "
+        f"{ktxt}, end to end {wall:.3f} s = {nbytes / wall / 1e9:.3f} GB/s "
+        f"(second run {wall2:.3f} s = {nbytes / wall2 / 1e9:.3f} GB/s); "
+        f"launches {launches}; card: {smi}")
+    return launches
+
+
+def corrupt_case(label, comp: bytes, stream: int):
+    """Flip bits of one stream until the golden decoder rejects the
+    container; the CUDA engine must name the same plane and chunk, and the
+    stream."""
+    from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec  # noqa: PLC0415
+    from zipnn_tpu_torch.core import dtypes  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode  # noqa: PLC0415
+
+    z = ZipNN(engine="cuda")
+    after = z._retrieve_header(memoryview(comp))
+    geo = (dtypes.groups_for_decompress(z.dtype), z._bit_reorder, z._byte_reorder,
+           z.compression_chunk, z.original_len)
+    plan = decode.build_plan(memoryview(comp)[after:], *geo)
+    s0 = after + int(plan.starts[stream])
+    ln = int(plan.lens[stream])
+    exp = None
+    for bit in range(8 * (ln // 2), 8 * ln - 8):
+        bad = bytearray(comp)
+        bad[s0 + bit // 8] ^= 1 << (bit % 8)
+        try:
+            codec.decompress_payload_numpy(memoryview(bytes(bad))[after:], *geo)
+        except CorruptChunkError as e:
+            exp = (bytes(bad), e.plane, e.chunk)
+            break
+    check(exp is not None, f"{label}: no bit flip found that the golden decoder rejects")
+    try:
+        ZipNN(engine="cuda").decompress(exp[0])
+    except CorruptChunkError as e:
+        want = (exp[1], exp[2], stream % 4)
+        check((e.plane, e.chunk, e.stream) == want, (label, e, want))
+        log(f"[corrupt] {label}: bit flip in stream {stream} -> {e} "
+            f"(decoder {decode.last_timings['decoder']})")
+        return decode.last_timings["decoder"]
+    raise RuntimeError(f"chip_smoke check failed: corrupt {label} container decoded")
 
 
 def main() -> int:
@@ -87,182 +282,138 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, str(ROOT))
-    from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec  # noqa: PLC0415
-    from zipnn_tpu_torch.ops import combine, decode, huf_pc, kernels  # noqa: PLC0415
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, huf_pc, huf_shared, kernels  # noqa: PLC0415
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
-
-    # ---- 1. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    kernels.lib()
-    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build]", line.strip())
-
-    # ---- main-path container ---------------------------------------------
-    nbytes = (args.mib << 20) + TAIL
-    raw = synth_bf16(nbytes, args.seed)
-    x_cpu = torch.from_numpy(raw).view(torch.bfloat16)
-    cache = kernels.BUILD_DIR / f"smoke_bf16_s{args.seed}_{nbytes}.znn"
-    t0 = time.perf_counter()
-    if cache.exists():
-        container = cache.read_bytes()
-        log(f"[main] container read from {cache.name}")
-    else:
-        container = ZipNN(input_format="torch", engine="numpy").compress(x_cpu)
-        cache.parent.mkdir(parents=True, exist_ok=True)
-        cache.write_bytes(container)
-    log(f"[main] {nbytes} bytes -> {len(container)} bytes "
-        f"(ratio {len(container) / nbytes:.4f}) in {time.perf_counter() - t0:.1f} s")
-
-    # ---- 2. kernels against their plain versions ------------------------
-    zp = ZipNN(engine="cuda")
-    after = zp._retrieve_header(memoryview(container))
-    payload = memoryview(container)[after:]
-    plan = decode.build_plan(payload, 2, zp._bit_reorder, zp._byte_reorder,
-                             zp.compression_chunk, zp.original_len)
-    dv = decode.DeviceInputs(plan, dev)
-    lo, hi = decode.plan_batches(plan.g.n_chunks, plan.g.chunk_size)[0]
-    hi = min(hi, nbytes // plan.g.chunk_size)  # full chunks only
-    check(hi - lo >= 64, f"first batch has {hi - lo} full chunks, want >= 64")
-    k1a = dv.k1_args(lo, hi)
-    sym_k, bl_k = huf_pc.huf_pc_decode(*k1a)
-    t0 = time.perf_counter()
-    sym_p, bl_p = huf_pc.huf_pc_decode_plain(*k1a)
-    torch.cuda.synchronize()
-    k1_plain_ms = 1e3 * (time.perf_counter() - t0)
-    k1_err = int((sym_k.int() - sym_p.int()).abs().max())
-    check(torch.equal(sym_k, sym_p) and torch.equal(bl_k, bl_p), "K1 != plain")
-    check(int(bl_k.abs().max()) == 0, "K1 streams not fully consumed")
-    k1_ms = cuda_ms(lambda: huf_pc.huf_pc_decode(*k1a))
-    S = int(k1a[1].numel())
-    k1_bytes = (int(k1a[2].sum()) + S * (8 + 4 + 4 + 8 + 4 + 4)
-                + int(k1a[7].numel()) * 4 + int(k1a[8].numel()) * 2
-                + k1a[9] + 4 * S)
-    distinct = int(torch.unique(dv.tables, dim=0).shape[0])
-    log(f"[kernels] huf_pc_decode: {hi - lo} chunks, {S} streams, "
-        f"{k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms), bit-exact; the plan "
-        f"has {plan.n_huf} Huffman cells with {distinct} distinct tables")
-
-    k2a = dv.k2_args(lo, hi, sym_k)
-    total = k2a[6]
-    out_k = torch.empty(-(-total // 4) * 4, dtype=torch.uint8, device=dev)
-    out_p = torch.empty_like(out_k)
-    combine.combine_cells(*k2a, out_k)
-    t0 = time.perf_counter()
-    combine.combine_cells_plain(*k2a, out_p)
-    torch.cuda.synchronize()
-    k2_plain_ms = 1e3 * (time.perf_counter() - t0)
-    k2_err = int((out_k.int() - out_p.int()).abs().max())
-    check(torch.equal(out_k, out_p), "K2 != plain")
-    check(torch.equal(out_k[:total].cpu(), x_cpu.view(torch.uint8)[:total]), "K2 output != original")
-    k2_ms = cuda_ms(lambda: combine.combine_cells(*k2a, out_k))
-    want = plan.g.want[:, lo:hi]
-    kind = plan.g.kind[:, lo:hi]
-    k2_bytes = (int(want[kind != decode.KIND_RLE].sum())
-                + 12 * int(k2a[2].numel()) + out_k.numel())
-    log(f"[kernels] combine_cells: {hi - lo} chunks, {k2_ms:.3f} ms "
-        f"(plain {k2_plain_ms:.1f} ms), bit-exact")
-    del dv, sym_k, sym_p, out_k, out_p
-
-    # ---- 3. fixtures ----------------------------------------------------
-    fix = ROOT / "tests" / "fixtures"
-    for fx in ("bf16_gauss", "fp16_mixed", "fp8_gauss"):
-        got = ZipNN(engine="cuda").decompress((fix / f"{fx}.znn").read_bytes())
-        check(bytes(got) == (fix / f"{fx}.raw").read_bytes(), fx)
-        log(f"[fixtures] {fx}: bit-exact")
-
-    # ---- 4. main path ---------------------------------------------------
-    x_dev = x_cpu.to(dev)
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    y = ZipNN(input_format="torch", engine="cuda").decompress(container)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    kms = decode.kernel_ms()
-    timings = dict(decode.last_timings)
-    check(y.is_cuda and y.dtype == torch.bfloat16 and y.shape == x_cpu.shape,
-          f"main path gave {y.device} {y.dtype} {tuple(y.shape)}")
-    check(torch.equal(y.view(torch.int16), x_dev.view(torch.int16)), "main path mismatch")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} not launched on the main path")
-    del y
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    y = ZipNN(input_format="torch", engine="cuda").decompress(container)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    check(torch.equal(y.view(torch.int16), x_dev.view(torch.int16)), "second main-path run mismatch")
-    del y, x_dev
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     ).stdout.strip()
-    log(f"[main] {nbytes} bytes bf16 -> CUDA tensor, bit-exact; "
-        f"plan {timings['plan_s']:.3f} s, upload {timings['upload_s']:.3f} s, "
-        f"K1 {kms['huf_pc_decode']:.3f} ms, K2 {kms['combine_cells']:.3f} ms, "
-        f"end to end {wall:.3f} s = {nbytes / wall / 1e9:.3f} GB/s "
-        f"(second run {wall2:.3f} s = {nbytes / wall2 / 1e9:.3f} GB/s); "
-        f"launches {launches}; card: {smi}")
+
+    # ---- 1. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    kernels.lib()
+    log(f"[build] {len(kernels._sources())} kernel sources built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in kernels.build_log().splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            log("[build]", line.strip())
+
+    # ---- the three paths' containers --------------------------------------
+    mib = args.mib << 20
+    x_bf16 = synth(torch.bfloat16, mib + TAIL_BF16, args.seed)
+    x_fp32 = synth(torch.float32, mib + TAIL_FP32, args.seed)
+    c_bf16 = compressed(kernels.BUILD_DIR, "bf16", x_bf16, "per_chunk")
+    c_fp32 = compressed(kernels.BUILD_DIR, "fp32", x_fp32, "per_chunk")
+    c_shared = compressed(kernels.BUILD_DIR, "bf16", x_bf16, "shared")
+
+    # ---- 2. kernels against their plain versions ------------------------
+    rows = {}
+    def k1_table_bytes(k1a):
+        return 4 * (k1a[6].numel() + k1a[7].numel()) + 2 * k1a[8].numel()
+
+    plan, dv, (lo, hi) = plan_of(c_bf16, dev)
+    k1a = dv.k1_args(lo, hi)
+    sym, rows["k1_bf16"] = hold_decode(
+        f"huf_pc_decode (bf16, {hi - lo} chunks)", huf_pc.huf_pc_decode,
+        huf_pc.huf_pc_decode_plain, k1a, k1_table_bytes(k1a))
+    distinct = int(torch.unique(dv.tables, dim=0).shape[0])
+    log(f"[kernels] the bf16 plan has {plan.n_huf} Huffman cells with "
+        f"{distinct} distinct tables")
+    rows["k2_2"] = hold_combine("combine_cells (2 planes)", plan,
+                                dv.k2_args(lo, hi, sym), x_bf16, lo, hi)
+    del dv, sym
+
+    plan, dv, (lo, hi) = plan_of(c_fp32, dev)
+    check(plan.g.num_buf == 4 and not plan.shared, "fp32 plan")
+    k1a = dv.k1_args(lo, hi)
+    sym, rows["k1_fp32"] = hold_decode(
+        f"huf_pc_decode (fp32, {hi - lo} chunks)", huf_pc.huf_pc_decode,
+        huf_pc.huf_pc_decode_plain, k1a, k1_table_bytes(k1a))
+    kinds = np.bincount(plan.g.kind[:, lo:hi].reshape(-1), minlength=3)
+    log(f"[kernels] fp32 first batch cells: {kinds[0]} stored, {kinds[1]} RLE, "
+        f"{kinds[2]} Huffman")
+    check(kinds[decode.KIND_STORED] > 0, "fp32 batch has no stored cells")
+    rows["k2_4"] = hold_combine("combine_cells (4 planes)", plan,
+                                dv.k2_args(lo, hi, sym), x_fp32, lo, hi)
+    del dv, sym, k1a
+
+    plan, dv, (lo, hi) = plan_of(c_shared, dev)
+    check(plan.shared, "the shared-table container does not take the shared plan")
+    _, rows["k6"] = hold_decode(
+        f"huf_shared_decode (bf16 shared, {hi - lo} chunks)",
+        huf_shared.huf_shared_decode, huf_shared.huf_shared_decode_plain,
+        dv.k6_args(lo, hi), 512)
+    del dv
+
+    # ---- 3. fixtures ----------------------------------------------------
+    fix = ROOT / "tests" / "fixtures"
+    for fx in ("bf16_gauss", "fp16_mixed", "fp8_gauss", "fp32_gauss"):
+        got = ZipNN(engine="cuda").decompress((fix / f"{fx}.znn").read_bytes())
+        check(bytes(got) == (fix / f"{fx}.raw").read_bytes(), fx)
+        log(f"[fixtures] {fx}: bit-exact ({decode.last_timings['decoder']})")
+    for i, dt in enumerate((torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+                            torch.float32)):
+        x = synth(dt, SMALL_MIB << 20, args.seed + 1 + i)
+        comp = ZipNN(input_format="torch", engine="numpy",
+                     huffman_table="shared").compress(x)
+        y = ZipNN(input_format="torch", engine="cuda").decompress(comp)
+        check(decode.last_timings["decoder"] == "huf_shared_decode", f"shared {dt}")
+        check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)), f"shared {dt}")
+        log(f"[fixtures] shared-table {dt} {SMALL_MIB} MiB (ratio "
+            f"{len(comp) / (SMALL_MIB << 20):.4f}): bit-exact")
+
+    # ---- 4. the paths ---------------------------------------------------
+    paths = {
+        "bf16": drive("bf16 per-chunk", c_bf16, x_bf16,
+                      ("huf_pc_decode", "combine_cells"), (), smi),
+        "fp32": drive("fp32 per-chunk", c_fp32, x_fp32,
+                      ("huf_pc_decode", "combine_cells"), (), smi),
+        "shared": drive("bf16 shared", c_shared, x_bf16,
+                        ("huf_shared_decode", "combine_cells"), ("huf_pc_decode",), smi),
+    }
+    del c_bf16, c_fp32, c_shared, x_fp32
 
     # ---- 5. corruption --------------------------------------------------
-    comp = (fix / "bf16_gauss.znn").read_bytes()
-    zc = ZipNN(engine="cuda")
-    after = zc._retrieve_header(memoryview(comp))
-    cplan = decode.build_plan(memoryview(comp)[after:], 2, zc._bit_reorder,
-                              zc._byte_reorder, zc.compression_chunk, zc.original_len)
-    k = 1
-    s0 = after + int(cplan.starts[k])
-    ln = int(cplan.lens[k])
-    exp = None
-    for bit in range(8 * (ln // 2), 8 * ln - 8):
-        bad = bytearray(comp)
-        bad[s0 + bit // 8] ^= 1 << (bit % 8)
-        try:
-            codec.decompress_payload_numpy(
-                memoryview(bytes(bad))[after:], 2, zc._bit_reorder,
-                zc._byte_reorder, zc.compression_chunk, zc.original_len)
-        except CorruptChunkError as e:
-            exp = (bytes(bad), e.plane, e.chunk)
-            break
-    check(exp is not None, "no bit flip found that the golden decoder rejects")
-    try:
-        ZipNN(engine="cuda").decompress(exp[0])
-    except CorruptChunkError as e:
-        check((e.plane, e.chunk, e.stream) == (exp[1], exp[2], k), (e, exp))
-        log(f"[corrupt] bit flip in stream {k} -> {e}")
-    else:
-        raise RuntimeError("chip_smoke check failed: corrupt container decoded")
+    check(corrupt_case("per-chunk bf16", (fix / "bf16_gauss.znn").read_bytes(), 1)
+          == "huf_pc_decode", "per-chunk corruption took the wrong decoder")
+    small = x_bf16[: 1 << 19]  # 4 chunks of 256 KB
+    c_small = ZipNN(input_format="torch", engine="numpy",
+                    huffman_table="shared").compress(small)
+    check(corrupt_case("shared bf16", c_small, 4 + 2) == "huf_shared_decode",
+          "shared corruption took the wrong decoder")
 
     # ---- 6. summary -----------------------------------------------------
-    log(f"[summary] K1 pallas_huf_pc -> huf_pc_decode: {launches['huf_pc_decode']} "
-        f"launches, plain match; K2 pallas_combine -> combine_cells: "
-        f"{launches['combine_cells']} launches, plain match; K3 pallas_gather "
-        f"row gather -> carried by huf_pc_decode (byte-offset reads): "
-        f"{launches['huf_pc_decode']} launches, plain match")
-    rows = [
-        {"name": "huf_pc_decode", "route": "cuda",
-         "source": "zipnn_tpu_torch/csrc/huf_pc.cu",
-         "replaces": "zipnn_tpu/ops/pallas_huf_pc.py:425 (K1); "
-                     "zipnn_tpu/ops/pallas_gather.py:84 (K3)",
-         "launches": launches["huf_pc_decode"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": 1e3 * k1_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "combine_cells", "route": "cuda",
-         "source": "zipnn_tpu_torch/csrc/combine.cu",
-         "replaces": "zipnn_tpu/ops/pallas_combine.py:249 (K2)",
-         "launches": launches["combine_cells"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": 1e3 * k2_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-         "library_ms": None},
+    def row(key, kname, source, replaces, path, launches):
+        return {"name": kname, "path": path, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, **rows[key],
+                "bound_by": "bytes", "library_ms": None}
+
+    k1 = "zipnn_tpu/ops/pallas_huf_pc.py:425 (K1); zipnn_tpu/ops/pallas_gather.py:84 (K3)"
+    k2 = "zipnn_tpu/ops/pallas_combine.py:249 (K2)"
+    out = [
+        row("k1_bf16", "huf_pc_decode", "zipnn_tpu_torch/csrc/huf_pc.cu", k1,
+            "bf16 per-chunk", paths["bf16"]["huf_pc_decode"]),
+        row("k1_fp32", "huf_pc_decode", "zipnn_tpu_torch/csrc/huf_pc.cu",
+            k1 + "; zipnn_tpu/ops/pallas_huf_pc.py:540 (K4)",
+            "fp32 per-chunk", paths["fp32"]["huf_pc_decode"]),
+        row("k6", "huf_shared_decode", "zipnn_tpu_torch/csrc/huf_shared.cu",
+            "zipnn_tpu/ops/pallas_huf.py:239 (K6); zipnn_tpu/ops/pallas_gather.py:84 (K3)",
+            "bf16 shared", paths["shared"]["huf_shared_decode"]),
+        row("k2_2", "combine_cells", "zipnn_tpu_torch/csrc/combine.cu", k2,
+            "bf16 per-chunk (2 planes)", paths["bf16"]["combine_cells"]),
+        row("k2_4", "combine_cells", "zipnn_tpu_torch/csrc/combine.cu",
+            k2 + "; zipnn_tpu/ops/pallas_gather.py:172 (K5)",
+            "fp32 per-chunk (4 planes)", paths["fp32"]["combine_cells"]),
     ]
-    log(json.dumps({"kernels": rows}))
+    for r in out:
+        log(f"[summary] {r['name']} ({r['path']}): {r['launches']} launches, "
+            f"{r['ms']:.3f} ms vs bound {r['bound_ms']:.4f} ms, plain match; "
+            f"replaces {r['replaces']}")
+    log(json.dumps({"kernels": out}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 
 The kernel's plain version fills cells as stored (payload bytes at an
 unaligned offset), RLE or Huffman (rows of the symbol buffer), then
-combines the planes; it is held bit-exactly against the JAX package's
-``jax_transforms.combine_device`` (full chunks) and the golden
-``byte_group.combine`` (every chunk, the odd-length tail included).  The
+combines 1, 2 or 4 planes; it is held bit-exactly against the JAX
+package's ``jax_transforms.combine_device`` (full chunks) and the golden
+``byte_group.combine`` (every chunk, ragged tails of 1-3 bytes
+included).  The
 CUDA kernel is held against the plain version on the card in
 ``test_torch_cuda.py``.
 """
@@ -80,14 +81,17 @@ def _run(args):
 
 @pytest.mark.parametrize(
     "num_buf,bit_reorder,total",
-    [(2, 1, 3 * CS + 301), (2, 0, 3 * CS + 302), (1, 1, 4 * CS + 7), (2, 1, 3 * CS)],
-    ids=["bf16-odd-tail", "fp16-even-tail", "fp8-tail", "bf16-full"],
+    [(2, 1, 3 * CS + 301), (2, 0, 3 * CS + 302), (1, 1, 4 * CS + 7), (2, 1, 3 * CS),
+     (4, 1, 3 * CS + 401), (4, 1, 3 * CS + 402), (4, 0, 3 * CS + 403), (4, 1, 4 * CS)],
+    ids=["bf16-odd-tail", "fp16-even-tail", "fp8-tail", "bf16-full",
+         "fp32-tail-1", "fp32-tail-2", "fp32-tail-3-no-rotation", "fp32-full"],
 )
 def test_plain_matches_golden_and_jax(num_buf, bit_reorder, total):
-    args, planes = _case(total, num_buf, 10, bit_reorder, seed=total)
+    mode = 220 if num_buf == 4 else 10
+    args, planes = _case(total, num_buf, mode, bit_reorder, seed=total)
     out = _run(args).numpy()
     np.testing.assert_array_equal(
-        out[:total], _golden(planes, total, num_buf, 10, bit_reorder)
+        out[:total], _golden(planes, total, num_buf, mode, bit_reorder)
     )
     assert not np.any(out[total:])  # word padding is written as zero
     full = total // CS
@@ -95,7 +99,7 @@ def test_plain_matches_golden_and_jax(num_buf, bit_reorder, total):
         np.stack([p.view("<u4") for p in planes[c]]) for c in range(full)
     ])  # [full, num_buf, plane_words]
     want = np.asarray(
-        jax_transforms.combine_device(jnp.asarray(pw), num_buf, 10, bit_reorder)
+        jax_transforms.combine_device(jnp.asarray(pw), num_buf, mode, bit_reorder)
     )
     np.testing.assert_array_equal(out[: full * CS].view("<u4").reshape(full, -1), want)
 
@@ -109,8 +113,14 @@ def test_plain_zero_fill_modes(byte_reorder):
 
 
 def test_four_planes_not_ported():
-    args, _ = _case(CS, 2, 10, 1, seed=3)
-    args = args[:7] + (4,) + args[8:]
-    with pytest.raises(NotImplementedError, match="M4"):
-        combine.combine_cells(*args, torch.zeros(CS, dtype=torch.uint8))
+    """Four planes take mode 220 only: the fp32 layout assembles (the
+    stored cell read at its unaligned payload offset), any other mode is
+    refused."""
+    total = CS + 3
+    args, planes = _case(total, 4, 220, 1, seed=3)
+    assert args[2].tolist()[:4] == [0, 2, 1, 0]  # stored, Huffman, RLE, stored
+    out = _run(args).numpy()
+    np.testing.assert_array_equal(out[:total], _golden(planes, total, 4, 220, 1))
+    with pytest.raises(ValueError, match="4 planes in mode 10"):
+        combine.combine_cells(*args[:8], 10, 1, torch.zeros(total + 1, dtype=torch.uint8))
 

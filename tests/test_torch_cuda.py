@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from zipnn_tpu_torch import CorruptChunkError, ZipNN
-from zipnn_tpu_torch.ops import combine, decode, huf_pc, kernels
+from zipnn_tpu_torch.ops import combine, decode, huf_pc, huf_shared, kernels
 from zipnn_tpu_torch.ops.byte_group import plane_lengths
 from zipnn_tpu_torch.ops.entropy import huf
 
@@ -83,6 +83,56 @@ def test_huf_pc_kernel_matches_plain(card):
     assert not want_bl.any()
 
 
+def _k6_inputs(sizes, seed, row, base):
+    """Cells of one shared table behind 0xFF junk bytes; cell i's output
+    at ``base + i * row`` (any alignment)."""
+    rng = np.random.default_rng(seed)
+    planes = [np.clip(rng.normal(100, 4, n), 0, 255).astype(np.uint8) for n in sizes]
+    lengths, vals, header, _ = huf.build_shared_table(
+        np.bincount(np.concatenate(planes), minlength=256))
+    parts, starts, lens, bits0, offs, olens = [], [], [], [], [], []
+    pos = 0
+    for i, (plane, n) in enumerate(zip(planes, sizes)):
+        blob = huf.compress_with_table(plane, lengths, vals, header)
+        rest = blob[len(header):]
+        ls = [int.from_bytes(rest[j : j + 2], "little") for j in (0, 2, 4)]
+        ls.append(len(rest) - 6 - sum(ls))
+        parts.append(b"\xff" * 29 + rest[6:])
+        pos += 29
+        o = base + i * row
+        for k, (ln, seg) in enumerate(zip(ls, huf.segment_sizes(n))):
+            s = rest[6 + sum(ls[:k]) : 6 + sum(ls[: k + 1])]
+            starts.append(pos)
+            lens.append(ln)
+            bits0.append(8 * (ln - 1) + s[-1].bit_length() - 1)
+            offs.append(o)
+            olens.append(seg)
+            pos += ln
+            o += seg
+    t = torch.from_numpy
+    return (
+        t(np.frombuffer(b"".join(parts), np.uint8).copy()), t(np.asarray(starts, np.int64)),
+        t(np.asarray(lens, np.int32)), t(np.asarray(bits0, np.int32)),
+        t(np.asarray(offs, np.int64)), t(np.asarray(olens, np.int32)),
+        t(huf_shared.expand_table8(header)), base + len(sizes) * row,
+    ), planes
+
+
+def test_huf_shared_kernel_matches_plain(card):
+    sizes = [4096, 4097, 1001, 777, 4098, 257, 101, 131072]
+    row, base = 131075, 3  # streams start at every output alignment
+    args, planes = _k6_inputs(sizes, seed=1, row=row, base=base)
+    want, want_bl = huf_shared.huf_shared_decode(*args)
+    got, got_bl = huf_shared.huf_shared_decode(*_to(args, card))
+    torch.cuda.synchronize()
+    for i, n in enumerate(sizes):
+        sl = slice(base + i * row, base + i * row + n)
+        assert torch.equal(got[sl].cpu(), want[sl]), i
+        assert torch.equal(want[sl], torch.from_numpy(planes[i])), i
+    assert torch.equal(got_bl.cpu(), want_bl)
+    assert not want_bl.any()
+
+
 def _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed, cs=1024):
     rng = np.random.default_rng(seed)
     n_chunks = -(-total // cs)
@@ -115,6 +165,8 @@ def _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed, cs=1024):
 @pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder,total", [
     (2, 10, 1, 3 * 1024 + 301), (2, 10, 0, 5 * 1024), (1, 10, 1, 4 * 1024 + 7),
     (2, 8, 0, 2 * 1024 + 500), (2, 1, 0, 2 * 1024 + 501),
+    (4, 220, 1, 3 * 1024 + 401), (4, 220, 1, 3 * 1024 + 402),
+    (4, 220, 0, 3 * 1024 + 403), (4, 220, 1, 4 * 1024),
 ])
 def test_combine_kernel_matches_plain(card, num_buf, byte_reorder, bit_reorder, total):
     args = _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed=total)
@@ -132,6 +184,8 @@ def _raw(dtype, nbytes, seed):
     if dtype == torch.float8_e4m3fn:
         return np.clip(rng.normal(56, 6, nbytes), 0, 255).astype(np.uint8)
     vals = (rng.standard_normal(nbytes // 2) * 0.05).astype(np.float32)
+    if dtype == torch.float32:
+        return vals[: nbytes // 4].view(np.uint8)
     if dtype == torch.bfloat16:
         return (vals.view(np.uint32) >> 16).astype(np.uint16).view(np.uint8)
     return vals.astype(np.float16).view(np.uint8)
@@ -150,6 +204,27 @@ def test_decode_on_card_matches_golden(card, dtype):
     assert kernels.launches["huf_pc_decode"] > 0 and kernels.launches["combine_cells"] > 0
     ms = decode.kernel_ms()
     assert ms["huf_pc_decode"] > 0 and ms["combine_cells"] > 0
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+                                   torch.float32])
+def test_both_profiles_decode_on_card(card, dtype, profile):
+    raw = _raw(dtype, 9 * CHUNK + 6004, seed=5)
+    x = torch.from_numpy(raw.copy()).view(dtype)
+    comp = ZipNN(input_format="torch", engine="numpy", compression_chunk=CHUNK,
+                 huffman_table=profile).compress(x)
+    kernels.reset_launches()
+    y = ZipNN(input_format="torch", engine="cuda").decompress(comp)
+    torch.cuda.synchronize()
+    assert y.is_cuda and y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8))
+    decoder = "huf_shared_decode" if profile == "shared" else "huf_pc_decode"
+    assert decode.last_timings["decoder"] == decoder
+    assert kernels.launches[decoder] > 0 and kernels.launches["combine_cells"] > 0
+    if profile == "shared":
+        assert kernels.launches["huf_pc_decode"] == 0
+    assert decode.kernel_ms()[decoder] > 0
 
 
 @pytest.mark.parametrize("raw", [
@@ -182,3 +257,29 @@ def test_corrupt_stream_raises_on_card(card):
         ZipNN(engine="cuda").decompress(bytes(bad))
     assert (got.value.plane, got.value.chunk, got.value.stream) == want
     assert want[2] == 1
+
+
+def test_corrupt_shared_stream_raises_on_card(card):
+    raw = _raw(torch.bfloat16, 4 * CHUNK, seed=6)
+    comp = bytes(ZipNN(engine="numpy", compression_chunk=CHUNK,
+                       huffman_table="shared").compress(raw.tobytes()))
+    z = ZipNN(engine="numpy")
+    after = z._retrieve_header(memoryview(comp))
+    plan = decode.build_plan(memoryview(comp)[after:], 2, 1, 10, CHUNK, raw.size)
+    assert plan.shared
+    s0, ln = after + int(plan.starts[6]), int(plan.lens[6])
+    for bit in range(8 * (ln // 2), 8 * (ln - 1)):
+        bad = bytearray(comp)
+        bad[s0 + bit // 8] ^= 1 << (bit % 8)
+        try:
+            ZipNN(engine="cuda", device="cpu").decompress(bytes(bad))
+        except CorruptChunkError as exc:
+            want = (exc.plane, exc.chunk, exc.stream)
+            break
+    else:
+        pytest.fail("no rejected bit flip found")
+    with pytest.raises(CorruptChunkError) as got:
+        ZipNN(engine="cuda").decompress(bytes(bad))
+    assert decode.last_timings["decoder"] == "huf_shared_decode"
+    assert (got.value.plane, got.value.chunk, got.value.stream) == want
+    assert want[2] == 2

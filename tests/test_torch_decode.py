@@ -3,12 +3,14 @@
 
 * decode: the port (``engine="cuda"``, ``device="cpu"``, so the kernels'
   plain versions run) against ``zipnn_tpu.ZipNN(engine="tpu")`` and
-  ``engine="numpy"`` and the committed libzstd-made fixtures, bit-exact;
+  ``engine="numpy"`` and the committed libzstd-made fixtures, bit-exact,
+  for bf16, fp16, fp8 and fp32 in both Huffman profiles;
 * encode: the port's golden encoder writes the same container bytes as
-  ``zipnn_tpu``'s ``engine="numpy"``;
+  ``zipnn_tpu``'s ``engine="numpy"``, per-chunk and shared-table (with
+  and without the sampled table);
 * errors: a flipped stream bit raises at the same (plane, chunk, stream)
-  as ``zipnn_tpu``; fp32 and shared-table containers and a missing GPU
-  raise instead of taking a host path;
+  as ``zipnn_tpu`` on both decode kernels; a missing GPU raises instead
+  of taking a host path;
 * isolation: the port imports neither ``jax`` nor ``zipnn_tpu``.
 """
 import ast
@@ -25,6 +27,7 @@ import zipnn_tpu
 import zipnn_tpu_torch
 from zipnn_tpu.errors import CorruptChunkError as RefCorrupt
 from zipnn_tpu_torch import CorruptChunkError, ZipNN
+from zipnn_tpu_torch.core import dtypes
 from zipnn_tpu_torch.ops import decode
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -96,18 +99,96 @@ def test_fixtures_decode_bit_exact(name):
 
 
 def test_fp32_fixture_numpy_engine_and_cuda_not_ported():
+    """The libzstd-made fp32 fixture (4 planes, per-chunk tables) decodes
+    bit-exactly in both engines."""
     comp = (FIXDIR / "fp32_gauss.znn").read_bytes()
     raw = (FIXDIR / "fp32_gauss.raw").read_bytes()
     assert bytes(_port(engine="numpy").decompress(comp)) == raw
-    with pytest.raises(NotImplementedError, match="M4"):
-        _port(engine="cuda").decompress(comp)
+    assert bytes(_port(engine="cuda").decompress(comp)) == raw
+    assert decode.last_timings["decoder"] == "huf_pc_decode"
 
 
 def test_shared_table_container_not_ported():
+    """A shared-table container from ``zipnn_tpu`` decodes bit-exactly
+    through the shared-table kernel's path."""
     raw = _raw("bfloat16", 4 * CHUNK, seed=11)
     comp = _ref_container(raw, "bfloat16", huffman_table="shared")
-    with pytest.raises(NotImplementedError, match="M5"):
-        _port(engine="cuda").decompress(comp)
+    assert bytes(_port(engine="cuda").decompress(comp)) == raw
+    assert decode.last_timings["decoder"] == "huf_shared_decode"
+
+
+DTYPES = ["bfloat16", "float16", "float8_e4m3fn", "float32"]
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_profiles_match_reference(dtype, profile):
+    nbytes = 3 * CHUNK + 4 * 97 + 3
+    raw = _raw(dtype, nbytes, seed=len(dtype))
+    comp = _ref_container(raw, dtype, huffman_table=profile)
+    got = bytes(_port(engine="cuda").decompress(comp))
+    assert got == raw
+    assert got == bytes(zipnn_tpu.ZipNN(engine="numpy").decompress(comp))
+    if profile == "shared":
+        assert decode.last_timings["decoder"] == "huf_shared_decode"
+
+
+def _unseen_byte_case(n_chunks: int, chunk: int) -> bytes:
+    """bf16 whose chunk 3 (never sampled at stride 8) holds an exponent
+    byte no sampled chunk has."""
+    raw = bytearray(_raw("bfloat16", n_chunks * chunk, seed=7))
+    raw[3 * chunk + 1] = 0x7F  # high byte of the first value in chunk 3
+    assert not any(raw[c * chunk + 1 :: 2][: chunk // 2].count(0x7F)
+                   for c in range(0, n_chunks, 8))
+    return bytes(raw)
+
+
+@pytest.mark.parametrize("stride", [1, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_shared_encoder_byte_identical(dtype, stride):
+    chunk = CHUNK if stride == 1 else 1024
+    n_chunks = 3 if stride == 1 else 520
+    raw = _raw(dtype, n_chunks * chunk - 5, seed=stride)
+    if stride == 8 and dtype == "bfloat16":
+        raw = _unseen_byte_case(n_chunks, chunk)
+    assert zipnn_tpu_torch.codec.shared_sample_stride(n_chunks) == stride
+    kw = dict(bytearray_dtype=dtype, compression_chunk=chunk, huffman_table="shared")
+    want = bytes(zipnn_tpu.ZipNN(engine="numpy", **kw).compress(raw))
+    engine = "numpy" if stride == 1 else "cuda"  # both run the golden encoder
+    assert _port(engine=engine, **kw).compress(raw) == want
+    if stride == 1:  # the payload, and the same from tables passed in
+        codec = zipnn_tpu_torch.codec
+        gr = dtypes.grouping_for_code(dtypes.from_any(dtype).code)
+        geo = (gr.num_buf, gr.bit_reorder, gr.byte_reorder,
+               codec.effective_chunk(chunk, gr.num_buf))
+        arr = np.frombuffer(raw, np.uint8)
+        payload = codec.compress_payload_numpy(arr, *geo, shared_tables=True)
+        assert want.endswith(payload)
+        preset = codec.shared_plane_tables(arr, *geo, codec.DEFAULT_THRESHOLD)
+        assert codec.compress_payload_numpy(
+            arr, *geo, shared_tables=True, preset_shared=preset) == payload
+    if stride == 1:
+        assert bytes(_port(engine="cuda").decompress(want)) == raw
+    elif dtype == "bfloat16":
+        types = np.frombuffer(want[32 : 32 + 2 * n_chunks], np.uint8).reshape(2, n_chunks)
+        assert types[1, 3] == 0 and types[1, 4] == 1  # the unseen byte stores raw
+
+
+def test_per_chunk_container_with_one_shared_header_takes_k6():
+    """Per-chunk tables that happen to agree (every chunk a permutation of
+    the first) take the shared-table kernel, like the JAX package's
+    ``_SharedPlan``."""
+    rng = np.random.default_rng(8)
+    first = rng.integers(40, 72, CHUNK).astype(np.uint8)  # 5-bit codes
+    raw = np.concatenate([rng.permutation(first) for _ in range(4)]).tobytes()
+    comp = _ref_container(raw, "float8_e4m3fn")
+    z = _port(engine="cuda")
+    after = z._retrieve_header(memoryview(comp))
+    plan = decode.build_plan(memoryview(comp)[after:], 1, z._bit_reorder,
+                             z._byte_reorder, z.compression_chunk, z.original_len)
+    assert plan.n_huf == 4 and plan.shared and plan.tlog_k <= 8
+    assert bytes(_port(engine="cuda").decompress(comp)) == raw
+    assert decode.last_timings["decoder"] == "huf_shared_decode"
 
 
 @pytest.mark.parametrize("fmt,dtype,nbytes,kw", [
@@ -187,6 +268,25 @@ def test_corrupt_stream_located_like_reference():
     assert (got.value.plane, got.value.chunk, got.value.stream) == (
         ref.plane, ref.chunk, ref.stream)
     assert ref.stream == 3
+
+
+def test_corrupt_shared_stream_located_like_reference():
+    raw = _raw("bfloat16", 3 * CHUNK, seed=22)
+    comp = _ref_container(raw, "bfloat16", huffman_table="shared")
+    for bad in _stream_bit_flips(comp, 4 * 1 + 2):  # stream 2 of HUF cell 1
+        try:
+            zipnn_tpu.ZipNN(engine="tpu").decompress(bad)
+        except RefCorrupt as exc:
+            ref = exc
+            break
+    else:
+        pytest.fail("no rejected bit flip found")
+    with pytest.raises(CorruptChunkError) as got:
+        _port(engine="cuda").decompress(bad)
+    assert decode.last_timings["decoder"] == "huf_shared_decode"
+    assert (got.value.plane, got.value.chunk, got.value.stream) == (
+        ref.plane, ref.chunk, ref.stream)
+    assert ref.stream == 2
 
 
 def test_cuda_device_without_gpu_raises():

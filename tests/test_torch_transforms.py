@@ -26,7 +26,7 @@ def _edge_words(n: int) -> np.ndarray:
     return w
 
 
-@pytest.mark.parametrize("fn", ["reorder_sign_16", "revert_sign_16"])
+@pytest.mark.parametrize("fn", ["reorder_sign_16", "revert_sign_16", "revert_sign_32"])
 def test_sign_rotation_matches_jax_and_numpy(fn):
     w = _edge_words(4099)
     got = _np(getattr(transforms, fn)(_t(w)))
@@ -52,4 +52,16 @@ def test_combine_2_matches_jax_and_numpy(bit_reorder):
     for c in range(3):
         pl = [planes[c, b].view(np.uint8) for b in range(2)]
         ref = byte_group.combine(pl, 512, 2, 10, bit_reorder)
+        np.testing.assert_array_equal(got[c].view(np.uint8), ref)
+
+
+@pytest.mark.parametrize("bit_reorder", [0, 1])
+def test_combine_4_matches_jax_and_numpy(bit_reorder):
+    planes = _edge_words(3 * 4 * 32).reshape(3, 4, 32)
+    got = _np(transforms.combine_4(_t(planes), bit_reorder))
+    want = np.asarray(jax_transforms.combine_device(jnp.asarray(planes), 4, 220, bit_reorder))
+    np.testing.assert_array_equal(got, want)
+    for c in range(3):
+        pl = [planes[c, b].view(np.uint8) for b in range(4)]
+        ref = byte_group.combine(pl, 512, 4, 220, bit_reorder)
         np.testing.assert_array_equal(got[c].view(np.uint8), ref)

@@ -2,9 +2,10 @@
 
 Lossless compression for AI model weights in the ``.znn`` container:
 byte-plane grouping with sign-bit rotation and per-chunk Huffman coding.
-The port decompresses reference-profile containers straight into GPU
-memory through hand-written CUDA kernels (``ops/huf_pc.py``,
-``ops/combine.py``, sources in ``csrc/``), and carries its own copy of the
+The port decompresses containers of both Huffman profiles (per-chunk and
+shared-table) straight into GPU memory through hand-written CUDA kernels
+(``ops/huf_pc.py``, ``ops/huf_shared.py``, ``ops/combine.py``, sources in
+``csrc/``), and carries its own copy of the
 format's host code, so it imports neither JAX nor the JAX package.
 """
 

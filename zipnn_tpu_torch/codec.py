@@ -20,8 +20,8 @@ Engines:
   kernels are ported.
 
 The golden encoder here is a copy of the JAX package's
-``codec.compress_payload_numpy`` (per-chunk table profile) and writes the
-same bytes for the same arguments.
+``codec.compress_payload_numpy`` (both the per-chunk table profile and the
+shared-table profile) and writes the same bytes for the same arguments.
 """
 from __future__ import annotations
 
@@ -36,6 +36,32 @@ from .ops.entropy import huf
 DEFAULT_THRESHOLD = 0.95
 HUF_CAP = 128 * 1024  # HUF block limit; planes larger than this store raw
 ENGINES = ("numpy", "cuda")
+
+# Shared-table profile: table-build sampling (format policy).  At >= 512
+# chunks a plane's Huffman table is built from every 8th chunk's plane
+# only, and a plane whose sampled expected code length cannot beat the
+# threshold is skipped wholesale ("hopeless": every cell raw, RLE still
+# applies).  Below 512 chunks every chunk feeds the table.
+SHARED_SAMPLE_MIN_CHUNKS = 512
+SHARED_SAMPLE_STRIDE = 8
+
+
+def shared_sample_stride(n_chunks: int) -> int:
+    """Chunk stride for the shared-table histogram (1 = every chunk)."""
+    return SHARED_SAMPLE_STRIDE if n_chunks >= SHARED_SAMPLE_MIN_CHUNKS else 1
+
+
+def shared_plane_hopeless(
+    count: np.ndarray, lengths: np.ndarray, threshold: float
+) -> bool:
+    """Plane-level skip rule, applied only when sampling is active: True
+    when the sampled expected code length >= 8 * threshold bits per symbol.
+    One IEEE-double expression, so the decision (and the container bytes)
+    does not depend on the engine."""
+    c = count.astype(np.int64)
+    bits = float(int((c * lengths.astype(np.int64)).sum()))
+    total = float(int(c.sum()))
+    return bits >= threshold * 8.0 * total
 
 
 def check_abandon_index(n_chunks: int, check_th_after_percent: int) -> Optional[int]:
@@ -90,13 +116,26 @@ def compress_payload_numpy(
     chunk_size: int,
     threshold: float = DEFAULT_THRESHOLD,
     check_th_after_percent: int = 0,
+    shared_tables: bool = False,
+    preset_shared=None,
 ) -> bytes:
     """Compress a flat uint8 buffer into the table+planes payload (no
-    header), one Huffman table per (plane, chunk) cell — the profile the
-    reference library writes."""
+    header).
+
+    By default one Huffman table per (plane, chunk) cell — the profile the
+    reference library writes.  ``shared_tables=True`` writes the
+    shared-table profile: one <=8-bit table per byte plane, built from the
+    plane's (sampled) histogram, its weight header repeated in every
+    Huffman cell; ``preset_shared`` passes the (tables, live) pair in
+    instead.  The shared profile ignores ``check_th_after_percent``.
+    """
     data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
     n = data.size
     n_chunks = num_chunks_for(n, chunk_size)
+    if shared_tables:
+        shared, live = preset_shared or shared_plane_tables(
+            data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold
+        )
 
     chunk_types = np.zeros((num_buf, n_chunks), dtype=np.uint8)
     chunk_sizes = np.zeros((num_buf, n_chunks), dtype=np.uint64)
@@ -104,14 +143,18 @@ def compress_payload_numpy(
     plane_sizes: List[List[int]] = [[] for _ in range(num_buf)]
 
     abandoned = np.zeros(num_buf, dtype=bool)
-    check_idx = check_abandon_index(n_chunks, check_th_after_percent)
+    check_idx = None if shared_tables else check_abandon_index(
+        n_chunks, check_th_after_percent)
     for c in range(n_chunks):
         chunk = data[c * chunk_size : min((c + 1) * chunk_size, n)]
         planes = byte_group.split(chunk, num_buf, byte_reorder, bit_reorder)
         for b in range(num_buf):
             plane = planes[b]
             plane_sizes[b].append(plane.size)
-            comp = None if abandoned[b] else huf.compress(plane)
+            if shared_tables:
+                comp = compress_cell_shared(plane, shared[b] if live[b] else None)
+            else:
+                comp = None if abandoned[b] else huf.compress(plane)
             if comp is not None and len(comp) < plane.size * threshold:
                 chunk_types[b, c] = 1
                 chunk_sizes[b, c] = len(comp)
@@ -132,6 +175,59 @@ def compress_payload_numpy(
     return b"".join(parts)
 
 
+def shared_plane_tables(
+    data: np.ndarray, num_buf: int, bit_reorder: int, byte_reorder: int,
+    chunk_size: int, threshold: float,
+):
+    """Per-plane shared tables and live flags of the shared profile.
+
+    Each plane's table comes from the byte histogram of its sampled chunks
+    (every ``shared_sample_stride``-th, from chunk 0); with sampling on, a
+    hopeless plane is not live.  Returns ([table or None] * num_buf,
+    [bool] * num_buf), a table being ``huf.build_shared_table``'s tuple.
+    """
+    n = data.size
+    n_chunks = num_chunks_for(n, chunk_size)
+    stride = shared_sample_stride(n_chunks)
+    counts = np.zeros((num_buf, 256), dtype=np.int64)
+    for c in range(0, n_chunks, stride):
+        chunk = data[c * chunk_size : min((c + 1) * chunk_size, n)]
+        for b, plane in enumerate(
+            byte_group.split(chunk, num_buf, byte_reorder, bit_reorder)
+        ):
+            if plane.size:
+                counts[b] += np.bincount(plane, minlength=256)
+    shared, live = [], []
+    for count in counts:
+        table = huf.build_shared_table(count) if count.sum() else None
+        alive = True
+        if stride > 1:
+            alive = table is not None and not shared_plane_hopeless(
+                count, table[0], threshold)
+        shared.append(table)
+        live.append(alive)
+    return shared, live
+
+
+def compress_cell_shared(plane: np.ndarray, table) -> Optional[bytes]:
+    """One cell of the shared profile: RLE for a single-symbol cell, the
+    shared table otherwise; None (store raw) when the table is missing or
+    lacks a code for a byte of the cell."""
+    n = plane.size
+    if n == 0:
+        return None
+    count = np.bincount(plane, minlength=256)
+    if int(count.max()) == n:
+        return bytes(plane[:1])  # 1-byte RLE block
+    if table is None:
+        return None
+    lengths, vals, header, _ = table
+    if int(lengths[plane].min()) == 0:
+        # sampled table: the cell holds a byte the sample never saw
+        return None
+    return huf.compress_with_table(plane, lengths, vals, header)
+
+
 def compress_payload(
     data: np.ndarray,
     num_buf: int,
@@ -141,6 +237,7 @@ def compress_payload(
     threshold: float = DEFAULT_THRESHOLD,
     engine: str = "cuda",
     check_th_after_percent: int = 0,
+    shared_tables: bool = False,
 ) -> bytes:
     """Engine-dispatched payload compress.  Both engines run the golden
     encoder: the encode kernels are not ported yet (ROADMAP queue 2)."""
@@ -149,6 +246,7 @@ def compress_payload(
     return compress_payload_numpy(
         data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
         check_th_after_percent=check_th_after_percent,
+        shared_tables=shared_tables,
     )
 
 

@@ -1,25 +1,33 @@
 // Plane assembly of decoded chunks: fill each (chunk, plane) cell as
-// stored, RLE or Huffman, interleave the planes and revert the bf16 sign
-// rotation, writing the output words in place.
+// stored, RLE or Huffman, interleave the planes and revert the bf16 or
+// fp32 sign rotation, writing the output words in place.
 //
 // Replaces the Pallas kernel zipnn_tpu/ops/pallas_combine.py
 // `_build_kernel` (K2, launched by `_combine_call_cached`).  The Pallas
 // kernel DMA'd tile-aligned rows and realigned stored cells in registers
-// because a TPU reads HBM in (8, 128) tiles; here a thread reads the bytes
-// it needs at any offset, so stored cells come straight from the payload
-// with no alignment pass.
+// because a TPU reads HBM in (8, 128) tiles, and its fp32 path needed a
+// separate alignment kernel for stored cells (zipnn_tpu/ops/pallas_gather.py
+// `_align_call_cached`, K5) and an XLA combine; here a thread reads the
+// bytes it needs at any offset, so stored cells of any plane count come
+// straight from the payload with no alignment pass.
 //
 // Design.  One thread produces one output uint32 word of one chunk: it
 // gathers its four bytes from the cells of that chunk (kind 0 stored:
 // payload at a byte offset; kind 1 RLE: the byte; kind 2 Huffman: the
 // symbols K1 wrote for that cell ordinal), applies byte_group.combine's
-// layout (mode 10 interleave, modes 1/8 zero-fill) and the inverse sign
-// rotation.  In the ragged tail chunk only the first chunk_len / 4 words
-// are reverted, the trailing 1-3 bytes pass through unrotated, and bytes
-// past the chunk's end are written as zero (they are the output's padding).
+// layout (mode 10: byte p from plane p & 1; mode 220: byte p from plane
+// p & 3 at index p >> 2, so word j takes byte j of each of the 4 planes
+// and neighbouring threads read neighbouring bytes of every plane; modes
+// 1/8 zero-fill) and the inverse sign rotation (16-bit lanes for 2 planes,
+// 32-bit for 4).  In the ragged tail chunk plane b holds q + (b < r) bytes
+// (chunk_len = num_buf * q + r), only the first chunk_len / 4 words are
+// reverted, the trailing 1-3 bytes pass through unrotated, and bytes past
+// the chunk's end are written as zero (they are the output's padding).
 //
 // What bounds it: bytes.  Each output byte reads one plane byte, so the
 // least traffic is the output written once plus the plane bytes read once.
+// The 4-plane form reads four cell descriptors per word where the 2-plane
+// one reads two; they sit in L1 for the whole chunk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +39,23 @@ __device__ __forceinline__ uint32_t revert_sign_16(uint32_t w) {
   const uint32_t exp = (w >> 1) & 0x7F807F80u;
   const uint32_t man = w & 0x007F007Fu;
   return sign | exp | man;
+}
+
+__device__ __forceinline__ uint32_t revert_sign_32(uint32_t w) {
+  const uint32_t sign = (w << 8) & 0x80000000u;
+  const uint32_t exp = (w >> 1) & 0x7F800000u;
+  const uint32_t man = w & 0x007FFFFFu;
+  return sign | exp | man;
+}
+
+// byte_group.plane_lengths: bytes of plane b in a chunk of chunk_len bytes
+__device__ __forceinline__ int64_t plane_len(int64_t chunk_len, int num_buf,
+                                             int byte_reorder, int b) {
+  if (num_buf == 2 && byte_reorder != 10) return b ? 0 : chunk_len >> 1;
+  const int shift = num_buf == 4 ? 2 : num_buf - 1;  // num_buf is 1, 2 or 4
+  const int64_t q = chunk_len >> shift;
+  const int64_t r = chunk_len & (num_buf - 1);
+  return q + (b < r ? 1 : 0);
 }
 
 __global__ void combine_cells_kernel(
@@ -54,19 +79,6 @@ __global__ void combine_cells_kernel(
   const int64_t rem = total_bytes - c * chunk_size;
   const int64_t chunk_len = rem < chunk_size ? rem : chunk_size;
 
-  // plane lengths of this chunk (byte_group.plane_lengths)
-  int64_t plen0, plen1;
-  if (num_buf == 2 && byte_reorder != 10) {
-    plen0 = chunk_len >> 1;
-    plen1 = 0;
-  } else if (num_buf == 2) {
-    plen0 = (chunk_len + 1) >> 1;
-    plen1 = chunk_len >> 1;
-  } else {
-    plen0 = chunk_len;
-    plen1 = 0;
-  }
-
   uint32_t w = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -77,6 +89,9 @@ __global__ void combine_cells_kernel(
     if (num_buf == 1) {
       b = 0;
       i = p;
+    } else if (num_buf == 4) {
+      b = (int)(p & 3);
+      i = p >> 2;
     } else if (byte_reorder == 10) {
       b = (int)(p & 1);
       i = p >> 1;
@@ -86,7 +101,7 @@ __global__ void combine_cells_kernel(
       b = 0;
       i = p >> 1;
     }
-    if (i >= (b ? plen1 : plen0)) continue;
+    if (i >= plane_len(chunk_len, num_buf, byte_reorder, b)) continue;
     const int64_t cell = c * num_buf + b;
     const int kind = kinds[cell];
     const int64_t src = srcs[cell];
@@ -100,7 +115,10 @@ __global__ void combine_cells_kernel(
     }
     w |= v << (8 * q);
   }
-  if (bit_reorder && num_buf == 2 && j < (chunk_len >> 2)) w = revert_sign_16(w);
+  if (bit_reorder && j < (chunk_len >> 2)) {
+    if (num_buf == 2) w = revert_sign_16(w);
+    if (num_buf == 4) w = revert_sign_32(w);
+  }
   out[g] = w;
 }
 

@@ -10,8 +10,9 @@ The counterpart of the JAX package's ``ops/pallas_combine.py``.  Each
   ``huf_pc.huf_pc_decode`` wrote (row stride ``hsym_row`` bytes).
 
 The planes are then combined as ``byte_group.combine`` does (mode 10
-interleave, modes 1/8 zero-fill, the bf16 sign rotation reverted on the
-whole words of each chunk).  Chunks are ``chunk_size`` bytes except a
+interleave of 2 planes, modes 1/8 zero-fill, mode 220 interleave of 4
+planes, the bf16 or fp32 sign rotation reverted on the whole words of
+each chunk).  Chunks are ``chunk_size`` bytes except a
 ragged last one; the output is written as words, so up to 3 bytes past
 ``total_bytes`` are written (as zero).
 """
@@ -44,9 +45,9 @@ def combine_cells(
     """
     dev = out.device
     n_chunks = -(-total_bytes // chunk_size)
-    if num_buf not in (1, 2):
-        raise NotImplementedError(
-            f"combine_cells: {num_buf} planes (fp32 is ROADMAP queue 1, M4)"
+    if num_buf not in (1, 2, 4) or (num_buf == 4 and byte_reorder != 220):
+        raise ValueError(
+            f"combine_cells: {num_buf} planes in mode {byte_reorder} not supported"
         )
     if chunk_size % 4:
         raise ValueError(f"combine_cells: chunk_size {chunk_size} is not a multiple of 4")
@@ -97,8 +98,9 @@ def combine_cells_plain(
     total_bytes: int, num_buf: int, byte_reorder: int, bit_reorder: int, out,
 ):
     """Plain PyTorch version: per chunk, fill the planes, then combine them
-    with ``transforms.combine_2`` (mode 10) or a strided copy (modes 1/8)
-    and revert the rotation on the chunk's whole words."""
+    with ``transforms.combine_2`` (mode 10), ``transforms.combine_4`` (mode
+    220) or a strided copy (modes 1/8) and revert the rotation on the
+    chunk's whole words."""
     n_chunks = -(-total_bytes // chunk_size)
     kinds_h = kinds.cpu().tolist()
     srcs_h = srcs.cpu().tolist()
@@ -116,16 +118,16 @@ def combine_cells_plain(
         if num_buf == 1:
             dst.copy_(planes[0])
             continue
-        if byte_reorder == 10:
-            # transforms.combine_2 on the planes zero-padded to whole words
-            # (plane 0 is the longer one); the rotation is reverted below,
-            # on the chunk's whole words only
-            pw = torch.zeros((2, -(-lens[0] // 4) * 4), dtype=torch.uint8,
+        if byte_reorder in (10, 220):
+            # the word combine on the planes zero-padded to whole words
+            # (plane 0 is the longest); the rotation is reverted below, on
+            # the chunk's whole words only
+            pw = torch.zeros((num_buf, -(-lens[0] // 4) * 4), dtype=torch.uint8,
                              device=dst.device)
-            pw[0, : lens[0]] = planes[0]
-            pw[1, : lens[1]] = planes[1]
-            dst.copy_(transforms.combine_2(pw.view(torch.int32), 0)
-                      .view(torch.uint8)[:clen])
+            for b in range(num_buf):
+                pw[b, : lens[b]] = planes[b]
+            comb = transforms.combine_2 if num_buf == 2 else transforms.combine_4
+            dst.copy_(comb(pw.view(torch.int32), 0).view(torch.uint8)[:clen])
         else:
             keep = 0 if byte_reorder == 1 else 1
             dst.zero_()
@@ -133,5 +135,6 @@ def combine_cells_plain(
         if bit_reorder:
             nw = clen // 4
             words = dst[: 4 * nw].view(torch.int32)
-            words.copy_(transforms.revert_sign_16(words))
+            revert = transforms.revert_sign_16 if num_buf == 2 else transforms.revert_sign_32
+            words.copy_(revert(words))
     return out

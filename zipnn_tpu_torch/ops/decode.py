@@ -1,25 +1,28 @@
-"""Decompress a reference-profile container straight into device memory.
+"""Decompress a container straight into device memory.
 
-The counterpart of the JAX package's ``ops/jax_decode.py`` for containers
-with per-chunk Huffman tables (what the reference library writes):
+The counterpart of the JAX package's ``ops/jax_decode.py`` for both
+Huffman profiles (per-chunk tables, what the reference library writes,
+and the shared-table profile of ``huffman_table="shared"``) and every
+plane count (fp8: 1, bf16/fp16: 2, fp32: 4):
 
 1. **Host plan** (:class:`Geometry`, :class:`Plan`): parse the chunk
    tables, classify every (plane, chunk) cell as stored, RLE or Huffman —
    the ragged tail chunk included — slice every Huffman cell's header and
-   jump table vectorised, and parse each cell's decode table once.
+   jump table vectorised, and parse each distinct decode table once.
 2. **One upload** of the payload bytes, the per-stream arrays and the
    tables.
-3. **Chunk-range batches**: per batch, kernel K1 (``huf_pc.huf_pc_decode``)
-   decodes the batch's Huffman streams into symbol rows, then kernel K2
-   (``combine.combine_cells``) assembles the batch's chunks into the
-   output buffer in place.
+3. **Chunk-range batches**: per batch, a decode kernel writes the batch's
+   Huffman streams into symbol rows — K6 (``huf_shared.huf_shared_decode``)
+   when every Huffman cell carries one weight header with tableLog <= 8
+   (:func:`takes_shared_table`), else K1 (``huf_pc.huf_pc_decode``) — then
+   kernel K2 (``combine.combine_cells``) assembles the batch's chunks into
+   the output buffer in place.
 4. **End-of-stream check**: every stream must end with ``bits_left == 0``;
    the first that does not raises ``CorruptChunkError(plane, chunk,
    stream)``.
 
 On CPU tensors the kernels' plain versions run, so the same pipeline
-decodes on the host for the tests.  Shared-table containers and fp32 (4
-planes) are later slices of the port and raise ``NotImplementedError``.
+decodes on the host for the tests.
 """
 from __future__ import annotations
 
@@ -32,14 +35,14 @@ import torch
 
 from .. import codec
 from ..errors import CorruptChunkError
-from . import combine, huf_pc
+from . import combine, huf_pc, huf_shared
 
 KIND_STORED, KIND_RLE, KIND_HUF = 0, 1, 2
-SHARED_TLOG_MAX = 8  # the shared-table profile's table limit
 BATCH_BYTES = 512 << 20  # output bytes per device batch
 
 # what the last decompress_payload call spent, for callers that report it:
-# plan_s / upload_s (host clock), and on CUDA the K1 / K2 event pairs
+# plan_s / upload_s (host clock), the decode kernel's name, and on CUDA
+# the decode / K2 event pairs
 last_timings: Dict = {}
 
 
@@ -152,10 +155,14 @@ class Plan:
                 str(exc), plane=int(bb[i]), chunk=int(cc[i])
             ) from exc
         self.tables, self.tlogs = tables, tlogs
-        self.shared = (
-            n >= 2 and self.tlog_k <= SHARED_TLOG_MAX
-            and len(set(headers)) == 1
-        )
+        self.shared = takes_shared_table(headers, self.tlog_k)
+        self.table8 = None
+        if self.shared:
+            try:
+                self.table8 = huf_shared.expand_table8(headers[0])
+            except ValueError as exc:
+                raise CorruptChunkError(str(exc), plane=int(bb[0]),
+                                        chunk=int(cc[0])) from exc
         self.starts = starts4.reshape(-1)
         self.lens = lens4.reshape(-1).astype(np.int32)
         self.bits0 = huf_pc.sentinel_bits(last.reshape(-1), self.lens)
@@ -189,6 +196,18 @@ class Plan:
                 int(np.searchsorted(self.huf_c, hi)))
 
 
+def takes_shared_table(headers, tlog_k: int) -> bool:
+    """Whether a plan's Huffman cells go to the shared-table kernel K6.
+
+    The rule of the JAX package's ``_SharedPlan.build``: every Huffman
+    cell carries the same weight header bytes, with tableLog <= 8 — so a
+    per-chunk container whose tables happen to agree takes K6 as well,
+    whatever encoder wrote it.  ``tlog_k`` is the largest tableLog.
+    """
+    return (len(headers) > 0 and tlog_k <= huf_shared.TMAX
+            and len(set(headers)) == 1)
+
+
 def batch_chunks(chunk_size: int) -> int:
     """Chunks per device batch: BATCH_BYTES of output bounds the symbol
     buffer and the rest of a batch's working set."""
@@ -214,31 +233,21 @@ def check_streams(plan: Plan, bits_left: np.ndarray) -> None:
 
 def build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
                orig_size) -> Optional[Plan]:
-    """Host plan of a container, or None when it holds no bytes.  Raises
-    ``NotImplementedError`` for the parts of the format later slices
-    port."""
-    if num_buf not in (1, 2):
-        raise NotImplementedError(
-            f"{num_buf}-plane (fp32) containers are not ported to the CUDA "
-            "engine yet (ROADMAP queue 1, M4 fp32); use engine='numpy'"
-        )
+    """Host plan of a container, or None when it holds no bytes."""
+    if num_buf not in (1, 2, 4):
+        raise ValueError(f"unsupported plane count {num_buf}")
     if chunk_size % 4:
         raise NotImplementedError(f"chunk size {chunk_size} is not a multiple of 4")
     if orig_size == 0:
         return None
-    plan = Plan(Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder,
+    return Plan(Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder,
                          byte_reorder))
-    if plan.shared:
-        raise NotImplementedError(
-            "shared-table containers are not ported to the CUDA engine yet "
-            "(ROADMAP queue 1, M5 shared-table decode); use engine='numpy'"
-        )
-    return plan
 
 
 class DeviceInputs:
     """A plan's arrays on the device: the payload bytes, the per-stream
-    arrays, the tables and K2's cell descriptors, uploaded once."""
+    arrays, the decode kernel's tables and K2's cell descriptors, uploaded
+    once."""
 
     def __init__(self, plan: Plan, device: torch.device):
         def up(a):
@@ -252,20 +261,41 @@ class DeviceInputs:
         self.payload = up(plan.g.payload_np)
         self.starts, self.lens, self.bits0 = up(plan.starts), up(plan.lens), up(plan.bits0)
         self.out_offs, self.out_lens = up(plan.out_offs), up(plan.out_lens)
-        self.cells, self.tlogs, self.tables = up(plan.cells), up(plan.tlogs), up(plan.tables)
+        if plan.shared:
+            self.table8 = up(plan.table8)
+        else:
+            self.cells, self.tlogs, self.tables = (
+                up(plan.cells), up(plan.tlogs), up(plan.tables))
         self.kinds, self.srcs = up(plan.kinds), up(plan.srcs)
+
+    def decoder(self):
+        """(name, wrapper, arguments of chunks [lo, hi)) of the plan's
+        decode kernel: K6 for a shared-table plan, else K1."""
+        if self.plan.shared:
+            return "huf_shared_decode", huf_shared.huf_shared_decode, self.k6_args
+        return "huf_pc_decode", huf_pc.huf_pc_decode, self.k1_args
+
+    def _streams(self, lo: int, hi: int):
+        plan = self.plan
+        h0, h1 = plan.cell_range(lo, hi)
+        s = slice(4 * h0, 4 * h1)
+        return h0, h1, (
+            self.payload, self.starts[s], self.lens[s], self.bits0[s],
+            self.out_offs[s] - h0 * plan.row, self.out_lens[s],
+        )
 
     def k1_args(self, lo: int, hi: int):
         """``huf_pc_decode`` arguments for the Huffman cells of chunks
         [lo, hi): symbol rows numbered from the batch's first cell."""
-        plan = self.plan
-        h0, h1 = plan.cell_range(lo, hi)
-        s = slice(4 * h0, 4 * h1)
-        return (
-            self.payload, self.starts[s], self.lens[s], self.bits0[s],
-            self.out_offs[s] - h0 * plan.row, self.out_lens[s], self.cells[s],
-            self.tlogs, self.tables, (h1 - h0) * plan.row,
-        )
+        h0, h1, st = self._streams(lo, hi)
+        return (*st, self.cells[4 * h0 : 4 * h1], self.tlogs, self.tables,
+                (h1 - h0) * self.plan.row)
+
+    def k6_args(self, lo: int, hi: int):
+        """``huf_shared_decode`` arguments for the Huffman cells of chunks
+        [lo, hi), numbered as in :meth:`k1_args`."""
+        h0, h1, st = self._streams(lo, hi)
+        return (*st, self.table8, (h1 - h0) * self.plan.row)
 
     def k2_args(self, lo: int, hi: int, hsym: torch.Tensor):
         """``combine_cells`` arguments (all but ``out``) for chunks [lo, hi)."""
@@ -321,11 +351,13 @@ def decompress_payload(
         ev.record(stream)
         return ev
 
+    name, decode_fn, args_of = dv.decoder()
+    last_timings["decoder"] = name
     events = []
     bits_parts = []
     for lo, hi in plan_batches(plan.g.n_chunks, chunk_size):
         e0 = mark()
-        hsym, bl = huf_pc.huf_pc_decode(*dv.k1_args(lo, hi))
+        hsym, bl = decode_fn(*args_of(lo, hi))
         e1 = mark()
         combine.combine_cells(*dv.k2_args(lo, hi, hsym), out[lo * chunk_size :])
         events.append((e0, e1, mark()))
@@ -337,13 +369,14 @@ def decompress_payload(
 
 
 def kernel_ms() -> Dict[str, float]:
-    """K1 / K2 device milliseconds of the last CUDA decompress (summed over
-    batches); synchronises on the recorded events."""
-    k1 = k2 = 0.0
+    """Device milliseconds of the last CUDA decompress by kernel name (its
+    decode kernel, K1 or K6, and K2; summed over batches); synchronises on
+    the recorded events."""
+    dec = k2 = 0.0
     for ev in last_timings.get("events", []):
         if ev[0] is None:
             continue
         ev[2].synchronize()
-        k1 += ev[0].elapsed_time(ev[1])
+        dec += ev[0].elapsed_time(ev[1])
         k2 += ev[1].elapsed_time(ev[2])
-    return {"huf_pc_decode": k1, "combine_cells": k2}
+    return {last_timings.get("decoder", "huf_pc_decode"): dec, "combine_cells": k2}

@@ -26,7 +26,9 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-launches: Dict[str, int] = {"huf_pc_decode": 0, "combine_cells": 0}
+launches: Dict[str, int] = {
+    "huf_pc_decode": 0, "huf_shared_decode": 0, "combine_cells": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -38,6 +40,9 @@ _SIGNATURES = {
     # payload, starts, lens, bits0, out_offs, out_lens, cells, tlogs,
     # tables, table_stride, n_streams, out, bits_left, stream
     "huf_pc_decode": [_P] * 9 + [_L, _I, _P, _P, _P],
+    # payload, starts, lens, bits0, out_offs, out_lens, table, n_streams,
+    # out, bits_left, stream
+    "huf_shared_decode": [_P] * 7 + [_I, _P, _P, _P],
     # payload, hsym, kinds, srcs, hsym_row, chunk_size, total_bytes,
     # num_buf, byte_reorder, bit_reorder, out, stream
     "combine_cells": [_P] * 4 + [_L, _L, _L, _I, _I, _I, _P, _P],

@@ -2,10 +2,11 @@
 
 The torch counterpart of the JAX package's ``ops/jax_transforms.py``: the
 bf16 sign-bit rotation (reference csrc/data_manipulation_dtype16.c:10-20,
-145-155) and the 2-plane combine (dtype16.c:167-216) on words.  These are
-the plain versions the combine kernel (``ops/combine.py``) is held
-against (``combine_2`` and ``revert_sign_16`` are what its plain version
-runs), and they run on any device.
+145-155), its fp32 inverse (dtype32.c:275-285), and the 2- and 4-plane
+combines (dtype16.c:167-216, dtype32.c:391-456) on words.  These are the
+plain versions the combine kernel (``ops/combine.py``) is held against
+(``combine_2``, ``combine_4`` and the sign reverts are what its plain
+version runs), and they run on any device.
 
 Words are int32 tensors carrying the uint32 bit pattern (little-endian
 bytes, as a host ``np.view("<u4")``).  PyTorch has no shifts or
@@ -47,6 +48,16 @@ def revert_sign_16(words: torch.Tensor) -> torch.Tensor:
     return _w(sign | exp | man)
 
 
+def revert_sign_32(words: torch.Tensor) -> torch.Tensor:
+    """fp32 lanes: [e8 s m23] -> [s e8 m23] (inverse of the encoder's
+    ``reorder_sign_32``)."""
+    w = _u(words)
+    sign = (w << 8) & 0x80000000
+    exp = (w >> 1) & 0x7F800000
+    man = w & 0x7FFFFF
+    return _w(sign | exp | man)
+
+
 def _bytes_of(w: torch.Tensor):
     return w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF, (w >> 24) & 0xFF
 
@@ -69,3 +80,17 @@ def combine_2(planes: torch.Tensor, bit_reorder: int) -> torch.Tensor:
     w = _w(torch.stack([lo, hi], dim=-1).flatten(-2))
     return revert_sign_16(w) if bit_reorder else w
 
+
+
+def combine_4(planes: torch.Tensor, bit_reorder: int) -> torch.Tensor:
+    """4-plane combine of full chunks (mode 220): [..., 4, n] -> [..., 4n]
+    words.
+
+    Byte ``p`` of the chunk is byte ``p >> 2`` of plane ``p & 3``; the fp32
+    sign rotation is reverted afterwards when ``bit_reorder`` is set.
+    """
+    p = _u(planes)
+    by = [_bytes_of(p[..., b, :]) for b in range(4)]  # [plane][word byte]
+    words = [_pack4(by[0][i], by[1][i], by[2][i], by[3][i]) for i in range(4)]
+    w = _w(torch.stack(words, dim=-1).flatten(-2))
+    return revert_sign_32(w) if bit_reorder else w

@@ -11,10 +11,13 @@ an explicit ``device``:
   model on the host.  Compress runs the golden encoder in both engines.
 * ``input_format="torch"`` returns a tensor on ``device`` (on the host
   with ``engine="numpy"``); ``"byte"`` and ``"numpy"`` return host data.
+* ``huffman_table="per_chunk"`` (default, the reference library's
+  profile) or ``"shared"`` (one <=8-bit table per byte plane, its header
+  repeated in every Huffman cell) selects the profile compress writes;
+  decompress takes either, for every dtype (fp32 included).
 
 Not in this slice of the port (ROADMAP queue 1): streaming frames, delta
-and lossy modes, the zstd/lz4/snappy whole-buffer methods, the shared
-Huffman-table profile and the fp32 CUDA decode.
+and lossy modes, the zstd/lz4/snappy whole-buffer methods.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ class ZipNN:
         compression_chunk: int = 256 * 1024,
         engine: str = "cuda",
         device="cuda",
+        huffman_table: str = "per_chunk",
     ):
         """Configure a compressor/decompressor (knobs as the reference's)."""
         self.method = EnumMethod(method).value
@@ -68,6 +72,9 @@ class ZipNN:
         if engine not in codec.ENGINES:
             raise ValueError(f"engine must be one of {codec.ENGINES}, got {engine!r}")
         self.engine = engine
+        if huffman_table not in ("per_chunk", "shared"):
+            raise ValueError("huffman_table must be 'per_chunk' or 'shared'")
+        self.huffman_table = huffman_table
         self.device = torch.device(device)
         if self.engine == "cuda" and self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -134,6 +141,7 @@ class ZipNN:
             arr, grouping.num_buf, grouping.bit_reorder, grouping.byte_reorder,
             chunk, self.compression_threshold, self.engine,
             check_th_after_percent=self.check_th_after_percent,
+            shared_tables=self.huffman_table == "shared",
         )
         prefix = HEADER_LEN + hdr.ext_len()
         hdr.total_len = prefix + len(payload)
