@@ -11,11 +11,20 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of its path's first batch (bit-exact): ``huf_pc_decode`` on the
    bf16 and fp32 paths, ``huf_shared_decode`` on the shared-table path,
-   ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32);
+   ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32), and the
+   encode kernels ``const_scan_rows`` and ``huf_shared_encode`` on the bf16
+   shared encode path (stream bytes and ``total_bits``);
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
    written by the port's golden encoder) through ``ZipNN(engine="cuda")``;
+   encode the same four inputs on the card, from host and CUDA tensors,
+   byte-equal to the golden containers and decoded back bit-exact; and a
+   bf16 input of 520 small chunks (stride 8) with an uncodeable cell (a
+   non-sampled chunk holding an exponent byte no sampled chunk has: it
+   must store raw) and a constant cell on the hopeless plane (RLE),
+   byte-equal to the golden container; and bf16 and fp32 inputs of 530
+   chunks of 256 B, encoded on the card byte-equal to the golden ones;
 4. three paths at full width, each decompressed by
    ``ZipNN(input_format="torch", engine="cuda")`` into a CUDA tensor that
    must equal the original, with the kernels' launches counted from 0 for
@@ -29,9 +38,24 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    (cached in ``zipnn_tpu_torch/_build/``);
 5. a flipped bit inside a Huffman stream, per-chunk and shared-table, must
    raise ``CorruptChunkError`` naming the plane and chunk the golden
-   decoder names, and the stream.
+   decoder names, and the stream;
+6. the shared-table encode at full width, each container byte-equal to the
+   golden encoder's (cached in ``_build/`` too), the launch counts set to 0
+   just before the counted call and read just after:
+   a. bf16 (``--mib`` MiB + 6002 bytes) from a CUDA tensor: must launch
+      ``const_scan_rows`` and ``huf_shared_encode``, upload none of the
+      input (only the tables and fetch indices, under 1/1000 of its size)
+      and fetch less than the container plus 1 MiB (no host copy of the
+      full chunks), and decode back bit-exact; then once from the host
+      tensor;
+   b. fp32 (``--mib`` MiB + 6004 bytes) from a CUDA tensor (4-plane split);
+   c. bf16 again with a batch bound of half its size (256 MiB at the
+      default ``--mib``, set through ``encode.batch_chunks``): at least
+      two batches.
 
-It prints a ``kernels`` JSON line, the card's name and power limit, and as
+Each encode path prints its phase times (split, histogram, K8, K7, fetch,
+splice) and end-to-end GB/s beside the golden encoder's seconds.  It
+prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the exit code is not 0 and no result line is printed.
 """
@@ -113,6 +137,9 @@ def synth(dtype: torch.dtype, nbytes: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(vals).to(dtype)
 
 
+GOLDEN_S: dict = {}  # golden-encoder seconds of the containers made this run
+
+
 def compressed(cache_dir: Path, tag: str, x: torch.Tensor, profile: str) -> bytes:
     """``x`` compressed by the golden encoder, cached in ``cache_dir``."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
@@ -127,7 +154,8 @@ def compressed(cache_dir: Path, tag: str, x: torch.Tensor, profile: str) -> byte
                      huffman_table=profile).compress(x)
         cache.parent.mkdir(parents=True, exist_ok=True)
         cache.write_bytes(comp)
-        how = f"compressed in {time.perf_counter() - t0:.1f} s"
+        GOLDEN_S[(tag, profile)] = time.perf_counter() - t0
+        how = f"compressed in {GOLDEN_S[(tag, profile)]:.1f} s"
     n = x.numel() * x.element_size()
     log(f"[{tag}] {n} bytes {x.dtype} ({profile}) -> {len(comp)} bytes "
         f"(ratio {len(comp) / n:.4f}), {how}")
@@ -273,6 +301,184 @@ def corrupt_case(label, comp: bytes, stream: int):
     raise RuntimeError(f"chip_smoke check failed: corrupt {label} container decoded")
 
 
+def encode_first_batch(x_cpu: torch.Tensor, dev):
+    """The bf16 shared encode path's first batch on the card: its split
+    planes [k, 2, W], the live planes' K7 tables (from the sampled
+    counts), and the batch's geometry."""
+    from zipnn_tpu_torch import codec  # noqa: PLC0415
+    from zipnn_tpu_torch.core import dtypes  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import byte_group, encode, huf_enc, transforms  # noqa: PLC0415
+
+    gr = dtypes.grouping_for_code(dtypes.from_any(x_cpu.dtype).code)
+    flat = x_cpu.view(torch.uint8).reshape(-1).numpy()
+    g = encode.Geometry(flat.size, gr.num_buf, 256 * 1024)
+    src = encode.Source(flat, g, dev)
+    tail = byte_group.split(src.tail, gr.num_buf, gr.byte_reorder, gr.bit_reorder)
+    counts = encode.sampled_counts(src, g, gr.byte_reorder, gr.bit_reorder, tail)
+    shared, live = codec.shared_tables_from_counts(counts, codec.DEFAULT_THRESHOLD, g.stride)
+    lo, hi = g.batches[0]
+    check(hi - lo >= 64, f"first encode batch has {hi - lo} chunks, want >= 64")
+    planes = transforms.split_device(src.batch(lo, hi), gr.num_buf, gr.byte_reorder,
+                                     gr.bit_reorder)
+    tables = {b: torch.from_numpy(huf_enc.pack_etable(shared[b][1], shared[b][0])).to(dev)
+              for b in range(gr.num_buf) if live[b]}
+    return g, planes, tables
+
+
+def hold_encode_kernels(x_cpu: torch.Tensor, dev):
+    """K8 and K7 against their plain versions at the bf16 shared encode
+    path's first batch: K8 over every (chunk, plane) row, K7 over every
+    stream of each live plane; bit-exact flags, ``total_bits`` and stream
+    bytes; their times and byte bounds."""
+    from zipnn_tpu_torch.ops import const_scan, huf_enc  # noqa: PLC0415
+
+    g, planes, tables = encode_first_batch(x_cpu, dev)
+    k, nb, w = planes.shape
+    rows = planes.view(k * nb, w)
+    f_k = const_scan.const_scan_rows(rows)
+    f_p, plain8 = host_ms(lambda: const_scan.const_scan_rows_plain(rows))
+    check(torch.equal(f_k, f_p), "const_scan_rows != plain")
+    ms8 = cuda_ms(lambda: const_scan.const_scan_rows(rows))
+    n_const = int((f_k >> 8).sum())
+    log(f"[kernels] const_scan_rows ({k} chunks, {k * nb} rows of {4 * w} bytes): "
+        f"{ms8:.3f} ms (plain {plain8:.1f} ms), {n_const} constant rows, bit-exact")
+    k8 = {"ms": ms8, "plain_ms": plain8, "max_abs_err": 0,
+          "bound_ms": 1e3 * (rows.numel() * 4 + 4 * k * nb) / HBM_BYTES_PER_S}
+
+    check(len(tables) > 0, "no live plane on the bf16 shared path")
+    cells = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * nb
+    quarter = torch.arange(4, dtype=torch.int64, device=dev) * (w // 4)
+    ms7 = plain7 = 0.0
+    nbytes7 = 0
+    n_streams = 0
+    for b, table in tables.items():
+        streams = ((cells + b) * w + quarter).reshape(-1)
+        r_k, t_k = huf_enc.huf_shared_encode(planes, table, g.seg, streams)
+        (r_p, t_p), pms = host_ms(
+            lambda: huf_enc.huf_shared_encode_plain(planes, table, g.seg, streams))
+        check(torch.equal(t_k, t_p), f"huf_shared_encode total_bits != plain (plane {b})")
+        sb = ((t_p & 0x3FFFFFFF) + 7) // 8
+        width = int(sb.max())
+        keep = torch.arange(width, device=dev) < sb[:, None]
+        bk = r_k.view(torch.uint8)[:, :width]
+        bp = r_p.view(torch.uint8)[:, :width]
+        check(torch.equal(bk[keep], bp[keep]), f"huf_shared_encode bytes != plain (plane {b})")
+        del r_p, bp, keep
+        ms7 += cuda_ms(lambda: huf_enc.huf_shared_encode(planes, table, g.seg, streams))
+        plain7 += pms
+        S = int(streams.numel())
+        n_streams += S
+        # symbols read, stream bytes written, table, offsets, total_bits
+        nbytes7 += S * g.seg + int(sb.sum()) + 512 + 8 * S + 4 * S
+        log(f"[kernels] huf_shared_encode (plane {b}: {S} streams of {g.seg} symbols, "
+            f"{int((t_k >> 30).sum())} with an uncoded byte): bit-exact on every "
+            f"stream's bytes and total_bits")
+    log(f"[kernels] huf_shared_encode: {ms7:.3f} ms (plain {plain7:.1f} ms) over "
+        f"{n_streams} streams")
+    k7 = {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0,
+          "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
+    return k8, k7
+
+
+def encode_small(x: torch.Tensor, want: bytes, label: str, **kw) -> None:
+    """A shared-table encode on the card from the host tensor and from a
+    CUDA tensor: both byte-equal to ``want``, decoded back bit-exact."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode  # noqa: PLC0415
+
+    z = ZipNN(input_format="torch", engine="cuda", huffman_table="shared", **kw)
+    for src in (x, x.to("cuda")):
+        got = bytes(z.compress(src))
+        check(encode.last_timings["encoder"] == "huf_shared_encode", f"{label}: encoder")
+        check(got == want, f"{label}: card container != golden ({src.device})")
+    y = ZipNN(input_format="torch", engine="cuda").decompress(got)
+    check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)),
+          f"{label}: card container does not decode back")
+
+
+def uncodeable_case(seed: int) -> None:
+    """bf16, 520 chunks of 4 KB (stride 8) + a tail: chunk 9 (not sampled)
+    holds an exponent byte that no sampled chunk has, chunk 13's mantissa
+    plane is constant.  The card's container must equal the golden one,
+    with cell (exponent, 9) raw and cell (mantissa, 13) RLE."""
+    from zipnn_tpu_torch import ZipNN, codec  # noqa: PLC0415
+
+    chunk = 4096
+    x = synth(torch.bfloat16, 520 * chunk + 998, seed)
+    v = x.view(torch.int16).numpy()
+    per = chunk // 2
+    v[9 * per + 100] = 0x7000  # exponent byte 0xE0 after the sign rotation
+    v[13 * per : 14 * per] = (np.arange(per) % 64) << 7  # mantissa bytes all 0
+    want = bytes(ZipNN(input_format="torch", engine="numpy", huffman_table="shared",
+                       compression_chunk=chunk).compress(x))
+    encode_small(x, want, "uncodeable", compression_chunk=chunk)
+    after = ZipNN(engine="numpy")._retrieve_header(memoryview(want))
+    types, starts, _ = codec.parse_tables(memoryview(want)[after:], 2, 521)
+    sizes = np.diff(starts, axis=1)
+    check(types[1, 9] == 0 and sizes[1, 9] == chunk // 2, "uncodeable cell not raw")
+    check(types[1, 8] == 1 and types[1, 10] == 1, "its neighbours are not Huffman")
+    check(types[0, 13] == 1 and sizes[0, 13] == 1, "constant hopeless cell not RLE")
+    check(not types[0, :13].any(), "the mantissa plane is not hopeless")
+    log(f"[encode] uncodeable: 520 x {chunk} B + 998 B bf16 (stride 8), card == golden; "
+        f"cell (1, 9) raw, cell (0, 13) RLE")
+
+
+def small_chunk_case(seed: int) -> None:
+    """Chunks below 512 bytes encode on the card too: bf16 and fp32, 530
+    chunks of 256 B (stride 8) + a tail, byte-equal to the golden
+    encoder."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+
+    chunk = 256
+    for i, dt in enumerate((torch.bfloat16, torch.float32)):
+        x = synth(dt, 530 * chunk + 36, seed + i)
+        want = bytes(ZipNN(input_format="torch", engine="numpy", huffman_table="shared",
+                           compression_chunk=chunk).compress(x))
+        encode_small(x, want, f"{dt} at {chunk} B chunks", compression_chunk=chunk)
+        log(f"[encode] {dt}: 530 x {chunk} B + 36 B (stride 8), card == golden")
+
+
+def encode_path(label, x_cpu, want: bytes, golden_s, smi):
+    """One full-width shared encode from a CUDA tensor, with the launch
+    counts set to 0 just before the call and read just after: byte-equal
+    to ``want``, K8 and K7 launched, none of the input uploaded (the
+    tables and fetch indices under 1/1000 of its size), and less fetched
+    than the container plus 1 MiB.  A second call for its time.  Returns
+    (the CUDA tensor, the launches, the container)."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode, kernels  # noqa: PLC0415
+
+    nbytes = x_cpu.numel() * x_cpu.element_size()
+    x_dev = x_cpu.to("cuda")
+    z = ZipNN(input_format="torch", engine="cuda", huffman_table="shared")
+    kernels.reset_launches()
+    got, ms = host_ms(lambda: z.compress(x_dev))
+    launches = dict(kernels.launches)
+    t = dict(encode.last_timings)
+    kms = encode.kernel_ms()
+    check(bytes(got) == want, f"{label}: card container != golden")
+    check(t["upload_bytes"] == 0,
+          f"{label}: {t['upload_bytes']} input bytes uploaded from a CUDA tensor")
+    check(t["h2d_bytes"] < nbytes // 1000,
+          f"{label}: {t['h2d_bytes']} bytes of tables and indices uploaded")
+    check(t["d2h_bytes"] <= len(want) + (1 << 20),
+          f"{label}: fetched {t['d2h_bytes']} bytes for a {len(want)}-byte container")
+    for k in ("const_scan_rows", "huf_shared_encode"):
+        check(launches[k] > 0, f"kernel {k} not launched on the {label} path")
+    _, ms2 = host_ms(lambda: z.compress(x_dev))
+    gs = "cached" if golden_s is None else f"{golden_s:.1f} s"
+    log(f"[encode] {label}: {nbytes} bytes {x_cpu.dtype} from a CUDA tensor -> "
+        f"{len(want)} bytes == golden; {t['batches']} batches; hist {t['hist_s']:.3f} s, "
+        f"split {t['split_s']:.3f} s, const_scan_rows {kms['const_scan_rows']:.3f} ms, "
+        f"huf_shared_encode {kms['huf_shared_encode']:.3f} ms, kernels {t['kernels_s']:.3f} s, "
+        f"fetch {t['fetch_s']:.3f} s ({t['d2h_bytes']} bytes down, {t['h2d_bytes']} "
+        f"bytes of tables and indices up), splice {t['splice_s']:.3f} s; "
+        f"end to end {ms / 1e3:.3f} s = {nbytes / ms / 1e6:.3f} GB/s (second run "
+        f"{ms2 / 1e3:.3f} s = {nbytes / ms2 / 1e6:.3f} GB/s); golden encoder {gs}; "
+        f"launches {launches}; card: {smi}")
+    return x_dev, launches, got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -309,6 +515,7 @@ def main() -> int:
     c_bf16 = compressed(kernels.BUILD_DIR, "bf16", x_bf16, "per_chunk")
     c_fp32 = compressed(kernels.BUILD_DIR, "fp32", x_fp32, "per_chunk")
     c_shared = compressed(kernels.BUILD_DIR, "bf16", x_bf16, "shared")
+    c_fp32_shared = compressed(kernels.BUILD_DIR, "fp32", x_fp32, "shared")
 
     # ---- 2. kernels against their plain versions ------------------------
     rows = {}
@@ -348,6 +555,8 @@ def main() -> int:
         huf_shared.huf_shared_decode, huf_shared.huf_shared_decode_plain,
         dv.k6_args(lo, hi), 512)
     del dv
+    rows["k8"], rows["k7"] = hold_encode_kernels(x_bf16, dev)
+    torch.cuda.empty_cache()
 
     # ---- 3. fixtures ----------------------------------------------------
     fix = ROOT / "tests" / "fixtures"
@@ -363,8 +572,12 @@ def main() -> int:
         y = ZipNN(input_format="torch", engine="cuda").decompress(comp)
         check(decode.last_timings["decoder"] == "huf_shared_decode", f"shared {dt}")
         check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)), f"shared {dt}")
+        encode_small(x, bytes(comp), f"shared {dt}")
         log(f"[fixtures] shared-table {dt} {SMALL_MIB} MiB (ratio "
-            f"{len(comp) / (SMALL_MIB << 20):.4f}): bit-exact")
+            f"{len(comp) / (SMALL_MIB << 20):.4f}): bit-exact; encoded on the card "
+            f"(host and CUDA tensor) == golden, decoded back bit-exact")
+    uncodeable_case(args.seed + 7)
+    small_chunk_case(args.seed + 8)
 
     # ---- 4. the paths ---------------------------------------------------
     paths = {
@@ -375,7 +588,7 @@ def main() -> int:
         "shared": drive("bf16 shared", c_shared, x_bf16,
                         ("huf_shared_decode", "combine_cells"), ("huf_pc_decode",), smi),
     }
-    del c_bf16, c_fp32, c_shared, x_fp32
+    del c_bf16, c_fp32
 
     # ---- 5. corruption --------------------------------------------------
     check(corrupt_case("per-chunk bf16", (fix / "bf16_gauss.znn").read_bytes(), 1)
@@ -386,7 +599,37 @@ def main() -> int:
     check(corrupt_case("shared bf16", c_small, 4 + 2) == "huf_shared_decode",
           "shared corruption took the wrong decoder")
 
-    # ---- 6. summary -----------------------------------------------------
+    # ---- 6. shared-table encode at full width ----------------------------
+    from zipnn_tpu_torch.ops import encode  # noqa: PLC0415
+
+    x_dev, enc, got = encode_path("bf16 shared encode", x_bf16, c_shared,
+                                  GOLDEN_S.get(("bf16", "shared")), smi)
+    y = ZipNN(input_format="torch", engine="cuda").decompress(got)
+    check(torch.equal(y.view(torch.int16), x_dev.view(torch.int16)),
+          "the card's bf16 container does not decode back")
+    del y, x_dev, got
+    got, ms = host_ms(lambda: ZipNN(input_format="torch", engine="cuda",
+                                    huffman_table="shared").compress(x_bf16))
+    check(bytes(got) == c_shared, "bf16 shared encode from the host tensor != golden")
+    log(f"[encode] bf16 shared encode from the host tensor (upload "
+        f"{encode.last_timings['upload_bytes']} bytes, {encode.last_timings['upload_s']:.3f} s): "
+        f"{ms / 1e3:.3f} s = {x_bf16.numel() * 2 / ms / 1e6:.3f} GB/s end to end, == golden")
+    del got
+    encode_path("fp32 shared encode", x_fp32, c_fp32_shared,
+                GOLDEN_S.get(("fp32", "shared")), smi)
+    del x_fp32, c_fp32_shared
+    batch_chunks = encode.batch_chunks
+    half = mib // 2  # 256 MiB at the default --mib 512
+    encode.batch_chunks = lambda cs, stride: max(stride, half // (cs * stride) * stride)
+    try:
+        encode_path(f"bf16 shared encode, {half >> 20} MiB batches", x_bf16, c_shared,
+                    None, smi)
+        check(encode.last_timings["batches"] >= 2, "the 256 MiB batch bound gave one batch")
+    finally:
+        encode.batch_chunks = batch_chunks
+    del c_shared
+
+    # ---- 7. summary -----------------------------------------------------
     def row(key, kname, source, replaces, path, launches):
         return {"name": kname, "path": path, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, **rows[key],
@@ -408,6 +651,12 @@ def main() -> int:
         row("k2_4", "combine_cells", "zipnn_tpu_torch/csrc/combine.cu",
             k2 + "; zipnn_tpu/ops/pallas_gather.py:172 (K5)",
             "fp32 per-chunk (4 planes)", paths["fp32"]["combine_cells"]),
+        row("k8", "const_scan_rows", "zipnn_tpu_torch/csrc/const_scan.cu",
+            "zipnn_tpu/ops/pallas_gather.py:238 (K8)", "bf16 shared encode",
+            enc["const_scan_rows"]),
+        row("k7", "huf_shared_encode", "zipnn_tpu_torch/csrc/huf_enc.cu",
+            "zipnn_tpu/ops/pallas_huf_enc.py:225 (K7)", "bf16 shared encode",
+            enc["huf_shared_encode"]),
     ]
     for r in out:
         log(f"[summary] {r['name']} ({r['path']}): {r['launches']} launches, "

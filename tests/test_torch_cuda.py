@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-and the whole decode against the golden model.
+and the whole decode and the shared-table encode against the golden
+model.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 This file imports neither ``jax`` nor ``zipnn_tpu``, so it runs where only
@@ -13,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from zipnn_tpu_torch import CorruptChunkError, ZipNN
-from zipnn_tpu_torch.ops import combine, decode, huf_pc, huf_shared, kernels
+from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec
+from zipnn_tpu_torch.ops import (
+    combine, const_scan, decode, encode, huf_enc, huf_pc, huf_shared, kernels,
+)
 from zipnn_tpu_torch.ops.byte_group import plane_lengths
 from zipnn_tpu_torch.ops.entropy import huf
 
@@ -283,3 +286,120 @@ def test_corrupt_shared_stream_raises_on_card(card):
     assert decode.last_timings["decoder"] == "huf_shared_decode"
     assert (got.value.plane, got.value.chunk, got.value.stream) == want
     assert want[2] == 2
+
+
+def _etable(symbols):
+    lengths, vals, _, _ = huf.build_shared_table(np.bincount(symbols, minlength=256))
+    return torch.from_numpy(huf_enc.pack_etable(vals, lengths))
+
+
+@pytest.mark.parametrize("seg,offset", [(4096, 0), (1024, 1), (252, 0)])
+def test_huf_enc_kernel_matches_plain(card, seg, offset):
+    """16-byte loads (aligned streams) and 4-byte loads (offset words or a
+    segment that is not a multiple of 16 bytes); one stream with a byte
+    the table cannot code."""
+    rng = np.random.default_rng(seg)
+    n = 300
+    syms = np.clip(rng.normal(120, 7, seg * n + 4 * offset), 0, 255).astype(np.uint8)
+    table = _etable(syms)
+    syms[4 * offset + seg * 5 + 9] = 255 if table[255] == 0 else syms[0]
+    words = torch.from_numpy(syms.view("<i4").copy())
+    streams = offset + torch.arange(n, dtype=torch.int64).flip(0) * (seg // 4)
+    rows_p, bits_p = huf_enc.huf_shared_encode(words, table, seg, streams)
+    rows_k, bits_k = huf_enc.huf_shared_encode(*_to((words, table), card), seg,
+                                               streams.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(bits_k.cpu(), bits_p)
+    nbytes = ((bits_p & 0x3FFFFFFF) + 7) // 8
+    rk, rp = rows_k.cpu().numpy().view(np.uint8), rows_p.numpy().view(np.uint8)
+    for s in range(n):
+        assert bytes(rk[s, : nbytes[s]]) == bytes(rp[s, : nbytes[s]])
+
+
+@pytest.mark.parametrize("width", [1, 3, 64, 32768])
+def test_const_scan_kernel_matches_plain(card, width):
+    rng = np.random.default_rng(width)
+    rows = rng.integers(0, 1 << 32, (70, width), dtype=np.uint64).astype(np.uint32)
+    for i, b in enumerate((0x00, 0xFF, 0x5A)):
+        rows[i] = b * 0x01010101
+    rows[3] = 0x77777777
+    rows[3, -1] ^= 1 << 31  # differs only in its last byte
+    t = torch.from_numpy(rows.view(np.int32))
+    assert torch.equal(const_scan.const_scan_rows(t.to(card)).cpu(),
+                       const_scan.const_scan_rows(t))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+                                   torch.float32])
+def test_shared_encode_on_card_matches_golden(card, dtype):
+    """Host input (uploaded) and a CUDA tensor (read in place), both equal
+    to the golden encoder's container."""
+    raw = _raw(dtype, 9 * CHUNK + 6004, seed=8)
+    x = torch.from_numpy(raw.copy()).view(dtype)
+    want = bytes(ZipNN(input_format="torch", engine="numpy", compression_chunk=CHUNK,
+                       huffman_table="shared").compress(x))
+    z = ZipNN(input_format="torch", engine="cuda", compression_chunk=CHUNK,
+              huffman_table="shared")
+    kernels.reset_launches()
+    assert bytes(z.compress(x)) == want
+    assert encode.last_timings["upload_bytes"] == 9 * CHUNK
+    assert bytes(z.compress(x.to(card))) == want
+    assert encode.last_timings["encoder"] == "huf_shared_encode"
+    assert encode.last_timings["upload_bytes"] == 0
+    assert 0 < encode.last_timings["h2d_bytes"] < 9 * CHUNK // 8  # tables, indices
+    assert kernels.launches["huf_shared_encode"] > 0 and kernels.launches["const_scan_rows"] > 0
+    assert encode.kernel_ms()["huf_shared_encode"] > 0
+    y = ZipNN(input_format="torch", engine="cuda").decompress(want)
+    assert torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8))
+
+
+@pytest.mark.parametrize("nbytes", [0, 2, 700, CHUNK + 2])
+def test_shared_encode_on_card_short_inputs(card, nbytes):
+    """No full chunk, or one: the tail cell on the host, K7/K8 on the rest."""
+    # via int16: torch refuses a width-changing view of an empty tensor
+    x = torch.from_numpy(_raw(torch.bfloat16, nbytes, seed=nbytes).view(np.int16).copy())
+    x = x.view(torch.bfloat16)
+    want = bytes(ZipNN(input_format="torch", engine="numpy", compression_chunk=CHUNK,
+                       huffman_table="shared").compress(x))
+    got = bytes(ZipNN(input_format="torch", engine="cuda", compression_chunk=CHUNK,
+                      huffman_table="shared").compress(x.to(card)))
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_shared_encode_on_card_small_chunks(card, dtype, chunk):
+    """Chunks below 512 bytes, read in place from a CUDA tensor, through
+    K8 and K7, byte-identical to the golden encoder."""
+    raw = _raw(dtype, 530 * chunk + 6, seed=chunk)
+    x = torch.from_numpy(raw.copy()).view(dtype)
+    want = bytes(ZipNN(input_format="torch", engine="numpy", compression_chunk=chunk,
+                       huffman_table="shared").compress(x))
+    kernels.reset_launches()
+    got = bytes(ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
+                      huffman_table="shared").compress(x.to(card)))
+    assert got == want
+    assert encode.last_timings["upload_bytes"] == 0
+    assert kernels.launches["huf_shared_encode"] > 0 and kernels.launches["const_scan_rows"] > 0
+
+
+def test_shared_encode_on_card_uncodeable_cell(card):
+    """>= 512 chunks (stride 8): a non-sampled chunk with an exponent byte
+    no sampled chunk has stores raw; a constant cell on the hopeless plane
+    stays RLE."""
+    chunk = 1024
+    vals = _raw(torch.bfloat16, 520 * chunk, seed=9).view(np.uint16).copy()
+    vals.reshape(520, -1)[9, 5] = 0x7000        # exponent byte 0xE0 after rotation
+    vals.reshape(520, -1)[13] = np.arange(512) % 64 << 7  # mantissa bytes all 0
+    x = torch.from_numpy(vals.view(np.int16)).view(torch.bfloat16)
+    want = bytes(ZipNN(input_format="torch", engine="numpy", compression_chunk=chunk,
+                       huffman_table="shared").compress(x))
+    got = bytes(ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
+                      huffman_table="shared").compress(x.to(card)))
+    assert got == want
+    z = ZipNN(engine="numpy")
+    after = z._retrieve_header(memoryview(got))
+    types, starts, _ = codec.parse_tables(memoryview(got)[after:], 2, 520)
+    sizes = np.diff(starts, axis=1)
+    assert types[1, 9] == 0 and types[1, 8] == 1
+    assert types[0, 13] == 1 and sizes[0, 13] == 1

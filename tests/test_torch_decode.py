@@ -154,7 +154,7 @@ def test_shared_encoder_byte_identical(dtype, stride):
     assert zipnn_tpu_torch.codec.shared_sample_stride(n_chunks) == stride
     kw = dict(bytearray_dtype=dtype, compression_chunk=chunk, huffman_table="shared")
     want = bytes(zipnn_tpu.ZipNN(engine="numpy", **kw).compress(raw))
-    engine = "numpy" if stride == 1 else "cuda"  # both run the golden encoder
+    engine = "numpy" if stride == 1 else "cuda"  # the golden and the device encoder
     assert _port(engine=engine, **kw).compress(raw) == want
     if stride == 1:  # the payload, and the same from tables passed in
         codec = zipnn_tpu_torch.codec

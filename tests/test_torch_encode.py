@@ -1,0 +1,237 @@
+"""PyTorch port: the shared-table compress of ``engine="cuda"``
+(``ops/encode.py``), run here through the kernels' plain versions
+(``device="cpu"``), held against the JAX package with tolerance 0:
+
+* ``transforms.split_device`` equals ``jax_transforms.split_device`` and
+  the golden ``byte_group.split``;
+* every container equals ``zipnn_tpu``'s golden shared-table encoder byte
+  for byte: four dtypes at sampling stride 1 and 8, ragged tails on and
+  off the stride, an uncodeable cell, an RLE cell on a hopeless plane, an
+  all-constant input, inputs shorter than a chunk, and several batches;
+* a container decodes back through the port's own ``engine="cuda"``
+  decode.
+
+The CUDA kernels run in ``test_torch_cuda.py``.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import zipnn_tpu
+from zipnn_tpu import codec as ref_codec
+from zipnn_tpu.ops import byte_group, jax_transforms
+from zipnn_tpu_torch import ZipNN, codec
+from zipnn_tpu_torch.ops import encode, transforms
+
+ROOT = Path(__file__).resolve().parent.parent
+CHUNK = 1024  # small chunks: >= 512 of them (stride 8) stay cheap
+DTYPES = [torch.bfloat16, torch.float16, torch.float8_e4m3fn, torch.float32]
+
+
+def _tensor(dtype, nbytes: int, seed: int) -> torch.Tensor:
+    """N(0, 0.05) values of ``dtype`` filling ``nbytes`` bytes."""
+    rng = np.random.default_rng(seed)
+    size = nbytes // torch.empty(0, dtype=dtype).element_size()
+    return torch.from_numpy((rng.standard_normal(size) * 0.05).astype(np.float32)).to(dtype)
+
+
+def _golden(x: torch.Tensor, chunk=CHUNK) -> bytes:
+    return bytes(zipnn_tpu.ZipNN(input_format="torch", engine="numpy", huffman_table="shared",
+                                 compression_chunk=chunk).compress(x))
+
+
+def _port(x, chunk=CHUNK, **kw) -> bytes:
+    return bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
+                       huffman_table="shared", compression_chunk=chunk, **kw).compress(x))
+
+
+@pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder", [
+    (1, 10, 0), (1, 10, 1), (2, 10, 0), (2, 10, 1), (4, 220, 0), (4, 220, 1),
+])
+def test_split_device_matches_jax_and_golden(num_buf, byte_reorder, bit_reorder):
+    rng = np.random.default_rng(num_buf * 10 + bit_reorder)
+    w = rng.integers(0, 1 << 32, (3, 128), dtype=np.uint64).astype(np.uint32)
+    w[0, :4] = [0, 0xFFFFFFFF, 0x80008000, 0x7F807F80]
+    got = transforms.split_device(torch.from_numpy(w.view(np.int32)), num_buf,
+                                  byte_reorder, bit_reorder).numpy().view(np.uint32)
+    want = np.asarray(jax_transforms.split_device(jnp.asarray(w), num_buf, byte_reorder,
+                                                  bit_reorder))
+    np.testing.assert_array_equal(got, want)
+    for c in range(3):
+        planes = byte_group.split(w[c].view(np.uint8), num_buf, byte_reorder, bit_reorder)
+        for b in range(num_buf):
+            assert got[c, b].view(np.uint8).tobytes() == planes[b].tobytes()
+
+
+def test_split_device_rejects_other_modes():
+    w = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        transforms.split_device(w, 2, 220, 0)
+    with pytest.raises(ValueError):
+        transforms.split_device(w, 3, 10, 0)
+
+
+@pytest.mark.parametrize("n_chunks", [24, 520], ids=["stride1", "stride8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d).split(".")[-1])
+def test_shared_encode_byte_identical(dtype, n_chunks):
+    x = _tensor(dtype, n_chunks * CHUNK, seed=n_chunks)
+    got = _port(x)
+    assert encode.last_timings["encoder"] == "huf_shared_encode"
+    assert got == _golden(x)
+
+
+def _mk(n_chunks, seed=3):
+    """bf16-shaped planes (mode 10, no sign rotation): plane 1 a
+    compressible 'exponent' N(128, 3), plane 0 a random (hopeless at
+    stride 8) 'mantissa'."""
+    rng = np.random.default_rng(seed)
+    half = CHUNK // 2
+    exp = np.clip(rng.normal(128, 3, (n_chunks, half)), 0, 255).astype(np.uint8)
+    man = rng.integers(0, 256, (n_chunks, half), dtype=np.uint8)
+    return exp, man
+
+
+def _join(exp, man):
+    out = np.empty(exp.shape + (2,), np.uint8)
+    out[..., 0], out[..., 1] = man, exp
+    return out.reshape(-1)
+
+
+def _codec_pair(data):
+    got = codec.compress_payload(data, 2, 0, 10, CHUNK, engine="cuda", shared_tables=True,
+                                 device="cpu")
+    want = ref_codec.compress_payload_numpy(data, 2, 0, 10, CHUNK, shared_tables=True)
+    return bytes(got), bytes(want)
+
+
+@pytest.mark.parametrize("n_chunks,extra", [
+    (24, 317),   # stride 1, the tail in the table
+    (519, 700),  # stride 8, tail index 519 off the stride
+    (520, 96),   # stride 8, tail index 520 on the stride (sampled)
+])
+def test_ragged_tail_byte_identical(n_chunks, extra):
+    exp, man = _mk(n_chunks + 1)
+    data = _join(exp, man)[: n_chunks * CHUNK + extra]
+    got, want = _codec_pair(data)
+    assert got == want
+
+
+def test_uncodeable_cell_and_rle_on_hopeless_plane():
+    exp, man = _mk(520)
+    exp[9, 7] = 251  # chunk 9 is not sampled: the table has no code for 251
+    man[13] = 0x42   # a constant cell on the hopeless mantissa plane
+    data = _join(exp, man)
+    got, want = _codec_pair(data)
+    assert got == want
+    types, starts, _ = ref_codec.parse_tables(got, 2, 520)
+    sizes = np.diff(starts, axis=1)
+    assert types[1, 9] == 0 and sizes[1, 9] == CHUNK // 2  # stored raw
+    assert types[1, 8] == 1 and types[1, 10] == 1
+    assert types[0, 13] == 1 and sizes[0, 13] == 1          # RLE
+    assert not types[0, :13].any()                          # hopeless plane
+
+
+@pytest.mark.parametrize("nbytes", [0, 2, 700, CHUNK - 2, CHUNK + 2])
+def test_short_inputs_byte_identical(nbytes):
+    x = _tensor(torch.bfloat16, nbytes, seed=nbytes)
+    assert _port(x) == _golden(x)
+
+
+@pytest.mark.parametrize("n_chunks", [30, 530])
+def test_all_constant_input(n_chunks):
+    x = torch.full((n_chunks * CHUNK // 2 + 3,), 0.5, dtype=torch.bfloat16)
+    got = _port(x)
+    assert got == _golden(x)
+    after = ZipNN(engine="cuda", device="cpu")._retrieve_header(memoryview(got))
+    types, starts, _ = ref_codec.parse_tables(got[after:], 2, n_chunks + 1)
+    # every full chunk's cells RLE (the tail's last lane stays unrotated)
+    assert types[:, :-1].all() and (np.diff(starts, axis=1)[:, :-1] == 1).all()
+
+
+@pytest.mark.parametrize("n_chunks,extra,per_batch", [
+    (540, 700, lambda s: 3 * s),  # stride 8: batches of 24 chunks
+    (30, 500, lambda s: 7),       # stride 1: batches of 7, uploaded one by one
+])
+def test_multi_batch_matches_single_batch(monkeypatch, n_chunks, extra, per_batch):
+    exp, man = _mk(n_chunks + 1, seed=5)
+    exp[17, 3] = 250  # an uncodeable cell inside a later batch
+    data = _join(exp, man)[: n_chunks * CHUNK + extra]
+    one, want = _codec_pair(data)
+    monkeypatch.setattr(encode, "batch_chunks", lambda cs, stride: per_batch(stride))
+    many, _ = _codec_pair(data)
+    assert encode.last_timings["batches"] > 3
+    assert many == one == want
+
+
+def test_roundtrip_through_port_decode():
+    x = _tensor(torch.bfloat16, 520 * CHUNK + 1234, seed=11)
+    comp = _port(x)
+    y = ZipNN(input_format="torch", engine="cuda", device="cpu").decompress(comp)
+    assert torch.equal(y.view(torch.int16), x.view(torch.int16))
+
+
+def test_byte_input_and_fp32_tail():
+    x = _tensor(torch.float32, 513 * CHUNK + 12, seed=4)
+    raw = x.numpy().tobytes()
+    got = bytes(ZipNN(engine="cuda", device="cpu", huffman_table="shared",
+                      bytearray_dtype="float32", compression_chunk=CHUNK).compress(raw))
+    want = bytes(zipnn_tpu.ZipNN(engine="numpy", huffman_table="shared",
+                                 bytearray_dtype="float32", compression_chunk=CHUNK).compress(raw))
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+def test_small_chunks_encode_on_device(dtype, chunk):
+    """Chunks below 512 bytes take the device encoder too (planes of 4
+    bytes and more; K7 runs on planes of 16 and more), byte-identical."""
+    x = _tensor(dtype, 41 * chunk + 5, seed=chunk)
+    got = _port(x, chunk=chunk)
+    assert encode.last_timings["encoder"] == "huf_shared_encode"
+    assert got == _golden(x, chunk=chunk)
+
+
+def test_planes_below_a_word_raise():
+    x = _tensor(torch.float32, 4096, seed=1)
+    with pytest.raises(ValueError, match="whole 4-byte words"):
+        _port(x, chunk=8)
+
+
+def test_golden_routes_named(monkeypatch):
+    """The per-chunk profile takes the golden encoder on ``engine="cuda"``,
+    never the device encoder."""
+    def refuse(*a, **kw):
+        raise AssertionError("the per-chunk profile reached the device encoder")
+
+    monkeypatch.setattr(encode, "compress_payload", refuse)
+    x = _tensor(torch.bfloat16, 40 * CHUNK + 5, seed=2)
+    got = bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
+                      compression_chunk=CHUNK).compress(x))
+    want = bytes(zipnn_tpu.ZipNN(input_format="torch", engine="numpy",
+                                 compression_chunk=CHUNK).compress(x))
+    assert got == want
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encode.compress_payload(np.zeros(4096, np.uint8), 2, 1, 10, 1024, device="cuda")
+
+
+def test_encode_modules_import_neither_jax_nor_reference():
+    for name in ("encode", "huf_enc", "const_scan", "transforms"):
+        tree = ast.parse((ROOT / "zipnn_tpu_torch" / "ops" / f"{name}.py").read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                tops = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                tops = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(tops) & {"jax", "jaxlib", "zipnn_tpu"}, (name, tops)

@@ -26,7 +26,8 @@ def _edge_words(n: int) -> np.ndarray:
     return w
 
 
-@pytest.mark.parametrize("fn", ["reorder_sign_16", "revert_sign_16", "revert_sign_32"])
+@pytest.mark.parametrize("fn", ["reorder_sign_16", "revert_sign_16", "reorder_sign_32",
+                                "revert_sign_32"])
 def test_sign_rotation_matches_jax_and_numpy(fn):
     w = _edge_words(4099)
     got = _np(getattr(transforms, fn)(_t(w)))

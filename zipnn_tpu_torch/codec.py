@@ -16,8 +16,11 @@ Engines:
 * ``numpy`` — pure-Python/numpy golden model (this module): compress and
   decompress on the host.
 * ``cuda``  — decompress through the hand-written CUDA kernels
-  (``ops.decode``); compress uses the golden encoder until the encode
-  kernels are ported.
+  (``ops.decode``); the shared-table profile also compresses on the card
+  (``ops.encode``: split, sampled histogram, RLE scan and Huffman encode
+  of every full chunk), byte-identical to the golden encoder, for any
+  chunk size whose planes hold whole 4-byte words.  The per-chunk profile
+  compresses with the golden encoder (:func:`device_encodes`).
 
 The golden encoder here is a copy of the JAX package's
 ``codec.compress_payload_numpy`` (both the per-chunk table profile and the
@@ -197,14 +200,23 @@ def shared_plane_tables(
         ):
             if plane.size:
                 counts[b] += np.bincount(plane, minlength=256)
+    return shared_tables_from_counts(counts, threshold, stride)
+
+
+def shared_tables_from_counts(counts: np.ndarray, threshold: float, stride: int):
+    """Per-plane shared tables and live flags from the sampled counts
+    ([num_buf, 256]): a plane without a table is not live, and with
+    sampling on (``stride > 1``) neither is a hopeless one.  The same
+    counts give the same (tables, live) pair whichever encoder summed
+    them."""
     shared, live = [], []
     for count in counts:
-        table = huf.build_shared_table(count) if count.sum() else None
-        alive = True
-        if stride > 1:
-            alive = table is not None and not shared_plane_hopeless(
-                count, table[0], threshold)
-        shared.append(table)
+        count = count.astype(np.int64)
+        t = huf.build_shared_table(count) if count.sum() else None
+        alive = t is not None
+        if alive and stride > 1:
+            alive = not shared_plane_hopeless(count, t[0], threshold)
+        shared.append(t)
         live.append(alive)
     return shared, live
 
@@ -228,8 +240,16 @@ def compress_cell_shared(plane: np.ndarray, table) -> Optional[bytes]:
     return huf.compress_with_table(plane, lengths, vals, header)
 
 
+def device_encodes(engine: str, shared_tables: bool) -> bool:
+    """Whether compress runs on the device (``ops.encode``): the shared
+    profile on ``engine="cuda"``.  The per-chunk profile and the ``numpy``
+    engine run the golden encoder on the host (the JAX package encodes the
+    per-chunk profile in XLA, with no Pallas kernel; ROADMAP M6b)."""
+    return engine == "cuda" and shared_tables
+
+
 def compress_payload(
-    data: np.ndarray,
+    data,
     num_buf: int,
     bit_reorder: int,
     byte_reorder: int,
@@ -238,13 +258,27 @@ def compress_payload(
     engine: str = "cuda",
     check_th_after_percent: int = 0,
     shared_tables: bool = False,
-) -> bytes:
-    """Engine-dispatched payload compress.  Both engines run the golden
-    encoder: the encode kernels are not ported yet (ROADMAP queue 2)."""
+    device="cuda",
+):
+    """Engine-dispatched payload compress; returns the payload as bytes
+    (golden encoder) or a uint8 memoryview (device encoder).
+
+    Where :func:`device_encodes`, ``data`` is a host uint8 array or a uint8
+    tensor, read in place on its CUDA device, and ``ops.encode`` encodes it
+    on ``device``; otherwise ``data`` is a host uint8 array for the golden
+    encoder.
+    """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
+    if device_encodes(engine, shared_tables):
+        from .ops import encode  # noqa: PLC0415
+
+        return encode.compress_payload(
+            data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+            device=device,
+        )
     return compress_payload_numpy(
-        data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+        np.asarray(data), num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
         check_th_after_percent=check_th_after_percent,
         shared_tables=shared_tables,
     )

@@ -1,0 +1,112 @@
+"""Shared-table Huffman encode: the table packing, the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+The counterpart of the JAX package's ``ops/pallas_huf_enc.py`` (K7).  The
+shared-table profile codes every cell of a byte plane with one table of
+at most 8-bit codes; the kernel (``csrc/huf_enc.cu``) encodes one HUF
+stream per thread, with the table in shared memory.  Each stream's bytes
+equal ``huf.encode_stream`` on the same symbols: symbols in descending
+index order, LSB-first codes, a closing sentinel bit, zero padding.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import kernels
+
+TMAX = 8  # the longest code one 256-entry table holds
+_M32 = 0xFFFFFFFF
+
+
+def pack_etable(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The kernel's 256-entry table: ``val | nb << 8`` per symbol (int16;
+    ``val`` is masked to its ``nb`` bits, so a symbol without a code packs
+    as 0).  Raises ValueError for a code longer than 8 bits."""
+    lengths = np.asarray(lengths, dtype=np.int64)[:256]
+    if int(lengths.max()) > TMAX:
+        raise ValueError("shared encode table must have <=8-bit codes")
+    vals = np.asarray(vals, dtype=np.int64)[:256] & ((1 << lengths) - 1)
+    return (vals | (lengths << 8)).astype(np.int16)
+
+
+def row_words(seg: int) -> int:
+    """Words of one output row: 8 bits per symbol plus the sentinel."""
+    return seg // 4 + 1
+
+
+def huf_shared_encode(
+    planes: torch.Tensor, table: torch.Tensor, seg: int, streams: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode S streams of ``seg`` symbols with one shared table.
+
+    ``planes`` holds the symbols as int32 words (little-endian bytes);
+    stream ``s`` is the ``seg`` bytes from word ``streams[s]`` of the
+    flattened ``planes``.  ``table`` is :func:`pack_etable`'s 256 entries.
+    Returns (rows int32 [S, seg / 4 + 1], total_bits int32 [S]): stream
+    ``s``'s bytes are the first ``ceil(bits / 8)`` bytes of row ``s``, with
+    ``bits = total_bits[s] & 0x3FFFFFFF`` (code bits + 1 sentinel); bit 30
+    of ``total_bits`` is set when a symbol had no code.  Row bytes past a
+    stream's length are undefined.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    dev = planes.device
+    for name, t, dt in (("planes", planes, torch.int32), ("table", table, torch.int16),
+                        ("streams", streams, torch.int64)):
+        if t.device != dev:
+            raise ValueError(f"huf_shared_encode: {name} on {t.device}, planes on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"huf_shared_encode: {name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"huf_shared_encode: {name} must be contiguous")
+    if table.shape != (256,):
+        raise ValueError(f"huf_shared_encode: table shape {tuple(table.shape)} != (256,)")
+    if streams.dim() != 1:
+        raise ValueError("huf_shared_encode: streams must be 1-D")
+    if seg % 4 or not 0 <= seg < 1 << 27:
+        raise ValueError(f"huf_shared_encode: seg {seg} must be a multiple of 4 "
+                         f"below 2^27")
+    if dev.type == "cpu":
+        return huf_shared_encode_plain(planes, table, seg, streams)
+    if dev.type != "cuda":
+        raise ValueError(f"huf_shared_encode: unsupported device {dev}")
+    S = int(streams.numel())
+    rw = row_words(seg)
+    rows = torch.empty((S, rw), dtype=torch.int32, device=dev)
+    total_bits = torch.empty(S, dtype=torch.int32, device=dev)
+    if S:
+        kernels.launch(
+            "huf_shared_encode", dev, planes.data_ptr(), streams.data_ptr(),
+            table.data_ptr(), S, seg // 4, rw, rows.data_ptr(), total_bits.data_ptr(),
+        )
+    return rows, total_bits
+
+
+def huf_shared_encode_plain(planes, table, seg: int, streams):
+    """Plain PyTorch version of :func:`huf_shared_encode`, vectorised over
+    streams: every code's bit offset is an exclusive prefix sum of the code
+    lengths, and its value lands in the one or two words it spans (codes
+    never overlap, so adding the parts is or-ing them)."""
+    dev = planes.device
+    S = int(streams.numel())
+    rw = row_words(seg)
+    idx = streams[:, None] + torch.arange(seg // 4, device=dev)
+    words = planes.reshape(-1)[idx]  # [S, seg / 4]
+    syms = words.contiguous().view(torch.uint8).reshape(S, seg).flip(1)
+    ent = table.to(torch.int64)[syms.to(torch.int64)]
+    nb = ent >> 8
+    val = ent & 0xFF
+    end = nb.cumsum(1)
+    pos = end - nb
+    code_bits = end[:, -1] if seg else torch.zeros(S, dtype=torch.int64, device=dev)
+    bad = (nb == 0).any(1).to(torch.int64)
+    acc = torch.zeros((S, rw + 1), dtype=torch.int64, device=dev)
+    shifted = val << (pos & 31)
+    acc.scatter_add_(1, pos >> 5, shifted & _M32)
+    acc.scatter_add_(1, (pos >> 5) + 1, shifted >> 32)
+    acc.scatter_add_(1, (code_bits >> 5)[:, None], (1 << (code_bits & 31))[:, None])
+    rows = acc[:, :rw].to(torch.int32).contiguous()
+    return rows, ((code_bits + 1) | (bad << 30)).to(torch.int32)

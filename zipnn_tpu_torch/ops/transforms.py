@@ -1,12 +1,14 @@
 """Byte-group transforms on 32-bit words, in plain PyTorch.
 
 The torch counterpart of the JAX package's ``ops/jax_transforms.py``: the
-bf16 sign-bit rotation (reference csrc/data_manipulation_dtype16.c:10-20,
-145-155), its fp32 inverse (dtype32.c:275-285), and the 2- and 4-plane
-combines (dtype16.c:167-216, dtype32.c:391-456) on words.  These are the
-plain versions the combine kernel (``ops/combine.py``) is held against
-(``combine_2``, ``combine_4`` and the sign reverts are what its plain
-version runs), and they run on any device.
+bf16 and fp32 sign-bit rotations (reference
+csrc/data_manipulation_dtype16.c:10-20, 145-155, dtype32.c:39-49,
+275-285), the 2- and 4-plane splits the encoder runs on the card
+(dtype16.c:78-102, dtype32.c:78-102) and the combines (dtype16.c:167-216,
+dtype32.c:391-456) on words.  The combines are what the combine kernel's
+plain version (``ops/combine.py``) runs; the splits are the encoder's
+glue (``ops/encode.py``), as the JAX package computes them in XLA outside
+any Pallas kernel.  Everything here runs on any device.
 
 Words are int32 tensors carrying the uint32 bit pattern (little-endian
 bytes, as a host ``np.view("<u4")``).  PyTorch has no shifts or
@@ -48,6 +50,15 @@ def revert_sign_16(words: torch.Tensor) -> torch.Tensor:
     return _w(sign | exp | man)
 
 
+def reorder_sign_32(words: torch.Tensor) -> torch.Tensor:
+    """fp32 lanes: [s e8 m23] -> [e8 s m23]."""
+    w = _u(words)
+    sign = (w >> 8) & 0x800000
+    exp = (w << 1) & 0xFF000000
+    man = w & 0x7FFFFF
+    return _w(exp | sign | man)
+
+
 def revert_sign_32(words: torch.Tensor) -> torch.Tensor:
     """fp32 lanes: [e8 s m23] -> [s e8 m23] (inverse of the encoder's
     ``reorder_sign_32``)."""
@@ -80,6 +91,51 @@ def combine_2(planes: torch.Tensor, bit_reorder: int) -> torch.Tensor:
     w = _w(torch.stack([lo, hi], dim=-1).flatten(-2))
     return revert_sign_16(w) if bit_reorder else w
 
+
+def _deinterleave(words: torch.Tensor, num_buf: int) -> torch.Tensor:
+    """[..., n] words -> [..., num_buf, n // num_buf] words: plane ``b``
+    holds bytes ``b, b + num_buf, ...`` of the little-endian byte
+    stream."""
+    *lead, n = words.shape
+    by = words.contiguous().view(torch.uint8).reshape(*lead, 4 * n // num_buf, num_buf)
+    planes = by.transpose(-1, -2).contiguous()
+    return planes.view(torch.int32).reshape(*lead, num_buf, n // num_buf)
+
+
+def split_2(words: torch.Tensor, bit_reorder: int) -> torch.Tensor:
+    """2-plane split of full chunks: [..., n] -> [..., 2, n // 2] words.
+
+    Plane 0 holds the even bytes, plane 1 the odd bytes, after the sign
+    rotation when ``bit_reorder`` is set.
+    """
+    return _deinterleave(reorder_sign_16(words) if bit_reorder else words, 2)
+
+
+def split_4(words: torch.Tensor, bit_reorder: int) -> torch.Tensor:
+    """4-plane split of full chunks (mode 220): [..., n] -> [..., 4, n // 4]
+    words; byte ``p`` of the chunk goes to plane ``p & 3``."""
+    return _deinterleave(reorder_sign_32(words) if bit_reorder else words, 4)
+
+
+def split_device(words: torch.Tensor, num_buf: int, byte_reorder: int,
+                 bit_reorder: int) -> torch.Tensor:
+    """Dispatch: [..., n] int32 words -> [..., num_buf, n // num_buf].
+
+    One plane (fp8) passes the words through unrotated, as the golden
+    ``byte_group.split`` does.
+    """
+    modes = {1: 10, 2: 10, 4: 220}
+    if num_buf not in modes:
+        raise ValueError(f"Unsupported num_buf {num_buf}")
+    if byte_reorder != modes[num_buf]:
+        raise ValueError(f"Unsupported bytes_mode {byte_reorder} for {num_buf} planes")
+    if words.dtype != torch.int32:
+        raise TypeError(f"split_device: words must be int32, got {words.dtype}")
+    if num_buf == 1:
+        return words.unsqueeze(-2)
+    if num_buf == 2:
+        return split_2(words, bit_reorder)
+    return split_4(words, bit_reorder)
 
 
 def combine_4(planes: torch.Tensor, bit_reorder: int) -> torch.Tensor:

@@ -8,7 +8,13 @@ an explicit ``device``:
 * ``engine="cuda"`` (default) decompresses through the CUDA kernels onto
   ``device`` (the card unless the caller passes ``device="cpu"``, where
   the kernels' plain versions run); ``engine="numpy"`` runs the golden
-  model on the host.  Compress runs the golden encoder in both engines.
+  model on the host.  With ``huffman_table="shared"``, ``engine="cuda"``
+  also compresses on ``device`` (``ops.encode``: the split, histogram, RLE
+  scan and Huffman encode of every full chunk run there), byte-identical
+  to the golden encoder; a torch input already on the card is read in
+  place.  The per-chunk profile compresses with the golden encoder on the
+  host in both engines (the JAX package encodes it in XLA, with no Pallas
+  kernel; ROADMAP M6b).
 * ``input_format="torch"`` returns a tensor on ``device`` (on the host
   with ``engine="numpy"``); ``"byte"`` and ``"numpy"`` return host data.
 * ``huffman_table="per_chunk"`` (default, the reference library's
@@ -103,15 +109,20 @@ class ZipNN:
     # compression
     # ------------------------------------------------------------------
     def _resolve_dtype_and_bytes(self, data):
-        """Returns (dtype_code, shape, flat uint8 host array)."""
+        """Returns (dtype_code, shape, flat uint8 bytes): a host array, or
+        a CUDA tensor that the device encoder reads in place."""
         fmt = self.input_format
         if fmt == EnumFormat.BYTE.value:
             info = dtypes.from_any(self.bytearray_dtype)
             return info.code, None, np.frombuffer(memoryview(data), dtype=np.uint8)
         if fmt == EnumFormat.TORCH.value:
             info = dtypes.from_any(data.dtype)
-            t = data.detach().contiguous().reshape(-1).cpu().view(torch.uint8)
-            return info.code, tuple(data.shape), t.numpy()
+            t = data.detach().contiguous().reshape(-1)
+            if not codec.device_encodes(self.engine, self.huffman_table == "shared"):
+                t = t.cpu()  # only the device encoder reads a CUDA tensor in place
+            # an empty tensor may carry stride 0, which a dtype view refuses
+            t = t.view(torch.uint8) if t.numel() else t.new_empty(0, dtype=torch.uint8)
+            return info.code, tuple(data.shape), (t if t.is_cuda else t.numpy())
         info = dtypes.from_any(data.dtype)
         arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
         return info.code, data.shape, arr
@@ -121,6 +132,7 @@ class ZipNN:
         ``.znn`` frame, byte-identical to the JAX package's numpy engine."""
         t0 = time.perf_counter()
         code, shape, arr = self._resolve_dtype_and_bytes(data)
+        nbytes = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
         if not dtypes.from_code(code).is_float:
             raise ValueError("Support only torch.dtype float32/bfloat16/float16/fp8")
         grouping = dtypes.grouping_for_code(code)
@@ -132,7 +144,7 @@ class ZipNN:
             byte_reorder=grouping.byte_reorder,
             bit_reorder=grouping.bit_reorder,
             dtype_code=code,
-            original_len=arr.size,
+            original_len=nbytes,
         )
         if self.input_format in _FORMATS_WITH_SHAPE:
             hdr.shape = shape
@@ -141,12 +153,12 @@ class ZipNN:
             arr, grouping.num_buf, grouping.bit_reorder, grouping.byte_reorder,
             chunk, self.compression_threshold, self.engine,
             check_th_after_percent=self.check_th_after_percent,
-            shared_tables=self.huffman_table == "shared",
+            shared_tables=self.huffman_table == "shared", device=self.device,
         )
         prefix = HEADER_LEN + hdr.ext_len()
         hdr.total_len = prefix + len(payload)
         result = hdr.to_bytes() + payload
-        self._record_stats("compress", arr.size, len(result), time.perf_counter() - t0)
+        self._record_stats("compress", nbytes, len(result), time.perf_counter() - t0)
         return result
 
     # ------------------------------------------------------------------
