@@ -10,7 +10,8 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
 1. build the kernels;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of its path's first batch (bit-exact): ``huf_pc_decode`` on the
-   bf16 and fp32 paths, ``huf_shared_decode`` on the shared-table path,
+   bf16 and fp32 paths, ``huf_shared_decode`` on the shared-table path
+   (each with the mean and max of its synchronisation passes per stream),
    ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32), and the
    encode kernels ``const_scan_rows`` and ``huf_shared_encode`` on the bf16
    shared encode path (stream bytes and ``total_bits``);
@@ -24,7 +25,9 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    non-sampled chunk holding an exponent byte no sampled chunk has: it
    must store raw) and a constant cell on the hopeless plane (RLE),
    byte-equal to the golden container; and bf16 and fp32 inputs of 530
-   chunks of 256 B, encoded on the card byte-equal to the golden ones;
+   chunks of 256 B, encoded on the card byte-equal to the golden ones, and
+   their per-chunk containers decoded on the card (short streams: K1 and
+   K6 decode one stream per lane there);
 4. three paths at full width, each decompressed by
    ``ZipNN(input_format="torch", engine="cuda")`` into a CUDA tensor that
    must equal the original, with the kernels' launches counted from 0 for
@@ -179,11 +182,16 @@ def plan_of(container: bytes, dev):
     return plan, decode.DeviceInputs(plan, dev), (lo, hi)
 
 
-def hold_decode(label, wrapper, plain, args, table_bytes):
+def hold_decode(label, module, wrapper, plain, args, table_bytes):
     """A decode kernel against its plain version: bit-exact symbols and
-    bits_left, every stream consumed exactly; its time and byte bound
-    (``table_bytes``: the tables and per-stream table indices it reads)."""
+    bits_left, every stream consumed exactly; its sync passes per stream
+    (``module.last_sync_passes``), time and byte bound (``table_bytes``:
+    the tables and per-stream table indices it reads)."""
+    from zipnn_tpu_torch.ops import huf_sync  # noqa: PLC0415
+
     sym_k, bl_k = wrapper(*args)
+    passes = module.last_sync_passes.cpu()
+    check(int((passes < 0).sum()) == 0, f"{label}: a valid stream took the serial chain")
     (sym_p, bl_p), plain_ms = host_ms(lambda: plain(*args))
     err = int((sym_k.int() - sym_p.int()).abs().max())
     check(torch.equal(sym_k, sym_p) and torch.equal(bl_k, bl_p), f"{label} != plain")
@@ -194,9 +202,11 @@ def hold_decode(label, wrapper, plain, args, table_bytes):
     nbytes = (int(args[2].sum()) + S * (8 + 4 + 4 + 8 + 4) + table_bytes
               + args[-1] + 4 * S)
     log(f"[kernels] {label}: {S} streams, {ms:.3f} ms (plain {plain_ms:.1f} ms), "
-        f"bit-exact")
+        f"bit-exact; sync passes per stream: {huf_sync.passes_summary(passes)}")
     return sym_k, {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                   "sync_passes_mean": float(passes.double().mean()),
+                   "sync_passes_max": int(passes.max())}
 
 
 def hold_combine(label, plan, k2a, original: torch.Tensor, lo, hi):
@@ -426,8 +436,10 @@ def uncodeable_case(seed: int) -> None:
 def small_chunk_case(seed: int) -> None:
     """Chunks below 512 bytes encode on the card too: bf16 and fp32, 530
     chunks of 256 B (stride 8) + a tail, byte-equal to the golden
-    encoder."""
+    encoder.  The golden per-chunk containers of the same inputs decode
+    on the card bit-exact: short streams, so K1 takes a lane per stream."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode  # noqa: PLC0415
 
     chunk = 256
     for i, dt in enumerate((torch.bfloat16, torch.float32)):
@@ -435,7 +447,14 @@ def small_chunk_case(seed: int) -> None:
         want = bytes(ZipNN(input_format="torch", engine="numpy", huffman_table="shared",
                            compression_chunk=chunk).compress(x))
         encode_small(x, want, f"{dt} at {chunk} B chunks", compression_chunk=chunk)
-        log(f"[encode] {dt}: 530 x {chunk} B + 36 B (stride 8), card == golden")
+        per_chunk = ZipNN(input_format="torch", engine="numpy",
+                          compression_chunk=chunk).compress(x)
+        y = ZipNN(input_format="torch", engine="cuda").decompress(per_chunk)
+        check(decode.last_timings["decoder"] == "huf_pc_decode", f"{dt} per-chunk decoder")
+        check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)),
+              f"{dt} per-chunk container at {chunk} B chunks")
+        log(f"[encode] {dt}: 530 x {chunk} B + 36 B (stride 8), card == golden; "
+            f"the per-chunk container decodes on the card bit-exact")
 
 
 def encode_path(label, x_cpu, want: bytes, golden_s, smi):
@@ -525,7 +544,7 @@ def main() -> int:
     plan, dv, (lo, hi) = plan_of(c_bf16, dev)
     k1a = dv.k1_args(lo, hi)
     sym, rows["k1_bf16"] = hold_decode(
-        f"huf_pc_decode (bf16, {hi - lo} chunks)", huf_pc.huf_pc_decode,
+        f"huf_pc_decode (bf16, {hi - lo} chunks)", huf_pc, huf_pc.huf_pc_decode,
         huf_pc.huf_pc_decode_plain, k1a, k1_table_bytes(k1a))
     distinct = int(torch.unique(dv.tables, dim=0).shape[0])
     log(f"[kernels] the bf16 plan has {plan.n_huf} Huffman cells with "
@@ -538,7 +557,7 @@ def main() -> int:
     check(plan.g.num_buf == 4 and not plan.shared, "fp32 plan")
     k1a = dv.k1_args(lo, hi)
     sym, rows["k1_fp32"] = hold_decode(
-        f"huf_pc_decode (fp32, {hi - lo} chunks)", huf_pc.huf_pc_decode,
+        f"huf_pc_decode (fp32, {hi - lo} chunks)", huf_pc, huf_pc.huf_pc_decode,
         huf_pc.huf_pc_decode_plain, k1a, k1_table_bytes(k1a))
     kinds = np.bincount(plan.g.kind[:, lo:hi].reshape(-1), minlength=3)
     log(f"[kernels] fp32 first batch cells: {kinds[0]} stored, {kinds[1]} RLE, "
@@ -551,7 +570,7 @@ def main() -> int:
     plan, dv, (lo, hi) = plan_of(c_shared, dev)
     check(plan.shared, "the shared-table container does not take the shared plan")
     _, rows["k6"] = hold_decode(
-        f"huf_shared_decode (bf16 shared, {hi - lo} chunks)",
+        f"huf_shared_decode (bf16 shared, {hi - lo} chunks)", huf_shared,
         huf_shared.huf_shared_decode, huf_shared.huf_shared_decode_plain,
         dv.k6_args(lo, hi), 512)
     del dv

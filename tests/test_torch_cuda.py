@@ -16,7 +16,7 @@ import torch
 
 from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec
 from zipnn_tpu_torch.ops import (
-    combine, const_scan, decode, encode, huf_enc, huf_pc, huf_shared, kernels,
+    combine, const_scan, decode, encode, huf_enc, huf_pc, huf_shared, huf_sync, kernels,
 )
 from zipnn_tpu_torch.ops.byte_group import plane_lengths
 from zipnn_tpu_torch.ops.entropy import huf
@@ -134,6 +134,124 @@ def test_huf_shared_kernel_matches_plain(card):
         assert torch.equal(want[sl], torch.from_numpy(planes[i])), i
     assert torch.equal(got_bl.cpu(), want_bl)
     assert not want_bl.any()
+
+
+def _split_streams(blob):
+    """(header, [4 streams]) of one HUF block."""
+    _, _, _, _, consumed = huf.read_stats(blob)
+    rest = blob[consumed:]
+    ls = [int.from_bytes(rest[j : j + 2], "little") for j in (0, 2, 4)]
+    ls.append(len(rest) - 6 - sum(ls))
+    offs = np.cumsum([6] + ls)
+    return blob[:consumed], [rest[offs[k] : offs[k + 1]] for k in range(4)]
+
+
+def _stream_args(streams, olens, base=3):
+    """Stream arrays of ``streams`` (each behind 29 0xFF bytes), outputs
+    packed from ``base``; (arrays, n_out)."""
+    parts, starts, pos = [], [], 0
+    for st in streams:
+        parts += [b"\xff" * 29, st]
+        starts.append(pos + 29)
+        pos += 29 + len(st)
+    olens = np.asarray(olens, np.int32)
+    offs = base + np.concatenate([[0], np.cumsum(olens)[:-1]]).astype(np.int64)
+    t = torch.from_numpy
+    return (
+        t(np.frombuffer(b"".join(parts), np.uint8).copy()), t(np.asarray(starts, np.int64)),
+        t(np.asarray([len(st) for st in streams], np.int32)),
+        t(np.asarray([8 * (len(st) - 1) + st[-1].bit_length() - 1 for st in streams], np.int32)),
+        t(offs), t(olens),
+    ), int(base + olens.sum())
+
+
+def _hard_case(case, shared):
+    """Streams that a warp-per-stream decoder must get right (the cases of
+    ``test_torch_huf_sync.py``): the wrapper's arguments (K6's for
+    ``shared``, else K1's)."""
+    rng = np.random.default_rng(11)
+    ident = np.arange(256)
+    if case == "fixed_length":  # an 8-bit code: every lane's correction cascades
+        streams = [huf.encode_stream(rng.integers(0, 256, n, dtype=np.uint8), ident,
+                                     np.full(256, 8)) for n in (4001, 4001, 3001, 4001)]
+        args, n_out = _stream_args(streams, [4001] * 4)
+        table = torch.from_numpy((ident | (8 << 8)).astype(np.int16))
+        if shared:
+            return (*args, table, n_out)
+        return (*args, torch.zeros(4, dtype=torch.int32),
+                torch.tensor([8], dtype=torch.int32), table.reshape(1, 256), n_out)
+    sizes = [4096] if case == "flipped" else (
+        [128, 256, 96, 300, 128] if case == "short_empty" else [4096, 4096, 12000])
+    planes = [np.clip(rng.normal(120 if shared else 100 + 7 * i,
+                                 5 if shared else (3, 12)[i % 2], n), 0, 255).astype(np.uint8)
+              for i, n in enumerate(sizes)]
+    if shared:
+        lengths, vals, header, _ = huf.build_shared_table(
+            np.bincount(np.concatenate(planes), minlength=256))
+        blobs = [huf.compress_with_table(p, lengths, vals, header) for p in planes]
+        headers = [header]
+    else:
+        blobs = [huf.compress(p) for p in planes]
+        headers = [_split_streams(b)[0] for b in blobs]
+    streams = [st for b in blobs for st in _split_streams(b)[1]]
+    olens = [k for n in sizes for k in huf.segment_sizes(n)]
+    cells = np.repeat(np.arange(len(sizes), dtype=np.int32), 4)
+    if case == "flipped":  # one stream, one bit flipped per copy: bits_left of both signs
+        st = streams[1]
+        streams = []
+        for bit in range(40, 8 * len(st) - 8, 8 * len(st) // 24):
+            b = bytearray(st)
+            b[bit // 8] ^= 1 << (bit % 8)
+            streams.append(bytes(b))
+        olens = [olens[1]] * len(streams)
+        cells = np.zeros(len(streams), np.int32)
+    elif case == "short_empty":  # one lane each; some asked for 0 symbols
+        olens = [0 if i % 3 == 0 else n for i, n in enumerate(olens)]
+    args, n_out = _stream_args(streams, olens)
+    if shared:
+        return (*args, torch.from_numpy(huf_shared.expand_table8(header)), n_out)
+    tables, tlogs, _ = huf_pc.cell_tables(headers)
+    if case == "nb_zero":  # cell 1's most frequent symbol consumes 0 bits
+        row = tables[1, : 1 << int(tlogs[1])]
+        sym = np.bincount(row & 0xFF).argmax()
+        row[(row & 0xFF) == sym] = sym
+    return (*args, torch.from_numpy(cells), torch.from_numpy(tlogs),
+            torch.from_numpy(tables), n_out)
+
+
+@pytest.mark.parametrize("schedule", ["warp", "lane"])
+@pytest.mark.parametrize("case,shared", [
+    ("flipped", False), ("flipped", True), ("fixed_length", False), ("fixed_length", True),
+    ("short_empty", False), ("short_empty", True), ("nb_zero", False),
+])
+def test_huf_decode_kernels_on_hard_streams(card, case, shared, schedule, monkeypatch):
+    """K1 / K6 against their plain versions on corrupt, adversarial, short
+    and empty streams, with a warp per stream and with a lane per stream
+    (``GROUP_SYMBOLS`` forces the launch's schedule): symbols and
+    bits_left bit-exact, and the kernel's sync passes per stream equal to
+    the model's (``huf_sync``)."""
+    for m in (huf_pc, huf_shared):
+        monkeypatch.setattr(m, "GROUP_SYMBOLS", 0 if schedule == "warp" else 1 << 30)
+    args = _hard_case(case, shared)
+    module = huf_shared if shared else huf_pc
+    wrapper = huf_shared.huf_shared_decode if shared else huf_pc.huf_pc_decode
+    want, want_bl = wrapper(*args)
+    got, got_bl = wrapper(*_to(args, card))
+    torch.cuda.synchronize()
+    for o, n in zip(args[4].tolist(), args[5].tolist()):
+        assert torch.equal(got[o : o + n].cpu(), want[o : o + n]), (o, n)
+    assert torch.equal(got_bl.cpu(), want_bl)
+    tabs = {"table": args[6]} if shared else dict(zip(("cells", "tlogs", "tables"), args[6:9]))
+    _, _, passes = huf_sync.decode_segmented(*args[:6], args[-1], **tabs)
+    assert torch.equal(module.last_sync_passes.cpu(), passes)
+    if case == "flipped":
+        assert (want_bl > 0).any() and (want_bl < 0).any()
+    if schedule == "lane":
+        assert not passes.any()
+    elif case == "fixed_length":
+        assert int(passes.max()) >= 4
+    elif case == "nb_zero":
+        assert (passes[4:8] == -1).all() and (passes[:4] >= 0).all()
 
 
 def _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed, cs=1024):

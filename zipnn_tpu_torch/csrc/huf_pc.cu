@@ -1,40 +1,66 @@
 // Per-cell-table Huffman decode of backward HUF bitstreams (tableLog <= 12).
 //
-// Replaces the Pallas kernels zipnn_tpu/ops/pallas_huf_pc.py
-// `_build_kernel` (K1, launched by `_decode_call_cached`) and
-// zipnn_tpu/ops/pallas_gather.py `_gather_call_cached` (K3, the DMA row
+// Replaces the Pallas kernels zipnn_tpu/ops/pallas_huf_pc.py:425
+// `_decode_call_cached` (K1, kernel body `_build_kernel`) and
+// zipnn_tpu/ops/pallas_gather.py:84 `_gather_call_cached` (K3, the DMA row
 // gather that fed K1 right-aligned stream rows), and does the d-index ->
-// symbol job of `_build_post_kernel` (K4) on the main path.
+// symbol job of pallas_huf_pc.py:540 `_post_call_cached` (K4): a warp reads
+// its stream at its byte offset in the uploaded payload and writes symbol
+// bytes.
 //
-// Design.  One thread decodes one stream.  A TPU lane cannot gather per
-// lane, so the Pallas kernel emitted dtable indices from a boundary
-// compare chain and mapped them to symbols in a second pass; here each
-// thread reads its own cell's (symbol, nb) entries and its own stream
-// bytes straight from the uploaded payload at their byte offset, and
-// writes symbol bytes.
+// What bounded it.  Not bytes (the first bf16 batch moves ~0.36 GB, ~0.11 ms
+// at 3.35 TB/s) but the serial chain of each stream: peek -> table -> bits
+// consumed -> next peek.  One thread per stream gave 8 192 threads for the
+// first bf16 batch, ~2 warps per SM, ~355 ns per symbol.
 //
-// What bounds it.  The decode of one stream is a serial chain (peek ->
-// table -> bits consumed -> next peek), so the kernel is bound by that
-// chain's latency, not by bytes: ~4 streams per 64 KB of plane output
-// gives only a few thousand threads for a 512 MB container.  The design
-// keeps the chain short: the stream's bits sit in a 64-bit register
-// container refilled every few symbols, and the table is read through the
-// read-only cache.  Output bytes are packed four to a word before they
-// are stored.
+// What the design does.  One warp decodes one stream by the
+// self-synchronising schedule of huf_decode.cuh: up to 32 chains per
+// stream.  A block of 4 warps takes the 4 streams of one cell as the
+// decode plan lays them out and expands that cell's table into pair
+// entries in shared memory (at most 16 KB), so a lookup often yields two
+// symbols; a warp whose stream belongs to another cell reads its own row
+// from device memory, unpaired, so any `cells` array decodes exactly.
+// Symbols leave through shared-memory staging rows as whole 32-byte
+// sectors.  A launch of short streams (group = 32: small chunks, the tail
+// chunk) decodes one stream per lane by the serial chain instead, each
+// lane reading its cell's row from device memory.
+//
+// What bounds it now.  It runs at ~9x its byte bound, presumably on the
+// instruction rate of the per-lane chains (window slide, funnel-shift
+// peek, lookup, cursor update): no profiler counters run on the card's
+// machine, but variants timed there ran slower with fewer registers and
+// more warps.  So blocks get 64 registers a thread (32 warps per SM), the
+// least that ptxas meets without spills.
 //
 // Semantics (held against zipnn_tpu/ops/jax_entropy.py decode_streams):
-// bits_left starts at the sentinel position; each step peeks the tlog
-// bits below bits_left, shifting in zeros below the stream's first bit
-// (the bytes before a stream in the payload are real data, so they are
-// masked, never read), looks up the entry and retreats by its nb.  No
-// byte outside [start, start + len) is read, whatever the input.
+// bits_left starts at bits0; each step peeks the tl bits below it, zeros
+// below the stream's first bit (the bytes before a stream in the payload
+// are real data: masked, never read), looks the entry up and retreats by
+// its nb.  Preconditions (as cell_tables gives them): 1 <= tl <= 12 and
+// 2^tl <= table_stride.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "huf_decode.cuh"
 
 namespace {
 
-__global__ void huf_pc_decode_kernel(
+constexpr int kWarps = 4;              // streams per block: one cell
+constexpr int kMaxSmemEntries = 4096;  // tableLog 12
+
+struct PairTable {
+  const uint32_t* p;  // the block's cell: pair entries, shared memory
+  __device__ __forceinline__ uint32_t operator()(uint32_t i) const {
+    return p[i];
+  }
+};
+
+struct RowTable {
+  const uint16_t* p;  // another cell: its row in device memory, unpaired
+  __device__ __forceinline__ uint32_t operator()(uint32_t i) const {
+    return __ldg(p + i);
+  }
+};
+
+__global__ void __launch_bounds__(32 * kWarps, 8) huf_pc_decode_kernel(
     const uint8_t* __restrict__ payload,
     const int64_t* __restrict__ starts,
     const int32_t* __restrict__ lens,
@@ -45,63 +71,48 @@ __global__ void huf_pc_decode_kernel(
     const int32_t* __restrict__ tlogs,
     const uint16_t* __restrict__ tables,
     int64_t table_stride,
+    int smem_entries,
     int n_streams,
+    int lanes,
+    int min_seg_bits,
+    int group,
     uint8_t* __restrict__ out,
-    int32_t* __restrict__ bits_left_out) {
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_streams) return;
-  const uint8_t* src = payload + starts[s];
-  const int len = lens[s];
-  const int n = out_lens[s];
-  const int cell = cells[s];
-  const int tl = tlogs[cell];
-  const uint16_t* tbl = tables + (int64_t)cell * table_stride;
-  uint8_t* dst = out + out_offs[s];
-  const int64_t dst_addr = (int64_t)(out_offs[s]);
-
-  int bl = bits0[s];
-  int cbase = -16;  // container holds stream bytes [cbase, cbase + 8)
-  uint64_t cont = 0;
-  uint32_t acc = 0;
-  for (int k = 0; k < n; ++k) {
-    const int lo = bl - tl;
-    const int lo2 = lo > 0 ? lo : 0;
-    int navail = bl - lo2;
-    navail = navail < 0 ? 0 : (navail > 12 ? 12 : navail);
-    uint32_t idx = 0;
-    if (navail > 0) {
-      const int byte0 = lo2 >> 3;
-      if (byte0 < cbase || byte0 + 3 > cbase + 8) {
-        int nb = byte0 - 5;
-        cbase = nb > 0 ? nb : 0;
-        cont = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int p = cbase + j;
-          if (p < len) cont |= (uint64_t)__ldg(src + p) << (8 * j);
-        }
-      }
-      const uint32_t val =
-          (uint32_t)(cont >> (lo2 - 8 * cbase)) & ((1u << navail) - 1u);
-      idx = val << (lo2 - lo);
+    int32_t* __restrict__ bits_left_out,
+    int32_t* __restrict__ passes_out) {
+  extern __shared__ __align__(16) uint8_t smem[];  // staging rows, then pairs
+  uint32_t* pairs = reinterpret_cast<uint32_t*>(smem + kWarps * hufdec::kStageBytes);
+  if (group > 1) {  // short streams: one per lane, its cell's row read directly
+    const int s = (blockIdx.x * kWarps + (int)(threadIdx.x >> 5)) * 32 +
+                  (int)(threadIdx.x & 31);
+    if (s < n_streams) {
+      const int cell = cells[s];
+      hufdec::decode_lane(payload + starts[s], lens[s], bits0[s], out_lens[s],
+                          out + out_offs[s],
+                          RowTable{tables + (int64_t)cell * table_stride},
+                          tlogs[cell], bits_left_out + s, passes_out + s);
     }
-    const uint32_t e = __ldg(tbl + idx);
-    bl -= (int)(e >> 8);
-    const int64_t pos = dst_addr + k;
-    acc |= (e & 0xFFu) << (8 * (int)(pos & 3));
-    if ((pos & 3) == 3 || k == n - 1) {
-      const int64_t w0 = pos & ~(int64_t)3;
-      if (w0 >= dst_addr && (pos & 3) == 3) {
-        *reinterpret_cast<uint32_t*>(dst + (w0 - dst_addr)) = acc;
-      } else {
-        const int64_t first = w0 > dst_addr ? w0 : dst_addr;
-        for (int64_t p = first; p <= pos; ++p)
-          dst[p - dst_addr] = (uint8_t)(acc >> (8 * (int)(p & 3)));
-      }
-      acc = 0;
-    }
+    return;
   }
-  bits_left_out[s] = bl;
+  const int s0 = blockIdx.x * kWarps;
+  const int cell0 = cells[s0];
+  const int tl0 = tlogs[cell0];
+  const bool staged = (1 << tl0) <= smem_entries;
+  if (staged) hufdec::build_pairs(tables + (int64_t)cell0 * table_stride, tl0, pairs);
+  const int s = s0 + (int)(threadIdx.x >> 5);
+  if (s >= n_streams) return;  // the whole warp
+  const int cell = cells[s];
+  uint8_t* stage = smem + (threadIdx.x >> 5) * hufdec::kStageBytes;
+  if (cell == cell0 && staged) {
+    hufdec::decode_warp(payload + starts[s], lens[s], bits0[s], out_lens[s],
+                        out + out_offs[s], PairTable{pairs}, tl0, lanes,
+                        min_seg_bits, stage, bits_left_out + s, passes_out + s);
+  } else {
+    hufdec::decode_warp(payload + starts[s], lens[s], bits0[s], out_lens[s],
+                        out + out_offs[s],
+                        RowTable{tables + (int64_t)cell * table_stride},
+                        tlogs[cell], lanes, min_seg_bits, stage,
+                        bits_left_out + s, passes_out + s);
+  }
 }
 
 }  // namespace
@@ -110,16 +121,24 @@ extern "C" int huf_pc_decode(
     const void* payload, const void* starts, const void* lens,
     const void* bits0, const void* out_offs, const void* out_lens,
     const void* cells, const void* tlogs, const void* tables,
-    long long table_stride, int n_streams, void* out, void* bits_left,
-    void* stream) {
+    long long table_stride, int n_streams, int lanes, int min_seg_bits,
+    int group, void* out, void* bits_left, void* passes, void* stream) {
   if (n_streams <= 0) return 0;
-  const int threads = 64;
-  const int blocks = (n_streams + threads - 1) / threads;
-  huf_pc_decode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (lanes < 1 || lanes > 32 || min_seg_bits < 1 || (group != 1 && group != 32))
+    return (int)cudaErrorInvalidValue;
+  const int smem_entries =
+      table_stride < kMaxSmemEntries ? (int)table_stride : kMaxSmemEntries;
+  const int per_block = kWarps * group;
+  const int blocks = (n_streams + per_block - 1) / per_block;
+  // one stream per lane reads its table from device memory, no staging
+  const int smem = group > 1 ? 0 : kWarps * hufdec::kStageBytes + 4 * smem_entries;
+  huf_pc_decode_kernel<<<blocks, 32 * kWarps, smem,
+                         (cudaStream_t)stream>>>(
       (const uint8_t*)payload, (const int64_t*)starts, (const int32_t*)lens,
       (const int32_t*)bits0, (const int64_t*)out_offs,
       (const int32_t*)out_lens, (const int32_t*)cells,
       (const int32_t*)tlogs, (const uint16_t*)tables, (int64_t)table_stride,
-      n_streams, (uint8_t*)out, (int32_t*)bits_left);
+      smem_entries, n_streams, lanes, min_seg_bits, group, (uint8_t*)out,
+      (int32_t*)bits_left, (int32_t*)passes);
   return (int)cudaGetLastError();
 }

@@ -1,80 +1,54 @@
 // Shared-table Huffman decode of backward HUF bitstreams (tableLog <= 8).
 //
-// Replaces the Pallas kernel zipnn_tpu/ops/pallas_huf.py `_build_kernel`
-// (K6, launched by `_decode_call_cached`), and does the row-gather job of
-// zipnn_tpu/ops/pallas_gather.py `_gather_call_cached` (K3) on this path.
+// Replaces the Pallas kernel zipnn_tpu/ops/pallas_huf.py:239
+// `_decode_call_cached` (K6, kernel body `_build_kernel`), and does the
+// row-gather job of zipnn_tpu/ops/pallas_gather.py:84 `_gather_call_cached`
+// (K3) on this path: a warp reads its stream at its byte offset in the
+// uploaded payload.  The TPU kernel's window slides, right-aligned 512 B
+// rows and p0/pend geometry exist because a TPU lane cannot fetch from its
+// own stream; a CUDA lane can.
 //
-// Design.  Every Huffman cell of a shared-table container carries the same
-// weight header, so one 256-entry table (sym | nb << 8, indexed by the 8
-// stream bits below the cursor) serves every stream.  The block copies it
-// into shared memory once; every peek is then a shared-memory load, with
-// no per-cell table index.  One thread decodes one stream: it keeps a
-// 64-bit register window of its stream, loaded from the payload at a byte
-// offset, and writes four symbols per 32-bit store.  A symbol consumes at
-// most 8 bits, so four consume at most 32: the window is checked once per
-// four symbols (it is refilled when fewer than 32 bits below the cursor
-// remain in it), where the per-cell kernel checks per symbol.  The TPU
-// kernel's window slides, right-aligned 512 B rows and p0/pend geometry
-// exist because a TPU lane cannot fetch from its own stream; a thread can.
+// What bounded it.  Not bytes (~0.11 ms at 3.35 TB/s for the first bf16
+// batch) but the serial chain of each stream: peek -> table -> bits
+// consumed -> next peek.  With one thread per stream the table already sat
+// in shared memory and the chain ran at ~131 ns per symbol, ~2 warps per
+// SM, nothing to hide its latency.
 //
-// What bounds it.  Each stream is a serial chain (peek -> table ->
-// bits consumed -> next peek), so the kernel is bound by that chain's
-// latency, not by bytes: ~4 streams per 64 KB of plane output give only a
-// few thousand threads for a 512 MB container.  The design shortens the
-// chain (a shared-memory table load, one window check per four symbols)
-// but does not add parallelism.
+// What the design does.  Every Huffman cell of a shared-table container
+// carries the same weight header, so one 256-entry table (sym | nb << 8,
+// indexed by the 8 stream bits below the cursor) serves every stream; a
+// block of 8 warps expands it into pair entries in shared memory, so a
+// lookup often yields two symbols.  One warp decodes one stream by the
+// self-synchronising schedule of huf_decode.cuh: up to 32 chains per
+// stream.  Symbols leave through shared-memory staging rows as whole
+// 32-byte sectors.  A launch of short streams (group = 32: small chunks,
+// the tail chunk) decodes one stream per lane by the serial chain instead.
+//
+// What bounds it now.  It runs at ~9x its byte bound, presumably on the
+// instruction rate of the per-lane chains: variants timed on the card ran
+// slower with fewer registers and more warps, so blocks get 64 registers
+// a thread (32 warps per SM), the least that ptxas meets without spills.
 //
 // Semantics (held against zipnn_tpu/ops/jax_entropy.py decode_streams):
-// bits_left starts at the sentinel position; each step peeks the 8 bits
-// below bits_left, shifting in zeros below the stream's first bit (the
-// bytes before a stream in the payload are real data, so they are masked,
-// never read), looks up the entry and retreats by its nb.  No byte outside
-// [start, start + len) is read, whatever the input.
+// bits_left starts at bits0; each step peeks the 8 bits below it, zeros
+// below the stream's first bit (the bytes before a stream in the payload
+// are real data: masked, never read), looks the entry up and retreats by
+// its nb.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "huf_decode.cuh"
 
 namespace {
 
-struct Window {
-  uint64_t bits;  // stream bits [base, base + 64)
-  int base;       // a multiple of 8
+constexpr int kWarps = 8;  // streams per block
+
+struct Table {
+  const uint32_t* p;  // pair entries, shared memory
+  __device__ __forceinline__ uint32_t operator()(uint32_t i) const {
+    return p[i];
+  }
 };
 
-// Load the 8 stream bytes whose top byte holds the bit below `bl`, or the
-// stream's first 8 bytes when `bl` is within them.
-__device__ __forceinline__ void refill(Window& w, const uint8_t* src, int len,
-                                       int bl) {
-  int byte0 = ((bl + 7) >> 3) - 8;
-  byte0 = byte0 > 0 ? byte0 : 0;
-  uint64_t v = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int p = byte0 + j;
-    if (p < len) v |= (uint64_t)__ldg(src + p) << (8 * j);
-  }
-  w.bits = v;
-  w.base = 8 * byte0;
-}
-
-// One symbol: peek the 8 bits below `bl` (zeros below bit 0), look it up.
-__device__ __forceinline__ uint32_t decode1(const Window& w,
-                                            const uint16_t* tbl, int& bl) {
-  const int lo = bl - 8 - w.base;
-  uint32_t x;
-  if (lo >= 0) {
-    x = (uint32_t)(w.bits >> lo) & 0xFFu;
-  } else {
-    // only at base 0: the low bl bits, shifted up (0 when bl <= 0)
-    const int sh = -lo < 63 ? -lo : 63;
-    x = (uint32_t)(w.bits << sh) & 0xFFu;
-  }
-  const uint32_t e = tbl[x];
-  bl -= (int)(e >> 8);
-  return e & 0xFFu;
-}
-
-__global__ void huf_shared_decode_kernel(
+__global__ void __launch_bounds__(32 * kWarps, 4) huf_shared_decode_kernel(
     const uint8_t* __restrict__ payload,
     const int64_t* __restrict__ starts,
     const int32_t* __restrict__ lens,
@@ -83,41 +57,32 @@ __global__ void huf_shared_decode_kernel(
     const int32_t* __restrict__ out_lens,
     const uint16_t* __restrict__ table,
     int n_streams,
+    int lanes,
+    int min_seg_bits,
+    int group,
     uint8_t* __restrict__ out,
-    int32_t* __restrict__ bits_left_out) {
-  __shared__ uint16_t tbl[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) tbl[i] = table[i];
-  __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_streams) return;
-  const uint8_t* src = payload + starts[s];
-  const int len = lens[s];
-  const int n = out_lens[s];
-  const int64_t off = out_offs[s];
-  uint8_t* dst = out + off;
-
-  int bl = bits0[s];
-  Window w;
-  refill(w, src, len, bl);  // > 56 bits below bl, or base 0
-  // head: single bytes up to a 4-byte aligned output address (<= 3
-  // symbols, within the first window)
-  int head = (int)((4 - (off & 3)) & 3);
-  head = head < n ? head : n;
-  int k = 0;
-  for (; k < head; ++k) dst[k] = (uint8_t)decode1(w, tbl, bl);
-  // body: four symbols per word store, one window check per word
-  for (; k + 4 <= n; k += 4) {
-    if (w.base > 0 && bl - 32 < w.base) refill(w, src, len, bl);
-    uint32_t v = decode1(w, tbl, bl);
-    v |= decode1(w, tbl, bl) << 8;
-    v |= decode1(w, tbl, bl) << 16;
-    v |= decode1(w, tbl, bl) << 24;
-    *reinterpret_cast<uint32_t*>(dst + k) = v;
+    int32_t* __restrict__ bits_left_out,
+    int32_t* __restrict__ passes_out) {
+  __shared__ uint32_t pairs[256];
+  __shared__ __align__(16) uint8_t stage[kWarps * hufdec::kStageBytes];
+  const int warp = blockIdx.x * kWarps + (int)(threadIdx.x >> 5);
+  if (group > 1) {  // short streams: one per lane, the table unpaired
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) pairs[i] = table[i];
+    __syncthreads();
+    const int s = warp * 32 + (int)(threadIdx.x & 31);
+    if (s < n_streams)
+      hufdec::decode_lane(payload + starts[s], lens[s], bits0[s], out_lens[s],
+                          out + out_offs[s], Table{pairs}, 8,
+                          bits_left_out + s, passes_out + s);
+    return;
   }
-  // tail: the last 1-3 symbols
-  if (k < n && w.base > 0 && bl - 32 < w.base) refill(w, src, len, bl);
-  for (; k < n; ++k) dst[k] = (uint8_t)decode1(w, tbl, bl);
-  bits_left_out[s] = bl;
+  hufdec::build_pairs(table, 8, pairs);
+  const int s = warp;
+  if (s >= n_streams) return;  // the whole warp
+  hufdec::decode_warp(payload + starts[s], lens[s], bits0[s], out_lens[s],
+                      out + out_offs[s], Table{pairs}, 8, lanes, min_seg_bits,
+                      stage + (threadIdx.x >> 5) * hufdec::kStageBytes,
+                      bits_left_out + s, passes_out + s);
 }
 
 }  // namespace
@@ -125,15 +90,18 @@ __global__ void huf_shared_decode_kernel(
 extern "C" int huf_shared_decode(
     const void* payload, const void* starts, const void* lens,
     const void* bits0, const void* out_offs, const void* out_lens,
-    const void* table, int n_streams, void* out, void* bits_left,
-    void* stream) {
+    const void* table, int n_streams, int lanes, int min_seg_bits, int group,
+    void* out, void* bits_left, void* passes, void* stream) {
   if (n_streams <= 0) return 0;
-  const int threads = 64;
-  const int blocks = (n_streams + threads - 1) / threads;
-  huf_shared_decode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (lanes < 1 || lanes > 32 || min_seg_bits < 1 || (group != 1 && group != 32))
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kWarps * group;
+  const int blocks = (n_streams + per_block - 1) / per_block;
+  huf_shared_decode_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)payload, (const int64_t*)starts, (const int32_t*)lens,
       (const int32_t*)bits0, (const int64_t*)out_offs,
-      (const int32_t*)out_lens, (const uint16_t*)table, n_streams,
-      (uint8_t*)out, (int32_t*)bits_left);
+      (const int32_t*)out_lens, (const uint16_t*)table, n_streams, lanes,
+      min_seg_bits, group, (uint8_t*)out, (int32_t*)bits_left,
+      (int32_t*)passes);
   return (int)cudaGetLastError();
 }

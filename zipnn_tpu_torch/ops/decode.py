@@ -35,14 +35,14 @@ import torch
 
 from .. import codec
 from ..errors import CorruptChunkError
-from . import combine, huf_pc, huf_shared
+from . import combine, huf_pc, huf_shared, kernels
 
 KIND_STORED, KIND_RLE, KIND_HUF = 0, 1, 2
 BATCH_BYTES = 512 << 20  # output bytes per device batch
 
 # what the last decompress_payload call spent, for callers that report it:
 # plan_s / upload_s (host clock), the decode kernel's name, and on CUDA
-# the decode / K2 event pairs
+# the events recorded around each kernel launch
 last_timings: Dict = {}
 
 
@@ -341,27 +341,14 @@ def decompress_payload(
         torch.cuda.synchronize(device)
     last_timings["upload_s"] = time.perf_counter() - t1
 
-    stream = torch.cuda.current_stream(device) if cuda else None
-
-    def mark():
-        """A timing event on the decode's stream (None on the CPU)."""
-        if stream is None:
-            return None
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(stream)
-        return ev
-
     name, decode_fn, args_of = dv.decoder()
     last_timings["decoder"] = name
-    events = []
     bits_parts = []
-    for lo, hi in plan_batches(plan.g.n_chunks, chunk_size):
-        e0 = mark()
-        hsym, bl = decode_fn(*args_of(lo, hi))
-        e1 = mark()
-        combine.combine_cells(*dv.k2_args(lo, hi, hsym), out[lo * chunk_size :])
-        events.append((e0, e1, mark()))
-        bits_parts.append(bl)
+    with kernels.recording() as events:
+        for lo, hi in plan_batches(plan.g.n_chunks, chunk_size):
+            hsym, bl = decode_fn(*args_of(lo, hi))
+            combine.combine_cells(*dv.k2_args(lo, hi, hsym), out[lo * chunk_size :])
+            bits_parts.append(bl)
     last_timings["events"] = events
     bits_left = torch.cat(bits_parts).cpu().numpy()
     check_streams(plan, bits_left)
@@ -370,13 +357,9 @@ def decompress_payload(
 
 def kernel_ms() -> Dict[str, float]:
     """Device milliseconds of the last CUDA decompress by kernel name (its
-    decode kernel, K1 or K6, and K2; summed over batches); synchronises on
-    the recorded events."""
-    dec = k2 = 0.0
-    for ev in last_timings.get("events", []):
-        if ev[0] is None:
-            continue
-        ev[2].synchronize()
-        dec += ev[0].elapsed_time(ev[1])
-        k2 += ev[1].elapsed_time(ev[2])
-    return {last_timings.get("decoder", "huf_pc_decode"): dec, "combine_cells": k2}
+    decode kernel, K1 or K6, and K2; summed over batches), from the events
+    that ``kernels.launch`` recorded around each launch; synchronises on
+    them."""
+    return kernels.elapsed_ms(
+        last_timings.get("events", []),
+        (last_timings.get("decoder", "huf_pc_decode"), "combine_cells"))

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .. import codec
-from . import byte_group, const_scan, huf_enc, transforms
+from . import byte_group, const_scan, huf_enc, kernels, transforms
 from .entropy import huf
 
 RAW, RLE, HUF = 0, 1, 2
@@ -53,7 +53,8 @@ BATCH_BYTES = 512 << 20  # input bytes per device batch
 # (split_s, hist_s, kernels_s, fetch_s, splice_s, upload_s), the input
 # bytes uploaded (upload_bytes), every byte moved each way (h2d_bytes:
 # the input's uploads, the tables and the fetch indices; d2h_bytes), the
-# batch count and, on CUDA, the K8 / K7 event pairs
+# batch count and, on CUDA, the events recorded around each K8 and K7
+# launch
 last_timings: Dict = {}
 
 
@@ -235,16 +236,13 @@ def encode_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
     planes = transforms.split_device(words, nb, byte_reorder, bit_reorder)
     _sync(dev)
     t2 = time.perf_counter()
-    e0 = _mark(dev)
     flags = const_scan.const_scan_rows(planes.view(k * nb, pw))
-    e1 = _mark(dev)
     cells = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * nb
     quarter = torch.arange(4, dtype=torch.int64, device=dev) * (pw // 4)
     rows, bits = {}, {}
     for b, table in tables.items():
         streams = ((cells + b) * pw + quarter).reshape(-1)
         rows[b], bits[b] = huf_enc.huf_shared_encode(planes, table, g.seg, streams)
-    e2 = _mark(dev)
     _sync(dev)
     t3 = time.perf_counter()
     dec = torch.cat([flags] + list(bits.values())).cpu().numpy()
@@ -279,18 +277,8 @@ def encode_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
     t4 = time.perf_counter()
     for key, dt in (("split_s", t2 - t1), ("kernels_s", t3 - t2), ("fetch_s", t4 - t3)):
         clock[key] = clock.get(key, 0.0) + dt
-    clock.setdefault("events", []).append((e0, e1, e2))
     return Batch(lo, kind, size, sbytes, (flags_h & 0xFF).astype(np.uint8), blob,
                  huf_off, pos, raw_idx)
-
-
-def _mark(dev: torch.device):
-    """A timing event on the device's current stream (None on the CPU)."""
-    if dev.type != "cuda":
-        return None
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record(torch.cuda.current_stream(dev))
-    return ev
 
 
 def splice(g: Geometry, batches: List[Batch], headers, tail_types, tail_sizes,
@@ -383,8 +371,10 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
                 lengths, vals, _, _ = shared[b]
                 tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
 
-    batches = [encode_batch(src, g, lo, hi, byte_reorder, bit_reorder, tables, hlen,
-                            threshold, last_timings) for lo, hi in g.batches]
+    with kernels.recording() as events:
+        batches = [encode_batch(src, g, lo, hi, byte_reorder, bit_reorder, tables,
+                                hlen, threshold, last_timings) for lo, hi in g.batches]
+    last_timings["events"] = events
     t2 = time.perf_counter()
     tail_types = tail_sizes = tail_blobs = None
     if tail_planes is not None:
@@ -409,12 +399,7 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
 
 def kernel_ms() -> Dict[str, float]:
     """Device milliseconds of the last CUDA compress by kernel name (K8
-    and K7, summed over batches); synchronises on the recorded events."""
-    k8 = k7 = 0.0
-    for ev in last_timings.get("events", []):
-        if ev[0] is None:
-            continue
-        ev[2].synchronize()
-        k8 += ev[0].elapsed_time(ev[1])
-        k7 += ev[1].elapsed_time(ev[2])
-    return {"const_scan_rows": k8, "huf_shared_encode": k7}
+    and K7, summed over batches), from the events that ``kernels.launch``
+    recorded around each launch; synchronises on them."""
+    return kernels.elapsed_ms(last_timings.get("events", []),
+                              ("const_scan_rows", "huf_shared_encode"))

@@ -4,9 +4,10 @@ and its plain PyTorch version.
 The counterpart of the JAX package's ``ops/pallas_huf_pc.py``.  Every
 (plane, chunk) cell of a reference-profile container carries its own
 Huffman table (tableLog <= 12) and four backward bitstreams.  The kernel
-(``csrc/huf_pc.cu``) decodes one stream per thread straight from the
-uploaded payload and writes symbol bytes, so the TPU's row gather (K3) and
-d-index -> symbol post pass (K4) have no counterpart here.
+(``csrc/huf_pc.cu``) decodes one stream per warp by the self-synchronising
+schedule that ``huf_sync`` models (one per lane where streams are short),
+straight from the uploaded payload, and writes symbol bytes, so the TPU's row gather (K3) and d-index -> symbol
+post pass (K4) have no counterpart here.
 
 Table layout: one row of ``2^tlog_k`` uint16 entries per cell, entry =
 ``symbol | nb_bits << 8`` (``huf.build_dtable``), only the first
@@ -15,13 +16,35 @@ uint16 arithmetic on the CPU, so rows are int16 tensors (entries < 2^13).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import kernels
 from .entropy import huf
+
+# the warp schedule of K1 and K6 (csrc/huf_decode.cuh), passed to both
+# kernels as arguments and read by the schedule's model, ``huf_sync``
+LANES = 32  # lanes of a warp: sub-segments per stream, at most
+MIN_SEG_BITS = 256  # shortest sub-segment a stream is cut into
+# a K1 launch whose streams average fewer symbols decodes one stream per
+# lane (``streams_per_warp``); K6 has its own, ``huf_shared.GROUP_SYMBOLS``
+GROUP_SYMBOLS = 1024
+
+
+def streams_per_warp(n_out: int, n_streams: int, group_symbols: int) -> int:
+    """Streams each warp of K1 or K6 decodes: 1, by the warp schedule,
+    where the launch's streams average ``group_symbols`` symbols or more
+    (``n_out`` over ``n_streams``), else 32, one per lane by the serial
+    chain: a short stream has too few sub-segments to keep a warp busy."""
+    return 32 if n_out < n_streams * group_symbols else 1
+
+
+# the kernel's per-stream synchronisation passes of the last CUDA call
+# (int32 [S] on the card; -1 where a capped loop sent a stream to the
+# serial chain, 0 for a lane per stream); None after a CPU call
+last_sync_passes: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -88,10 +111,14 @@ def huf_pc_decode(
     ``tlogs[cells[s]]``) and writes ``out_lens[s]`` symbols at
     ``out_offs[s]``.  Returns (out uint8 [n_out], bits_left int32 [S]); a
     stream decoded exactly ends with ``bits_left == 0``.  Bytes of ``out``
-    that no stream covers are undefined.
+    that no stream covers are undefined.  Every ``tlogs`` entry lies in
+    [1, 12] and ``2^tlog <= tables.shape[1]`` (as :func:`cell_tables`
+    gives them).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which also leaves its per-stream sync passes in ``last_sync_passes``.
     """
+    global last_sync_passes
     dev = payload.device
     S = int(starts.numel())
     for name, t, dt in (
@@ -114,6 +141,7 @@ def huf_pc_decode(
     if tables.dim() != 2 or tlogs.shape != (tables.shape[0],):
         raise ValueError("huf_pc_decode: tables must be [n_cells, T], tlogs [n_cells]")
     if dev.type == "cpu":
+        last_sync_passes = None
         return huf_pc_decode_plain(
             payload, starts, lens, bits0, out_offs, out_lens, cells, tlogs,
             tables, n_out,
@@ -122,14 +150,18 @@ def huf_pc_decode(
         raise ValueError(f"huf_pc_decode: unsupported device {dev}")
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     bits_left = torch.empty(S, dtype=torch.int32, device=dev)
+    passes = torch.empty(S, dtype=torch.int32, device=dev)
     if S:
         kernels.launch(
             "huf_pc_decode", dev,
             payload.data_ptr(), starts.data_ptr(), lens.data_ptr(),
             bits0.data_ptr(), out_offs.data_ptr(), out_lens.data_ptr(),
             cells.data_ptr(), tlogs.data_ptr(), tables.data_ptr(),
-            int(tables.shape[1]), S, out.data_ptr(), bits_left.data_ptr(),
+            int(tables.shape[1]), S, LANES, MIN_SEG_BITS,
+            streams_per_warp(n_out, S, GROUP_SYMBOLS),
+            out.data_ptr(), bits_left.data_ptr(), passes.data_ptr(),
         )
+    last_sync_passes = passes
     return out, bits_left
 
 

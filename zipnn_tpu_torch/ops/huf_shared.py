@@ -5,8 +5,10 @@ The counterpart of the JAX package's ``ops/pallas_huf.py``.  A
 shared-table container (what ``huffman_table="shared"`` writes) repeats
 one weight header with tableLog <= 8 in every Huffman cell, so one table
 serves every stream.  The kernel (``csrc/huf_shared.cu``) decodes one
-stream per thread straight from the uploaded payload, with the table in
-shared memory, and writes symbol bytes; the TPU's row gather (K3) has no
+stream per warp by the self-synchronising schedule that ``huf_sync``
+models (one per lane where streams are short), straight from the uploaded
+payload, with the table in shared
+memory, and writes symbol bytes; the TPU's row gather (K3) has no
 counterpart here.
 
 Table layout: 256 uint16 entries ``symbol | nb_bits << 8`` indexed by the
@@ -17,7 +19,7 @@ on the CPU, so the table is an int16 tensor (entries < 2^12).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +27,18 @@ import torch
 from . import huf_pc, kernels
 from .entropy import huf
 
+# a launch whose streams average fewer symbols decodes one stream per lane
+# (``huf_pc.streams_per_warp``); higher than K1's, since K6's lanes read
+# the table from shared memory, K1's their cell's row from device memory
+# (the crossovers measured by time_decoders.py)
+GROUP_SYMBOLS = 2048
+
 TMAX = 8  # the largest tableLog one 256-entry table expands
+
+# the kernel's per-stream synchronisation passes of the last CUDA call
+# (int32 [S] on the card; -1 where a capped loop sent a stream to the
+# serial chain, 0 for a lane per stream); None after a CPU call
+last_sync_passes: Optional[torch.Tensor] = None
 
 
 def expand_table8(header: bytes) -> np.ndarray:
@@ -64,8 +77,10 @@ def huf_shared_decode(
     exactly ends with ``bits_left == 0``.  Bytes of ``out`` that no stream
     covers are undefined.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which also leaves its per-stream sync passes in ``last_sync_passes``.
     """
+    global last_sync_passes
     dev = payload.device
     S = int(starts.numel())
     for name, t, dt in (
@@ -87,6 +102,7 @@ def huf_shared_decode(
     if table.shape != (256,):
         raise ValueError(f"huf_shared_decode: table shape {tuple(table.shape)} != (256,)")
     if dev.type == "cpu":
+        last_sync_passes = None
         return huf_shared_decode_plain(
             payload, starts, lens, bits0, out_offs, out_lens, table, n_out,
         )
@@ -94,13 +110,17 @@ def huf_shared_decode(
         raise ValueError(f"huf_shared_decode: unsupported device {dev}")
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     bits_left = torch.empty(S, dtype=torch.int32, device=dev)
+    passes = torch.empty(S, dtype=torch.int32, device=dev)
     if S:
         kernels.launch(
             "huf_shared_decode", dev,
             payload.data_ptr(), starts.data_ptr(), lens.data_ptr(),
             bits0.data_ptr(), out_offs.data_ptr(), out_lens.data_ptr(),
-            table.data_ptr(), S, out.data_ptr(), bits_left.data_ptr(),
+            table.data_ptr(), S, huf_pc.LANES, huf_pc.MIN_SEG_BITS,
+            huf_pc.streams_per_warp(n_out, S, GROUP_SYMBOLS),
+            out.data_ptr(), bits_left.data_ptr(), passes.data_ptr(),
         )
+    last_sync_passes = passes
     return out, bits_left
 
 

@@ -4,14 +4,21 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together) and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs
 at first use, never at import, into ``zipnn_tpu_torch/_build/`` (listed in
-``.gitignore``), under a name derived from the sources' content so an
-edited source is never served a stale library.
+``.gitignore``), under a name derived from the content of the sources and
+of the headers they include (``csrc/*.cuh``), so an edited file is never
+served a stale library.
 
 ``launches`` counts kernel launches by wrapper name: a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  Inside ``with
+recording() as events``, each launch that the calling thread makes appends
+``(name, start, end)`` to ``events``: CUDA events recorded on the launch's
+stream right before and right after the kernel, so their interval holds
+the kernel and none of the host work around it (``elapsed_ms`` sums them).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -19,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -31,6 +38,9 @@ launches: Dict[str, int] = {
     "huf_shared_encode": 0, "const_scan_rows": 0,
 }
 
+# the event list of the innermost ``recording()`` block of this thread
+_recording: contextvars.ContextVar = contextvars.ContextVar("recording", default=None)
+
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -39,11 +49,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # payload, starts, lens, bits0, out_offs, out_lens, cells, tlogs,
-    # tables, table_stride, n_streams, out, bits_left, stream
-    "huf_pc_decode": [_P] * 9 + [_L, _I, _P, _P, _P],
+    # tables, table_stride, n_streams, lanes, min_seg_bits, group, out,
+    # bits_left, passes, stream
+    "huf_pc_decode": [_P] * 9 + [_L, _I, _I, _I, _I, _P, _P, _P, _P],
     # payload, starts, lens, bits0, out_offs, out_lens, table, n_streams,
-    # out, bits_left, stream
-    "huf_shared_decode": [_P] * 7 + [_I, _P, _P, _P],
+    # lanes, min_seg_bits, group, out, bits_left, passes, stream
+    "huf_shared_decode": [_P] * 7 + [_I, _I, _I, _I, _P, _P, _P, _P],
     # payload, hsym, kinds, srcs, hsym_row, chunk_size, total_bytes,
     # num_buf, byte_reorder, bit_reorder, out, stream
     "combine_cells": [_P] * 4 + [_L, _L, _L, _I, _I, _I, _P, _P],
@@ -60,6 +71,28 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+@contextlib.contextmanager
+def recording():
+    """Yield a list that collects ``(name, start, end)`` CUDA events for
+    every launch this thread makes inside the block."""
+    events: List = []
+    token = _recording.set(events)
+    try:
+        yield events
+    finally:
+        _recording.reset(token)
+
+
+def elapsed_ms(events, names=()) -> Dict[str, float]:
+    """Device milliseconds by kernel name of ``recording()`` events (every
+    name in ``names`` present, 0 if it never ran); synchronises on them."""
+    ms = dict.fromkeys(names, 0.0)
+    for name, start, end in events:
+        end.synchronize()
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+    return ms
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -74,14 +107,20 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def source_tag() -> str:
+    """A digest of every kernel source and header (``csrc/*.cu``,
+    ``csrc/*.cuh``): the built library's name."""
+    digest = hashlib.sha1()
+    for s in sorted(_sources() + list(CSRC.glob("*.cuh"))):
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile and link the kernels (if not built yet); returns the .so."""
     srcs = _sources()
-    digest = hashlib.sha1()
-    for s in srcs:
-        digest.update(s.name.encode())
-        digest.update(s.read_bytes())
-    tag = digest.hexdigest()[:16]
+    tag = source_tag()
     so = BUILD_DIR / f"libzipnn_cuda_{tag}.so"
     if so.exists():
         return so
@@ -147,8 +186,17 @@ def launch(name: str, device, *args) -> None:
     import torch  # noqa: PLC0415
 
     fn = getattr(lib(), name)
+    events = _recording.get()
     with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device)
+        if events is None:
+            err = fn(*args, stream.cuda_stream)
+        else:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record(stream)
+            err = fn(*args, stream.cuda_stream)
+            end.record(stream)
+            events.append((name, start, end))
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
