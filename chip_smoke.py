@@ -12,9 +12,11 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    shapes of its path's first batch (bit-exact): ``huf_pc_decode`` on the
    bf16 and fp32 paths, ``huf_shared_decode`` on the shared-table path
    (each with the mean and max of its synchronisation passes per stream),
-   ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32), and the
-   encode kernels ``const_scan_rows`` and ``huf_shared_encode`` on the bf16
-   shared encode path (stream bytes and ``total_bits``);
+   ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32), the encode
+   kernels ``const_scan_rows`` and ``huf_shared_encode`` on the bf16 shared
+   encode path (stream bytes and ``total_bits``), and ``combine_cells``
+   once more at 1 plane (8 MiB of fp8 at 64 KB chunks) and at 256 B chunks
+   of bf16 (1 MiB) into an output 4 bytes past a 16-byte boundary;
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
@@ -209,13 +211,15 @@ def hold_decode(label, module, wrapper, plain, args, table_bytes):
                    "sync_passes_max": int(passes.max())}
 
 
-def hold_combine(label, plan, k2a, original: torch.Tensor, lo, hi):
-    """K2 against its plain version and the original bytes."""
+def hold_combine(label, plan, k2a, original: torch.Tensor, lo, hi, offset: int = 0):
+    """K2 against its plain version and the original bytes, writing into an
+    ``out`` that starts ``offset`` bytes into its buffer."""
     from zipnn_tpu_torch.ops import combine, decode  # noqa: PLC0415
 
     total = k2a[6]
-    out_k = torch.empty(-(-total // 4) * 4, dtype=torch.uint8, device="cuda")
-    out_p = torch.empty_like(out_k)
+    n = -(-total // 4) * 4
+    out_k = torch.empty(n + offset, dtype=torch.uint8, device="cuda")[offset:]
+    out_p = torch.empty(n + offset, dtype=torch.uint8, device="cuda")[offset:]
     combine.combine_cells(*k2a, out_k)
     _, plain_ms = host_ms(lambda: combine.combine_cells_plain(*k2a, out_p))
     err = int((out_k.int() - out_p.int()).abs().max())
@@ -227,10 +231,20 @@ def hold_combine(label, plan, k2a, original: torch.Tensor, lo, hi):
     kind = plan.g.kind[:, lo:hi]
     nbytes = (int(want[kind != decode.KIND_RLE].sum())
               + 12 * int(k2a[2].numel()) + out_k.numel())
-    log(f"[kernels] {label}: {hi - lo} chunks, {ms:.3f} ms "
+    log(f"[kernels] {label}: {hi - lo} chunks of {plan.g.chunk_size} B, {ms:.3f} ms "
         f"(plain {plain_ms:.1f} ms), bit-exact")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def hold_combine_of(label, container: bytes, original: torch.Tensor, dev, offset: int = 0):
+    """K2 on the first batch of a per-chunk container (its symbols from
+    K1), held as ``hold_combine`` holds it."""
+    from zipnn_tpu_torch.ops import huf_pc  # noqa: PLC0415
+
+    plan, dv, (lo, hi) = plan_of(container, dev)
+    sym, _ = huf_pc.huf_pc_decode(*dv.k1_args(lo, hi))
+    return hold_combine(label, plan, dv.k2_args(lo, hi, sym), original, lo, hi, offset)
 
 
 def drive(label, container, x_cpu, must_launch, must_not_launch, smi):
@@ -311,17 +325,17 @@ def corrupt_case(label, comp: bytes, stream: int):
     raise RuntimeError(f"chip_smoke check failed: corrupt {label} container decoded")
 
 
-def encode_first_batch(x_cpu: torch.Tensor, dev):
-    """The bf16 shared encode path's first batch on the card: its split
-    planes [k, 2, W], the live planes' K7 tables (from the sampled
-    counts), and the batch's geometry."""
+def encode_first_batch(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
+    """A shared encode path's first batch on the card: its split planes
+    [k, num_buf, W], the live planes' K7 tables (from the sampled counts),
+    and the batch's geometry."""
     from zipnn_tpu_torch import codec  # noqa: PLC0415
     from zipnn_tpu_torch.core import dtypes  # noqa: PLC0415
     from zipnn_tpu_torch.ops import byte_group, encode, huf_enc, transforms  # noqa: PLC0415
 
     gr = dtypes.grouping_for_code(dtypes.from_any(x_cpu.dtype).code)
     flat = x_cpu.view(torch.uint8).reshape(-1).numpy()
-    g = encode.Geometry(flat.size, gr.num_buf, 256 * 1024)
+    g = encode.Geometry(flat.size, gr.num_buf, chunk)
     src = encode.Source(flat, g, dev)
     tail = byte_group.split(src.tail, gr.num_buf, gr.byte_reorder, gr.bit_reorder)
     counts = encode.sampled_counts(src, g, gr.byte_reorder, gr.bit_reorder, tail)
@@ -335,27 +349,14 @@ def encode_first_batch(x_cpu: torch.Tensor, dev):
     return g, planes, tables
 
 
-def hold_encode_kernels(x_cpu: torch.Tensor, dev):
-    """K8 and K7 against their plain versions at the bf16 shared encode
-    path's first batch: K8 over every (chunk, plane) row, K7 over every
-    stream of each live plane; bit-exact flags, ``total_bits`` and stream
-    bytes; their times and byte bounds."""
-    from zipnn_tpu_torch.ops import const_scan, huf_enc  # noqa: PLC0415
+def hold_huf_encode(g, planes, tables, dev):
+    """K7 against its plain version over every stream of each live plane
+    of a split batch: bit-exact ``total_bits`` and stream bytes; its time
+    (summed over the planes) and byte bound."""
+    from zipnn_tpu_torch.ops import huf_enc  # noqa: PLC0415
 
-    g, planes, tables = encode_first_batch(x_cpu, dev)
     k, nb, w = planes.shape
-    rows = planes.view(k * nb, w)
-    f_k = const_scan.const_scan_rows(rows)
-    f_p, plain8 = host_ms(lambda: const_scan.const_scan_rows_plain(rows))
-    check(torch.equal(f_k, f_p), "const_scan_rows != plain")
-    ms8 = cuda_ms(lambda: const_scan.const_scan_rows(rows))
-    n_const = int((f_k >> 8).sum())
-    log(f"[kernels] const_scan_rows ({k} chunks, {k * nb} rows of {4 * w} bytes): "
-        f"{ms8:.3f} ms (plain {plain8:.1f} ms), {n_const} constant rows, bit-exact")
-    k8 = {"ms": ms8, "plain_ms": plain8, "max_abs_err": 0,
-          "bound_ms": 1e3 * (rows.numel() * 4 + 4 * k * nb) / HBM_BYTES_PER_S}
-
-    check(len(tables) > 0, "no live plane on the bf16 shared path")
+    check(len(tables) > 0, "no live plane on the shared encode path")
     cells = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * nb
     quarter = torch.arange(4, dtype=torch.int64, device=dev) * (w // 4)
     ms7 = plain7 = 0.0
@@ -385,9 +386,30 @@ def hold_encode_kernels(x_cpu: torch.Tensor, dev):
             f"stream's bytes and total_bits")
     log(f"[kernels] huf_shared_encode: {ms7:.3f} ms (plain {plain7:.1f} ms) over "
         f"{n_streams} streams")
-    k7 = {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0,
-          "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
-    return k8, k7
+    return {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0,
+            "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
+
+
+def hold_encode_kernels(x_cpu: torch.Tensor, dev):
+    """K8 and K7 against their plain versions at the bf16 shared encode
+    path's first batch: K8 over every (chunk, plane) row, K7 over every
+    stream of each live plane; bit-exact flags, ``total_bits`` and stream
+    bytes; their times and byte bounds."""
+    from zipnn_tpu_torch.ops import const_scan  # noqa: PLC0415
+
+    g, planes, tables = encode_first_batch(x_cpu, dev)
+    k, nb, w = planes.shape
+    rows = planes.view(k * nb, w)
+    f_k = const_scan.const_scan_rows(rows)
+    f_p, plain8 = host_ms(lambda: const_scan.const_scan_rows_plain(rows))
+    check(torch.equal(f_k, f_p), "const_scan_rows != plain")
+    ms8 = cuda_ms(lambda: const_scan.const_scan_rows(rows))
+    n_const = int((f_k >> 8).sum())
+    log(f"[kernels] const_scan_rows ({k} chunks, {k * nb} rows of {4 * w} bytes): "
+        f"{ms8:.3f} ms (plain {plain8:.1f} ms), {n_const} constant rows, bit-exact")
+    k8 = {"ms": ms8, "plain_ms": plain8, "max_abs_err": 0,
+          "bound_ms": 1e3 * (rows.numel() * 4 + 4 * k * nb) / HBM_BYTES_PER_S}
+    return k8, hold_huf_encode(g, planes, tables, dev)
 
 
 def encode_small(x: torch.Tensor, want: bytes, label: str, **kw) -> None:
@@ -575,6 +597,17 @@ def main() -> int:
         dv.k6_args(lo, hi), 512)
     del dv
     rows["k8"], rows["k7"] = hold_encode_kernels(x_bf16, dev)
+    # K2 at one plane (fp8, 64 KB chunks) and into an out that is 4- but not
+    # 16-byte aligned at 256 B chunks (every word by the per-word path)
+    x8 = synth(torch.float8_e4m3fn, SMALL_MIB << 20, args.seed + 9)
+    hold_combine_of("combine_cells (1 plane, fp8)", ZipNN(
+        input_format="torch", engine="numpy", compression_chunk=64 << 10).compress(x8),
+        x8, dev)
+    xs = synth(torch.bfloat16, (1 << 20) + 36, args.seed + 10)
+    hold_combine_of("combine_cells (2 planes, 256 B chunks, out at +4 B)", ZipNN(
+        input_format="torch", engine="numpy", compression_chunk=256).compress(xs),
+        xs, dev, offset=4)
+    del x8, xs
     torch.cuda.empty_cache()
 
     # ---- 3. fixtures ----------------------------------------------------

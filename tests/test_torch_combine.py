@@ -21,18 +21,19 @@ from zipnn_tpu_torch.ops import combine
 CS = 1024  # chunk size
 
 
-def _case(total: int, num_buf: int, byte_reorder: int, bit_reorder: int, seed: int):
+def _case(total: int, num_buf: int, byte_reorder: int, bit_reorder: int, seed: int,
+          cs: int = CS):
     """Planes of every chunk with a mix of cell kinds, and the kernel's
     inputs that describe them."""
     rng = np.random.default_rng(seed)
-    n_chunks = -(-total // CS)
-    row = CS // num_buf
+    n_chunks = -(-total // cs)
+    row = cs // num_buf
     payload = bytearray(rng.integers(0, 256, 3, dtype=np.uint8).tobytes())
     hsym = np.zeros((n_chunks * num_buf, row), np.uint8)
     kinds, srcs, planes = [], [], []
     n_huf = 0
     for c in range(n_chunks):
-        clen = min(CS, total - c * CS)
+        clen = min(cs, total - c * cs)
         lens = byte_group.plane_lengths(clen, num_buf, byte_reorder)
         cp = []
         for b in range(num_buf):
@@ -58,16 +59,16 @@ def _case(total: int, num_buf: int, byte_reorder: int, bit_reorder: int, seed: i
     t = torch.from_numpy
     args = (
         t(np.frombuffer(bytes(payload), np.uint8).copy()), t(hsym.reshape(-1)),
-        t(np.asarray(kinds, np.int32)), t(np.asarray(srcs, np.int64)), row, CS,
+        t(np.asarray(kinds, np.int32)), t(np.asarray(srcs, np.int64)), row, cs,
         total, num_buf, byte_reorder, bit_reorder,
     )
     return args, planes
 
 
-def _golden(planes, total, num_buf, byte_reorder, bit_reorder):
+def _golden(planes, total, num_buf, byte_reorder, bit_reorder, cs=CS):
     parts = []
     for c, cp in enumerate(planes):
-        clen = min(CS, total - c * CS)
+        clen = min(cs, total - c * cs)
         parts.append(byte_group.combine(cp, clen, num_buf, byte_reorder, bit_reorder))
     return np.concatenate(parts)
 
@@ -102,6 +103,25 @@ def test_plain_matches_golden_and_jax(num_buf, bit_reorder, total):
         jax_transforms.combine_device(jnp.asarray(pw), num_buf, mode, bit_reorder)
     )
     np.testing.assert_array_equal(out[: full * CS].view("<u4").reshape(full, -1), want)
+
+
+@pytest.mark.parametrize("cs", [4, 12, 20, 260, 4100])
+@pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder",
+                         [(1, 10, 0), (2, 10, 1), (2, 1, 1), (2, 8, 0), (4, 220, 1)])
+def test_plain_matches_golden_at_odd_chunk_sizes(num_buf, byte_reorder, bit_reorder, cs):
+    """Chunk sizes whose planes and symbol rows are not multiples of 8 or
+    16 bytes (the card kernel's per-word path), every plane layout, with
+    ragged tails of every residue mod 16 (even ones in modes 1 and 8,
+    which hold 2-byte values: the golden combine refuses an odd chunk
+    there)."""
+    step = 2 if byte_reorder in (1, 8) else 1
+    for tail in sorted(set(range(0, min(cs, 16), step)) | {cs - step}):
+        total = 3 * cs + tail
+        args, planes = _case(total, num_buf, byte_reorder, bit_reorder, seed=cs + tail, cs=cs)
+        out = _run(args).numpy()
+        want = _golden(planes, total, num_buf, byte_reorder, bit_reorder, cs=cs)
+        np.testing.assert_array_equal(out[:total], want, err_msg=f"tail {tail}")
+        assert not np.any(out[total:])
 
 
 @pytest.mark.parametrize("byte_reorder", [1, 8])

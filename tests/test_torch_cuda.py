@@ -255,18 +255,25 @@ def test_huf_decode_kernels_on_hard_streams(card, case, shared, schedule, monkey
 
 
 def _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed, cs=1024):
+    """Cells of every kind (cell i's kind is (i + seed) % 3, so a 4-plane
+    chunk holds all three), each stored cell one residue mod 16 further
+    into the payload than the one before, symbol rows of cs / num_buf
+    bytes (any alignment)."""
     rng = np.random.default_rng(seed)
     n_chunks = -(-total // cs)
     row = cs // num_buf
     payload = bytearray(rng.integers(0, 256, 5, dtype=np.uint8).tobytes())
     hsym = rng.integers(0, 256, (n_chunks * num_buf, row), dtype=np.uint8)
     kinds, srcs = [], []
+    n_stored = 0
     for c in range(n_chunks):
         lens = plane_lengths(min(cs, total - c * cs), num_buf, byte_reorder)
         for b in range(num_buf):
-            kind = int(rng.integers(0, 3))
+            kind = (c * num_buf + b + seed) % 3
             if kind == 0:
-                payload += rng.integers(0, 256, 1 + c, dtype=np.uint8).tobytes()
+                pad = (n_stored - len(payload)) % 16
+                payload += rng.integers(0, 256, pad, dtype=np.uint8).tobytes()
+                n_stored += 1
                 src = len(payload)
                 payload += rng.integers(0, 256, lens[b], dtype=np.uint8).tobytes()
             elif kind == 1:
@@ -283,21 +290,31 @@ def _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed, cs=1024):
     )
 
 
-@pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder,total", [
-    (2, 10, 1, 3 * 1024 + 301), (2, 10, 0, 5 * 1024), (1, 10, 1, 4 * 1024 + 7),
-    (2, 8, 0, 2 * 1024 + 500), (2, 1, 0, 2 * 1024 + 501),
-    (4, 220, 1, 3 * 1024 + 401), (4, 220, 1, 3 * 1024 + 402),
-    (4, 220, 0, 3 * 1024 + 403), (4, 220, 1, 4 * 1024),
-])
-def test_combine_kernel_matches_plain(card, num_buf, byte_reorder, bit_reorder, total):
-    args = _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed=total)
-    n = -(-total // 4) * 4
-    want = torch.full((n,), 0xAA, dtype=torch.uint8)
-    combine.combine_cells(*args, want)
-    got = torch.full((n,), 0xAA, dtype=torch.uint8, device=card)
-    combine.combine_cells(*_to(args, card), got)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+@pytest.mark.parametrize("cs", [4, 12, 20, 260, 1024, 4100, 262144])
+@pytest.mark.parametrize("bit_reorder", [0, 1])
+@pytest.mark.parametrize("num_buf,byte_reorder", [(1, 10), (2, 10), (2, 1), (2, 8), (4, 220)])
+def test_combine_kernel_matches_plain(card, num_buf, byte_reorder, bit_reorder, cs):
+    """K2 against its plain version: every plane layout, with and without
+    the sign rotation, at chunk sizes whose planes, symbol rows and chunk
+    starts take every alignment (the vector path and the per-word path);
+    tails of every residue mod 16; into an ``out`` that is 16-byte aligned
+    and one that is only 4-byte aligned, with nothing written past the
+    word padding."""
+    n_full = max(2, min(48 // num_buf, (4 << 20) // cs))
+    for tail in sorted(set(range(min(cs, 16))) | {cs - 1}):
+        total = n_full * cs + tail
+        args = _k2_inputs(total, num_buf, byte_reorder, bit_reorder, seed=tail, cs=cs)
+        n = -(-total // 4) * 4
+        want = torch.full((n,), 0xAA, dtype=torch.uint8)
+        combine.combine_cells(*args, want)
+        dev_args = _to(args, card)
+        for off in (0, 4):
+            buf = torch.full((n + 16,), 0xAA, dtype=torch.uint8, device=card)
+            combine.combine_cells(*dev_args, buf[off : off + n])
+            torch.cuda.synchronize()
+            got = buf.cpu()
+            assert torch.equal(got[off : off + n], want), (tail, off)
+            assert (got[off + n :] == 0xAA).all() and (got[:off] == 0xAA).all(), (tail, off)
 
 
 def _raw(dtype, nbytes, seed):
@@ -411,27 +428,47 @@ def _etable(symbols):
     return torch.from_numpy(huf_enc.pack_etable(vals, lengths))
 
 
-@pytest.mark.parametrize("seg,offset", [(4096, 0), (1024, 1), (252, 0)])
-def test_huf_enc_kernel_matches_plain(card, seg, offset):
-    """16-byte loads (aligned streams) and 4-byte loads (offset words or a
-    segment that is not a multiple of 16 bytes); one stream with a byte
-    the table cannot code."""
-    rng = np.random.default_rng(seg)
-    n = 300
-    syms = np.clip(rng.normal(120, 7, seg * n + 4 * offset), 0, 255).astype(np.uint8)
-    table = _etable(syms)
-    syms[4 * offset + seg * 5 + 9] = 255 if table[255] == 0 else syms[0]
+@pytest.mark.parametrize("schedule", ["warp", "lane"])
+@pytest.mark.parametrize("codes", ["sampled", "all_8_bit", "all_1_bit"])
+@pytest.mark.parametrize("seg", [0, 4, 60, 252, 508, 4096, 32768])
+def test_huf_enc_kernel_matches_plain(card, seg, codes, schedule, monkeypatch):
+    """K7 against its plain version with a warp per stream and with a lane
+    per stream (``WARP_SYMBOLS`` forces the launch's schedule): streams at
+    word offsets of every residue mod 4 and segments that are not a
+    multiple of 16 bytes (word loads at the segment's ends), codes of 8
+    bits (every tile fills its staging row) and of 1 bit, and under the
+    sampled table a byte it cannot code in the first tile of one stream
+    (its highest symbols), the last tile of another and a middle tile of a
+    third."""
+    monkeypatch.setattr(huf_enc, "WARP_SYMBOLS", 0 if schedule == "warp" else 1 << 30)
+    rng = np.random.default_rng(seg + 7)
+    n = max(16, min(300, (4 << 20) // max(seg, 1)))
+    w = seg // 4
+    syms = np.clip(rng.normal(120, 7, 4 * (n * w + 4)), 0, 250).astype(np.uint8)
+    offs = [s * w + s % 4 for s in range(n)]
+    if codes == "sampled":
+        table = _etable(syms)
+        assert int(table[255]) == 0
+        for s, i in ((1, seg - 6), (2, 3), (3, seg // 2)):
+            if 0 <= i < seg:
+                syms[4 * offs[s] + i] = 255
+    else:
+        nb = 8 if codes == "all_8_bit" else 1
+        vals = rng.permutation(256) if nb == 8 else np.arange(256) & 1
+        table = torch.from_numpy(huf_enc.pack_etable(vals, np.full(256, nb)))
     words = torch.from_numpy(syms.view("<i4").copy())
-    streams = offset + torch.arange(n, dtype=torch.int64).flip(0) * (seg // 4)
+    streams = torch.tensor(offs, dtype=torch.int64).flip(0)
     rows_p, bits_p = huf_enc.huf_shared_encode(words, table, seg, streams)
     rows_k, bits_k = huf_enc.huf_shared_encode(*_to((words, table), card), seg,
                                                streams.to(card))
     torch.cuda.synchronize()
     assert torch.equal(bits_k.cpu(), bits_p)
+    if codes == "sampled" and seg >= 8:
+        assert int((bits_p >> 30).sum()) >= 3
     nbytes = ((bits_p & 0x3FFFFFFF) + 7) // 8
     rk, rp = rows_k.cpu().numpy().view(np.uint8), rows_p.numpy().view(np.uint8)
     for s in range(n):
-        assert bytes(rk[s, : nbytes[s]]) == bytes(rp[s, : nbytes[s]])
+        assert bytes(rk[s, : nbytes[s]]) == bytes(rp[s, : nbytes[s]]), s
 
 
 @pytest.mark.parametrize("width", [1, 3, 64, 32768])

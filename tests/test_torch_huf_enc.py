@@ -89,6 +89,47 @@ def test_plain_encode_reads_streams_at_word_offsets():
         assert bytes(rb[i, : len(want)]) == want and int(total[i]) >> 30 == 0
 
 
+@pytest.mark.parametrize("codes", ["sampled", "all_8_bit", "all_1_bit"])
+@pytest.mark.parametrize("seg", [60, 252, 508])
+def test_plain_encode_at_word_offsets_of_every_residue(seg, codes):
+    """Segments that are not a multiple of 16 bytes, read from word offsets
+    of every residue mod 4, under a sampled table, codes of 8 bits and of
+    1 bit."""
+    rng = np.random.default_rng(seg)
+    n, w = 8, seg // 4
+    syms = np.clip(rng.normal(120, 7, 4 * (n * w + 4)), 0, 255).astype(np.uint8)
+    if codes == "sampled":
+        lengths, vals = _table(syms)
+    else:
+        nb = 8 if codes == "all_8_bit" else 1
+        lengths = np.full(256, nb)
+        vals = rng.permutation(256) if nb == 8 else np.arange(256) & 1
+    offs = [s * w + (s * 3) % 4 for s in range(n)]
+    rows, total = huf_enc.huf_shared_encode(
+        torch.from_numpy(syms.view("<i4").copy()),
+        torch.from_numpy(huf_enc.pack_etable(vals, lengths)), seg,
+        torch.tensor(offs, dtype=torch.int64))
+    rb = rows.numpy().view(np.uint8)
+    for s, o in enumerate(offs):
+        want = huf.encode_stream(syms[4 * o : 4 * o + seg], vals, lengths)
+        assert int(total[s]) >> 30 == 0 and (int(total[s]) + 7) // 8 == len(want)
+        assert bytes(rb[s, : len(want)]) == want
+
+
+def test_schedule_follows_stream_length(monkeypatch):
+    """K7's launch takes a warp per stream from ``WARP_SYMBOLS`` symbols on
+    and a lane per stream below, from the length alone; the constant moves
+    the crossover, so a test can force either schedule."""
+    warp = huf_enc.WARP_SYMBOLS
+    assert huf_enc.streams_per_warp(warp) == 1
+    assert huf_enc.streams_per_warp(warp - 4) == 32
+    assert huf_enc.streams_per_warp(32768) == 1 and huf_enc.streams_per_warp(0) == 32
+    monkeypatch.setattr(huf_enc, "WARP_SYMBOLS", 0)
+    assert huf_enc.streams_per_warp(0) == 1
+    monkeypatch.setattr(huf_enc, "WARP_SYMBOLS", 1 << 30)
+    assert huf_enc.streams_per_warp(32768) == 32
+
+
 def test_pack_etable_matches_pack_etable8():
     lengths, vals = _table(np.clip(RNG.normal(128, 20, 50000), 0, 255).astype(np.uint8))
     got = huf_enc.pack_etable(vals, lengths).astype(np.int64) & 0xFFFF

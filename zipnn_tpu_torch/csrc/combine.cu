@@ -1,38 +1,70 @@
 // Plane assembly of decoded chunks: fill each (chunk, plane) cell as
 // stored, RLE or Huffman, interleave the planes and revert the bf16 or
-// fp32 sign rotation, writing the output words in place.
+// fp32 sign rotation, writing the output in place.
 //
-// Replaces the Pallas kernel zipnn_tpu/ops/pallas_combine.py
-// `_build_kernel` (K2, launched by `_combine_call_cached`).  The Pallas
-// kernel DMA'd tile-aligned rows and realigned stored cells in registers
-// because a TPU reads HBM in (8, 128) tiles, and its fp32 path needed a
-// separate alignment kernel for stored cells (zipnn_tpu/ops/pallas_gather.py
-// `_align_call_cached`, K5) and an XLA combine; here a thread reads the
-// bytes it needs at any offset, so stored cells of any plane count come
-// straight from the payload with no alignment pass.
+// Replaces the Pallas kernel zipnn_tpu/ops/pallas_combine.py:249
+// (`_combine_call_cached`, K2; `_build_kernel` :49) together with the
+// alignment kernel zipnn_tpu/ops/pallas_gather.py:172 (`_align_call_cached`,
+// K5), which realigned stored cells for the TPU's (8, 128) tiles before the
+// fp32 combine.  Here stored cells are read at any byte offset of the
+// payload, so no alignment pass exists.
 //
-// Design.  One thread produces one output uint32 word of one chunk: it
-// gathers its four bytes from the cells of that chunk (kind 0 stored:
-// payload at a byte offset; kind 1 RLE: the byte; kind 2 Huffman: the
-// symbols K1 wrote for that cell ordinal), applies byte_group.combine's
-// layout (mode 10: byte p from plane p & 1; mode 220: byte p from plane
-// p & 3 at index p >> 2, so word j takes byte j of each of the 4 planes
-// and neighbouring threads read neighbouring bytes of every plane; modes
-// 1/8 zero-fill) and the inverse sign rotation (16-bit lanes for 2 planes,
-// 32-bit for 4).  In the ragged tail chunk plane b holds q + (b < r) bytes
-// (chunk_len = num_buf * q + r), only the first chunk_len / 4 words are
-// reverted, the trailing 1-3 bytes pass through unrotated, and bytes past
-// the chunk's end are written as zero (they are the output's padding).
+// What bounded the first design (one thread per output word): every word
+// divided its index by the chunk's words in 64 bits, then ran four
+// iterations of a data-dependent loop, each loading the cell's kind and
+// source and then one single byte: ~12 loads and a long integer chain per
+// 4 output bytes.  It moved ~0.92 TB/s, 28 % of the card's memory rate.
 //
-// What bounds it: bytes.  Each output byte reads one plane byte, so the
-// least traffic is the output written once plus the plane bytes read once.
-// The 4-plane form reads four cell descriptors per word where the 2-plane
-// one reads two; they sit in L1 for the whole chunk.
+// Design.  One warp assembles one 512-byte tile of one chunk (a 1-D grid
+// of (chunk, tile) units, one 32-bit division per warp, so a batch of
+// 2 M small chunks fits where gridDim.y would stop at 65 535).  The warp
+// loads the chunk's <= 4 cell descriptors once (lanes 0-3, then
+// shuffles), so every branch on a cell's kind is uniform across the warp.
+// Each lane makes 16 output bytes:
+//   1 plane             a 16-byte copy;
+//   2 planes, mode 10   8 bytes of each plane, interleaved by __byte_perm
+//                       (0x5140, 0x7362), revert_sign_16 on the 4 words;
+//   modes 1 and 8       the same with the other plane zero;
+//   4 planes, mode 220  4 bytes of each plane, a 4 x 4 byte transpose by
+//                       __byte_perm, revert_sign_32;
+// and stores them with one 16-byte store.  A cell's bytes are read with
+// loads as wide as their alignment allows (one 16-, 8- or 4-byte load),
+// else as aligned words funnel-shifted into place: only words holding a
+// byte the output needs are loaded, so nothing past the payload's or a
+// symbol row's end is touched.  RLE cells splat their byte.  The kernel
+// is instantiated once per plane layout, so the layout costs no branch.
+//
+// The words the vector path cannot take (the ragged end of a chunk, where
+// plane b holds q + (b < r) bytes and only chunk_len / 4 words are
+// reverted; every word where `out` is not 16-byte aligned, as in chunks
+// of a size that is not a multiple of 16) are made by the per-word code of
+// the first design (word_at), in the same launch: the same function, word
+// by word.  Bytes past the chunk's end are written as zero (the output's
+// padding).
+//
+// What bounds it now: bytes.  Each output byte reads one plane byte (none
+// for RLE cells), so the least traffic is the plane bytes read once and
+// the output written once; per 512 output bytes a warp issues two to four
+// coalesced loads and one coalesced store, and per lane a handful of
+// byte permutes.  It reaches ~75 % of the 3.35 TB/s rate on the 512 MiB
+// batches.  ptxas: 20-31 registers over the four layouts, no spills, so
+// 64 warps an SM (chip_smoke.py phase 1 prints them).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;         // warps per block
+constexpr int kVec = 16;          // output bytes per lane
+constexpr int kTile = 32 * kVec;  // output bytes per warp
+
+// plane layouts of byte_group.combine
+enum Layout { kOne, kTwo, kKeep, kFour };  // 1 plane; mode 10; modes 1/8; mode 220
+
+template <int L>
+__host__ __device__ constexpr int planes_of() { return L == kOne ? 1 : L == kFour ? 4 : 2; }
 
 __device__ __forceinline__ uint32_t revert_sign_16(uint32_t w) {
   const uint32_t sign = (w << 8) & 0x80008000u;
@@ -48,78 +80,209 @@ __device__ __forceinline__ uint32_t revert_sign_32(uint32_t w) {
   return sign | exp | man;
 }
 
+// One chunk's cells (kind 0 stored, 1 RLE, 2 Huffman), the same in every
+// lane of the warp.
+template <int NB>
+struct Cells {
+  int kind[NB];
+  int64_t src[NB];
+};
+
+struct Bufs {
+  const uint8_t* payload;
+  const uint8_t* hsym;
+  int64_t hsym_row;
+
+  // first byte of a stored or Huffman cell
+  __device__ __forceinline__ const uint8_t* cell(int kind, int64_t src) const {
+    return kind == 0 ? payload + src : hsym + src * hsym_row;
+  }
+};
+
 // byte_group.plane_lengths: bytes of plane b in a chunk of chunk_len bytes
-__device__ __forceinline__ int64_t plane_len(int64_t chunk_len, int num_buf,
-                                             int byte_reorder, int b) {
-  if (num_buf == 2 && byte_reorder != 10) return b ? 0 : chunk_len >> 1;
-  const int shift = num_buf == 4 ? 2 : num_buf - 1;  // num_buf is 1, 2 or 4
-  const int64_t q = chunk_len >> shift;
-  const int64_t r = chunk_len & (num_buf - 1);
-  return q + (b < r ? 1 : 0);
+template <int L>
+__device__ __forceinline__ int plane_len(int chunk_len, int b) {
+  if constexpr (L == kOne) {
+    return chunk_len;
+  } else if constexpr (L == kKeep) {
+    return b ? 0 : chunk_len >> 1;
+  } else {
+    constexpr int nb = planes_of<L>();
+    return chunk_len / nb + (b < (chunk_len & (nb - 1)) ? 1 : 0);
+  }
 }
 
-__global__ void combine_cells_kernel(
-    const uint8_t* __restrict__ payload,
-    const uint8_t* __restrict__ hsym,
-    const int32_t* __restrict__ kinds,
-    const int64_t* __restrict__ srcs,
-    int64_t hsym_row,
-    int64_t chunk_size,
-    int64_t total_bytes,
-    int num_buf,
-    int byte_reorder,
-    int bit_reorder,
-    uint32_t* __restrict__ out) {
-  const int64_t chunk_words = chunk_size >> 2;
-  const int64_t n_words = (total_bytes + 3) >> 2;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_words) return;
-  const int64_t c = g / chunk_words;
-  const int64_t j = g - c * chunk_words;
-  const int64_t rem = total_bytes - c * chunk_size;
-  const int64_t chunk_len = rem < chunk_size ? rem : chunk_size;
-
+// Output word j of a chunk of chunk_len bytes, byte by byte (the first
+// design's per-word code).
+template <int L>
+__device__ uint32_t word_at(const Cells<planes_of<L>()>& d, const Bufs& bufs,
+                            int j, int chunk_len, int keep, int bit_reorder) {
   uint32_t w = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int64_t p = 4 * j + q;  // byte within the chunk
-    if (p >= chunk_len) break;
-    int b;
-    int64_t i;
-    if (num_buf == 1) {
+    const int p = 4 * j + q;  // byte within the chunk
+    int b, i;
+    if constexpr (L == kOne) {
       b = 0;
       i = p;
-    } else if (num_buf == 4) {
-      b = (int)(p & 3);
+    } else if constexpr (L == kFour) {
+      b = q;
       i = p >> 2;
-    } else if (byte_reorder == 10) {
-      b = (int)(p & 1);
+    } else if constexpr (L == kTwo) {
+      b = q & 1;
       i = p >> 1;
     } else {
       // mode 1 keeps the even (low) bytes in plane 0, mode 8 the odd ones
-      if ((int)(p & 1) != (byte_reorder == 8 ? 1 : 0)) continue;
+      if ((q & 1) != keep) continue;
       b = 0;
       i = p >> 1;
     }
-    if (i >= plane_len(chunk_len, num_buf, byte_reorder, b)) continue;
-    const int64_t cell = c * num_buf + b;
-    const int kind = kinds[cell];
-    const int64_t src = srcs[cell];
-    uint32_t v;
-    if (kind == 0) {
-      v = payload[src + i];
-    } else if (kind == 1) {
-      v = (uint32_t)src & 0xFFu;
-    } else {
-      v = hsym[src * hsym_row + i];
-    }
+    if (p >= chunk_len || i >= plane_len<L>(chunk_len, b)) continue;
+    const uint32_t v = d.kind[b] == 1 ? (uint32_t)d.src[b] & 0xFFu
+                                      : __ldg(bufs.cell(d.kind[b], d.src[b]) + i);
     w |= v << (8 * q);
   }
   if (bit_reorder && j < (chunk_len >> 2)) {
-    if (num_buf == 2) w = revert_sign_16(w);
-    if (num_buf == 4) w = revert_sign_32(w);
+    if constexpr (L == kTwo || L == kKeep) w = revert_sign_16(w);
+    if constexpr (L == kFour) w = revert_sign_32(w);
   }
-  out[g] = w;
+  return w;
+}
+
+// N (4, 8 or 16) bytes of a cell from its byte i0 on, as N / 4 words.
+template <int N>
+__device__ __forceinline__ void fetch(int kind, int64_t src, const Bufs& bufs,
+                                      int i0, uint32_t (&w)[N / 4]) {
+  if (kind == 1) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) w[k] = 0x01010101u * ((uint32_t)src & 0xFFu);
+    return;
+  }
+  const uint8_t* p = bufs.cell(kind, src) + i0;
+  const uintptr_t a = (uintptr_t)p;
+  if ((a & (N - 1)) == 0) {
+    if constexpr (N == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else if constexpr (N == 8) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      w[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+    }
+    return;
+  }
+  const int sh = (int)(a & 3);
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(a - sh);
+  uint32_t x[N / 4 + 1];
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) x[k] = __ldg(q + k);
+  if (sh) {
+    x[N / 4] = __ldg(q + N / 4);
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) w[k] = __funnelshift_r(x[k], x[k + 1], 8 * sh);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) w[k] = x[k];
+  }
+}
+
+// The 16 output bytes from chunk byte p0 (a multiple of 16; all 16 lie in
+// the chunk's whole words).
+template <int L>
+__device__ __forceinline__ uint4 group16(const Cells<planes_of<L>()>& d,
+                                         const Bufs& bufs, int p0, int keep,
+                                         int bit_reorder) {
+  uint32_t o[4];
+  if constexpr (L == kOne) {
+    fetch<16>(d.kind[0], d.src[0], bufs, p0, o);
+  } else if constexpr (L == kFour) {
+    uint32_t p[4][1];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) fetch<4>(d.kind[b], d.src[b], bufs, p0 >> 2, p[b]);
+    // word j takes byte j of each plane
+    const uint32_t lo01 = __byte_perm(p[0][0], p[1][0], 0x5140);
+    const uint32_t lo23 = __byte_perm(p[2][0], p[3][0], 0x5140);
+    const uint32_t hi01 = __byte_perm(p[0][0], p[1][0], 0x7362);
+    const uint32_t hi23 = __byte_perm(p[2][0], p[3][0], 0x7362);
+    o[0] = __byte_perm(lo01, lo23, 0x5410);
+    o[1] = __byte_perm(lo01, lo23, 0x7632);
+    o[2] = __byte_perm(hi01, hi23, 0x5410);
+    o[3] = __byte_perm(hi01, hi23, 0x7632);
+    if (bit_reorder) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = revert_sign_32(o[k]);
+    }
+  } else {
+    uint32_t a[2], b[2];
+    fetch<8>(d.kind[0], d.src[0], bufs, p0 >> 1, a);
+    if constexpr (L == kTwo) {
+      fetch<8>(d.kind[1], d.src[1], bufs, p0 >> 1, b);
+    } else {
+      b[0] = b[1] = 0u;
+      if (keep) {  // mode 8: plane 0 in the odd bytes
+#pragma unroll
+        for (int k = 0; k < 2; ++k) b[k] = a[k], a[k] = 0u;
+      }
+    }
+    o[0] = __byte_perm(a[0], b[0], 0x5140);
+    o[1] = __byte_perm(a[0], b[0], 0x7362);
+    o[2] = __byte_perm(a[1], b[1], 0x5140);
+    o[3] = __byte_perm(a[1], b[1], 0x7362);
+    if (bit_reorder) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = revert_sign_16(o[k]);
+    }
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+template <int L>
+__global__ void __launch_bounds__(32 * kWarps) combine_cells_kernel(
+    Bufs bufs,
+    const int32_t* __restrict__ kinds,
+    const int64_t* __restrict__ srcs,
+    int chunk_size,
+    int64_t total_bytes,
+    uint32_t tiles,    // tiles per chunk
+    uint32_t n_units,  // chunks * tiles
+    int keep,
+    int bit_reorder,
+    uint8_t* __restrict__ out) {
+  constexpr int NB = planes_of<L>();
+  const int lane = threadIdx.x & 31;
+  const uint32_t u = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (u >= n_units) return;  // the whole warp
+  const uint32_t c = u / tiles;
+  const int p0 = (int)(u - c * tiles) * kTile + lane * kVec;
+  const int64_t base = (int64_t)c * chunk_size;
+  const int64_t rem = total_bytes - base;
+  const int chunk_len = rem < chunk_size ? (int)rem : chunk_size;
+
+  int kind = 0;
+  int64_t src = 0;
+  if (lane < NB) {
+    kind = __ldg(kinds + (int64_t)c * NB + lane);
+    src = __ldg(srcs + (int64_t)c * NB + lane);
+  }
+  Cells<NB> d;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    d.kind[b] = __shfl_sync(kFull, kind, b);
+    d.src[b] = __shfl_sync(kFull, src, b);
+  }
+  if (p0 >= chunk_len) return;
+  uint8_t* dst = out + base + p0;
+  if (p0 + kVec <= (chunk_len & ~(kVec - 1)) && ((uintptr_t)dst & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = group16<L>(d, bufs, p0, keep, bit_reorder);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kVec / 4; ++k) {
+    const int j = (p0 >> 2) + k;
+    if (4 * j >= chunk_len) break;
+    reinterpret_cast<uint32_t*>(dst)[k] = word_at<L>(d, bufs, j, chunk_len, keep, bit_reorder);
+  }
 }
 
 }  // namespace
@@ -129,15 +292,33 @@ extern "C" int combine_cells(
     const void* srcs, long long hsym_row, long long chunk_size,
     long long total_bytes, int num_buf, int byte_reorder, int bit_reorder,
     void* out, void* stream) {
-  const long long n_words = (total_bytes + 3) >> 2;
-  if (n_words <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n_words + threads - 1) / threads;
-  combine_cells_kernel<<<(unsigned int)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)payload, (const uint8_t*)hsym, (const int32_t*)kinds,
-      (const int64_t*)srcs, (int64_t)hsym_row, (int64_t)chunk_size,
-      (int64_t)total_bytes, num_buf, byte_reorder, bit_reorder,
-      (uint32_t*)out);
+  if (total_bytes <= 0) return 0;
+  if (chunk_size <= 0 || chunk_size % 4 || chunk_size >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (total_bytes + chunk_size - 1) / chunk_size;
+  const long long tiles = (chunk_size + kTile - 1) / kTile;
+  const long long units = n_chunks * tiles;
+  if (units >= (1LL << 32) - kWarps) return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((units + kWarps - 1) / kWarps);
+  const Bufs bufs{(const uint8_t*)payload, (const uint8_t*)hsym, (int64_t)hsym_row};
+  const int keep = byte_reorder == 8;
+  cudaStream_t st = (cudaStream_t)stream;
+#define ZIPNN_COMBINE(L)                                                     \
+  combine_cells_kernel<L><<<blocks, 32 * kWarps, 0, st>>>(                 \
+      bufs, (const int32_t*)kinds, (const int64_t*)srcs, (int)chunk_size,  \
+      (int64_t)total_bytes, (uint32_t)tiles, (uint32_t)units, keep,        \
+      bit_reorder, (uint8_t*)out)
+  if (num_buf == 1) {
+    ZIPNN_COMBINE(kOne);
+  } else if (num_buf == 2 && byte_reorder == 10) {
+    ZIPNN_COMBINE(kTwo);
+  } else if (num_buf == 2) {
+    ZIPNN_COMBINE(kKeep);
+  } else if (num_buf == 4) {
+    ZIPNN_COMBINE(kFour);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ZIPNN_COMBINE
   return (int)cudaGetLastError();
 }

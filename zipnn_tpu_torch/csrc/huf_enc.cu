@@ -1,7 +1,7 @@
 // Shared-table Huffman encode of HUF streams (codes of at most 8 bits).
 //
-// Replaces the Pallas kernel zipnn_tpu/ops/pallas_huf_enc.py
-// `_build_kernel` (K7, launched by `_encode_call_cached`).
+// Replaces the Pallas kernel zipnn_tpu/ops/pallas_huf_enc.py:225
+// (`_encode_call_cached`, K7; `_build_kernel` :43).
 //
 // What it computes, per stream (bit-exact with ops/entropy/huf.py
 // `encode_stream`): the stream's symbols in descending index order, each
@@ -9,32 +9,68 @@
 // whole byte.  `total_bits` is the code bits plus the sentinel; bit 30 is
 // set when a symbol has no code (table entry nb == 0, possible only under a
 // sampled table), and such a stream's bytes are not a valid encoding.
+// Codes are at most 8 bits, so a row of seg/4 + 1 words holds any stream
+// (8 bits per symbol plus the sentinel): no overflow path, no host
+// re-encode.  The TPU kernel's w8/W3 window hierarchy and masked spill
+// trees exist because a TPU lane cannot write at its own pace; here the
+// 256-entry table (`val | nb << 8`) sits in shared memory, once per block.
 //
-// Design.  The 256-entry table (`val | nb << 8`) is copied into shared
-// memory once per block.  One thread encodes one stream: it reads its
-// segment from the end, 16 bytes per load where the segment is 16-byte
-// aligned (else 4), and appends four codes per 32-bit input word into a
-// 64-bit accumulator (a word's codes add at most 32 bits to the < 32 held),
-// flushing one 32-bit word to its own output row per input word.  The TPU
-// kernel's w8/W3 window hierarchy and masked spill trees exist because a
-// TPU lane cannot write at its own pace; a thread can.  Codes are at most
-// 8 bits, so a row of seg/4 + 1 words holds any stream (8 bits per symbol
-// plus the sentinel): no overflow path, no host re-encode.  Row and stream
-// offsets are 64-bit.
+// What bounded the first design (one thread per stream, a serial append
+// chain over the whole segment): the bf16 exponent plane's 8 192 streams
+// of 32 K symbols made 128 blocks of 64 threads, ~2 warps per SM, so the
+// chain's latency was not hidden; and each thread flushed words into its
+// own row, so one warp store touched 32 rows and 32 sectors.
 //
-// What bounds it.  Its bytes (the symbols read once, the stream bytes
-// written once) would take ~0.1 ms for a 512 MB batch's exponent plane;
-// the kernel is bound instead by each thread's serial append chain
-// (table load -> shift by the running bit count -> or) over ~32 K symbols,
-// with only ~8 K threads (~2 warps per SM) to hide it.  The table loads of
-// one word are independent of each other, so only the bit-count adds and
-// the or/shift sit on the chain.  A warp-cooperative encoder (code lengths,
-// a warp prefix sum of bit offsets, coalesced stores) is the next step.
+// Design (a warp per stream, `group` 1).  Blocks of 8 warps.  A warp walks
+// its segment from the end in tiles of 512 symbols: each lane loads 4
+// words (one 16-byte load; lane 0 holds the highest addresses), looks up
+// its 16 codes and sums their lengths (<= 128 bits); an exclusive warp
+// scan (__shfl_up_sync) gives each lane its bit offset after the bits
+// carried from the previous tile.  Lanes then or their bits into the
+// warp's staging row in shared memory (atomicOr: a word may hold the bits
+// of several lanes; <= 129 words: 4 096 code bits plus < 32 carried), the
+// warp stores the tile's complete words to the stream's row, coalesced,
+// and carries the last partial word into the next tile.  Bit 30 comes from
+// __any_sync over the lanes' uncoded symbols.  Tiles end on the 16-byte
+// boundary at or above the segment's end, so every lane group inside the
+// segment is one aligned 16-byte load whatever the stream's word offset;
+// the groups that straddle the segment's ends are read word by word, and
+// words outside the segment give no symbols.
+//
+// A launch of short streams (`group` 32, which the host picks from the
+// stream length: ops/huf_enc.py `streams_per_warp`) runs a second kernel
+// that gives each lane a stream of its own and the first design's serial
+// code (`encode_lane`), in its 64-thread blocks: 256 B bf16 chunks make
+// streams of 32 symbols, where a warp would leave 30 lanes idle.  One
+// kernel for both schedules cost the lane schedule ~25 % at 256 B chunks
+// (the warp path's registers and size).
+//
+// What bounds it now.  Its bytes (the symbols read once, the stream bytes
+// written once) would take 0.107 ms for a 512 MiB bf16 batch's exponent
+// plane; it takes ~3.5x that.  With one load per lane and tile, a warp
+// waited on that load every tile: ~3.8 us a tile at 4 096 streams.  So
+// each lane keeps its groups of the next kAhead = 2 tiles in flight (a
+// ring of registers; 1 and 3 measured slower or no faster on the card).
+// What remains is issue by estimate (the card gives no counters): ~300
+// warp instructions a tile (16 table loads, the length sum, the 5-step
+// scan, the shifted or of the codes, <= 5 shared atomics a lane, the
+// staging row's reset and the stores), with 32 warps an SM at 64
+// registers.  ptxas: the warp kernel 64 registers and 5 248 bytes of
+// shared memory, the lane kernel 32 and 1 024, no spills (chip_smoke.py
+// phase 1 prints them).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;          // warps per block, warp schedule
+constexpr int kLaneThreads = 64;   // threads per block, lane schedule
+constexpr int kLaneWords = 4;      // input words per lane and tile
+constexpr int kTileWords = 32 * kLaneWords;  // 512 symbols
+constexpr int kStage = 132;        // staging words per warp (>= 129)
+constexpr int kAhead = 2;          // tiles a lane's loads run ahead
 
 struct Writer {
   uint64_t acc;    // pending bits, LSB first
@@ -46,7 +82,7 @@ struct Writer {
 // Append the codes of one input word's four symbols, highest byte first
 // (symbols run in descending index order), then flush one word if full.
 __device__ __forceinline__ void put_word(Writer& w, uint32_t x,
-                                         const uint16_t* tbl,
+                                         const uint32_t* tbl,
                                          uint32_t* __restrict__ dst) {
 #pragma unroll
   for (int k = 3; k >= 0; --k) {
@@ -63,20 +99,11 @@ __device__ __forceinline__ void put_word(Writer& w, uint32_t x,
   }
 }
 
-__global__ void huf_shared_encode_kernel(
-    const uint32_t* __restrict__ planes,
-    const int64_t* __restrict__ streams,
-    const uint16_t* __restrict__ table,
-    int n_streams, int seg_words, int row_words,
-    uint32_t* __restrict__ rows,
-    int32_t* __restrict__ total_bits) {
-  __shared__ uint16_t tbl[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) tbl[i] = table[i];
-  __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_streams) return;
-  const uint32_t* src = planes + streams[s];
-  uint32_t* dst = rows + (int64_t)s * row_words;
+// One stream by one thread (the lane schedule): 16-byte loads from the
+// segment's end where the segment is 16-byte aligned, else 4.
+__device__ void encode_lane(const uint32_t* src, int seg_words,
+                            const uint32_t* tbl, uint32_t* __restrict__ dst,
+                            int32_t* total_bits) {
   Writer w{0ull, 0, 0, 0u};
   const bool vec = ((seg_words & 3) == 0) && (((uintptr_t)src & 15) == 0);
   if (vec) {
@@ -92,33 +119,188 @@ __global__ void huf_shared_encode_kernel(
     for (int i = seg_words - 1; i >= 0; --i) put_word(w, __ldg(src + i), tbl, dst);
   }
   const int64_t code_bits = 32 * w.words + w.nbits;
-  // closing sentinel, then the last partial words (zero-padded)
-  w.acc |= 1ull << w.nbits;
-  w.nbits += 1;
-  while (w.nbits > 0) {
-    dst[w.words++] = (uint32_t)w.acc;
-    w.acc >>= 32;
-    w.nbits -= 32;
+  // closing sentinel, then the last partial word (zero-padded)
+  dst[w.words] = (uint32_t)(w.acc | (1ull << w.nbits));
+  *total_bits = (int32_t)(code_bits + 1) | (int32_t)(w.bad << 30);
+}
+
+// A lane's 4 words from word `lo` of the segment (x = word lo), one
+// 16-byte load where all four lie in it (then aligned: tiles end on a
+// 16-byte boundary); words outside [0, seg_words) read as 0, unloaded.
+__device__ __forceinline__ uint4 load_group(const uint32_t* src, int seg_words, int lo) {
+  if (lo >= 0 && lo + kLaneWords <= seg_words)
+    return __ldg(reinterpret_cast<const uint4*>(src + lo));
+  uint32_t x[kLaneWords];
+#pragma unroll
+  for (int k = 0; k < kLaneWords; ++k) {
+    const int i = lo + k;
+    x[k] = i >= 0 && i < seg_words ? __ldg(src + i) : 0u;
   }
-  total_bits[s] = (int32_t)(code_bits + 1) | (int32_t)(w.bad << 30);
+  return make_uint4(x[0], x[1], x[2], x[3]);
+}
+
+struct WarpState {
+  uint32_t carry;  // the bits of the last, partial word (pos & 31 of them)
+  int pos;         // code bits so far
+  int words;       // words stored so far
+  uint32_t bad;    // this lane met a symbol without a code
+};
+
+// One tile: the lane's group `v` (from word `lo`) coded, scanned, or-ed
+// into the staging row, the row's complete words stored.
+__device__ __forceinline__ void encode_tile(uint4 v, int lo, int seg_words,
+                                            const uint32_t* tbl,
+                                            uint32_t* __restrict__ dst,
+                                            uint32_t* stage, int lane, WarpState& st) {
+  const uint32_t x[kLaneWords] = {v.w, v.z, v.y, v.x};  // highest word first
+  // the lane's 16 codes, highest symbol first, and their length
+  uint32_t e[4 * kLaneWords];
+  int len = 0;
+#pragma unroll
+  for (int k = 0; k < kLaneWords; ++k) {
+    const int i = lo + kLaneWords - 1 - k;
+    const uint32_t keep = i >= 0 && i < seg_words ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t ent = tbl[(x[k] >> (8 * (3 - r))) & 0xFFu] & keep;
+      st.bad |= keep & (ent < 0x100u);
+      e[4 * k + r] = ent;
+      len += (int)(ent >> 8);
+    }
+  }
+  int incl = len;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int tile_bits = __shfl_sync(kFull, incl, 31);
+  const int first = (st.pos & 31) + incl - len;  // the lane's first bit in the row
+  for (int i = lane; i < kStage; i += 32) stage[i] = i ? 0u : st.carry;
+  __syncwarp();
+  uint64_t acc = 0;
+  int nbits = first & 31;
+  int wi = first >> 5;
+#pragma unroll
+  for (int g = 0; g < kLaneWords; ++g) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t ent = e[4 * g + r];
+      acc |= (uint64_t)(ent & 0xFFu) << nbits;
+      nbits += (int)(ent >> 8);
+    }
+    if (nbits >= 32) {
+      if ((uint32_t)acc) atomicOr(stage + wi, (uint32_t)acc);
+      ++wi;
+      acc >>= 32;
+      nbits -= 32;
+    }
+  }
+  if ((uint32_t)acc) atomicOr(stage + wi, (uint32_t)acc);
+  __syncwarp();
+  const int full = ((st.pos & 31) + tile_bits) >> 5;  // complete words in the row
+  for (int i = lane; i < full; i += 32) dst[st.words + i] = stage[i];
+  st.carry = stage[full];
+  st.words += full;
+  st.pos += tile_bits;
+  __syncwarp();  // every lane has read the row before the next tile resets it
+}
+
+// One stream by one warp (the warp schedule); `stage` is the warp's
+// staging row.  Each lane keeps its groups of the next kAhead tiles in
+// flight while it codes one.
+__device__ void encode_warp(const uint32_t* src, int seg_words,
+                            const uint32_t* tbl, uint32_t* __restrict__ dst,
+                            uint32_t* stage, int lane, int32_t* total_bits) {
+  // tiles end at `top`, the first 16-byte boundary at or above the
+  // segment's end, and run down from there
+  const int pad = (int)(((uintptr_t)(src + seg_words) >> 2) & 3);
+  const int top = seg_words + (pad ? 4 - pad : 0);
+  const int n_tiles = (top + kTileWords - 1) / kTileWords;
+  const int lo0 = top - kLaneWords * (lane + 1);  // the lane's lowest word in tile 0
+  uint4 ring[kAhead];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) ring[a] = load_group(src, seg_words, lo0 - a * kTileWords);
+  WarpState st{0u, 0, 0, 0u};
+  for (int t = 0; t < n_tiles; t += kAhead) {
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      if (t + a >= n_tiles) break;
+      const int lo = lo0 - (t + a) * kTileWords;
+      const uint4 v = ring[a];
+      ring[a] = load_group(src, seg_words, lo - kAhead * kTileWords);
+      encode_tile(v, lo, seg_words, tbl, dst, stage, lane, st);
+    }
+  }
+  const uint32_t bad = __any_sync(kFull, st.bad != 0);
+  if (lane == 0) {
+    dst[st.words] = st.carry | (1u << (st.pos & 31));  // closing sentinel
+    *total_bits = (int32_t)(st.pos + 1) | (int32_t)(bad << 30);
+  }
+}
+
+// The 256-entry table into shared memory, once per block.
+__device__ __forceinline__ void load_table(uint32_t* tbl, const uint16_t* __restrict__ table) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) tbl[i] = table[i];
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(32 * kWarps) huf_encode_warps_kernel(
+    const uint32_t* __restrict__ planes,
+    const int64_t* __restrict__ streams,
+    const uint16_t* __restrict__ table,
+    int n_streams, int seg_words, int row_words,
+    uint32_t* __restrict__ rows,
+    int32_t* __restrict__ total_bits) {
+  __shared__ uint32_t tbl[256];
+  __shared__ uint32_t stage[kWarps][kStage];
+  load_table(tbl, table);
+  const int warp = threadIdx.x >> 5;
+  const int s = blockIdx.x * kWarps + warp;
+  if (s >= n_streams) return;  // the whole warp
+  encode_warp(planes + streams[s], seg_words, tbl, rows + (int64_t)s * row_words,
+              stage[warp], threadIdx.x & 31, total_bits + s);
+}
+
+// A kernel of its own, so the lane schedule keeps the first design's
+// registers and block size rather than the warp schedule's.
+__global__ void __launch_bounds__(kLaneThreads) huf_encode_lanes_kernel(
+    const uint32_t* __restrict__ planes,
+    const int64_t* __restrict__ streams,
+    const uint16_t* __restrict__ table,
+    int n_streams, int seg_words, int row_words,
+    uint32_t* __restrict__ rows,
+    int32_t* __restrict__ total_bits) {
+  __shared__ uint32_t tbl[256];
+  load_table(tbl, table);
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_streams) return;
+  encode_lane(planes + streams[s], seg_words, tbl, rows + (int64_t)s * row_words,
+              total_bits + s);
 }
 
 }  // namespace
 
 extern "C" int huf_shared_encode(const void* planes, const void* streams,
                                  const void* table, int n_streams,
-                                 int seg_words, int row_words, void* rows,
-                                 void* total_bits, void* stream) {
+                                 int seg_words, int row_words, int group,
+                                 void* rows, void* total_bits, void* stream) {
   if (n_streams <= 0) return 0;
   // 8 bits per symbol plus the sentinel must fit the row and stay below
   // bit 30 of total_bits
-  if (seg_words < 0 || row_words < seg_words + 1 || seg_words >= (1 << 25))
+  if (seg_words < 0 || row_words < seg_words + 1 || seg_words >= (1 << 25) ||
+      (group != 1 && group != 32))
     return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  const int blocks = (n_streams + threads - 1) / threads;
-  huf_shared_encode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)planes, (const int64_t*)streams,
-      (const uint16_t*)table, n_streams, seg_words, row_words,
-      (uint32_t*)rows, (int32_t*)total_bits);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (group == 1) {
+    huf_encode_warps_kernel<<<(n_streams + kWarps - 1) / kWarps, 32 * kWarps, 0, st>>>(
+        (const uint32_t*)planes, (const int64_t*)streams, (const uint16_t*)table,
+        n_streams, seg_words, row_words, (uint32_t*)rows, (int32_t*)total_bits);
+  } else {
+    huf_encode_lanes_kernel<<<(n_streams + kLaneThreads - 1) / kLaneThreads, kLaneThreads,
+                              0, st>>>(
+        (const uint32_t*)planes, (const int64_t*)streams, (const uint16_t*)table,
+        n_streams, seg_words, row_words, (uint32_t*)rows, (int32_t*)total_bits);
+  }
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,10 @@ and its plain PyTorch version.
 The counterpart of the JAX package's ``ops/pallas_huf_enc.py`` (K7).  The
 shared-table profile codes every cell of a byte plane with one table of
 at most 8-bit codes; the kernel (``csrc/huf_enc.cu``) encodes one HUF
-stream per thread, with the table in shared memory.  Each stream's bytes
-equal ``huf.encode_stream`` on the same symbols: symbols in descending
-index order, LSB-first codes, a closing sentinel bit, zero padding.
+stream per warp (one per lane for short streams, ``streams_per_warp``),
+with the table in shared memory.  Each stream's bytes equal
+``huf.encode_stream`` on the same symbols: symbols in descending index
+order, LSB-first codes, a closing sentinel bit, zero padding.
 """
 from __future__ import annotations
 
@@ -19,6 +20,17 @@ from . import kernels
 
 TMAX = 8  # the longest code one 256-entry table holds
 _M32 = 0xFFFFFFFF
+# a launch of streams of fewer symbols encodes one stream per lane
+# (``streams_per_warp``; the crossover measured by time_kernels.py)
+WARP_SYMBOLS = 512
+
+
+def streams_per_warp(seg: int) -> int:
+    """Streams each warp of K7 encodes: 1, a warp per stream in tiles of
+    512 symbols, for streams of ``WARP_SYMBOLS`` symbols or more, else 32,
+    one per lane by the serial chain.  Every stream of a launch has ``seg``
+    symbols, so the host picks without looking at the data."""
+    return 1 if seg >= WARP_SYMBOLS else 32
 
 
 def pack_etable(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -80,7 +92,8 @@ def huf_shared_encode(
     if S:
         kernels.launch(
             "huf_shared_encode", dev, planes.data_ptr(), streams.data_ptr(),
-            table.data_ptr(), S, seg // 4, rw, rows.data_ptr(), total_bits.data_ptr(),
+            table.data_ptr(), S, seg // 4, rw, streams_per_warp(seg), rows.data_ptr(),
+            total_bits.data_ptr(),
         )
     return rows, total_bits
 

@@ -30,7 +30,7 @@ from .entropy import huf
 # a launch whose streams average fewer symbols decodes one stream per lane
 # (``huf_pc.streams_per_warp``); higher than K1's, since K6's lanes read
 # the table from shared memory, K1's their cell's row from device memory
-# (the crossovers measured by time_decoders.py)
+# (the crossovers measured by time_kernels.py)
 GROUP_SYMBOLS = 2048
 
 TMAX = 8  # the largest tableLog one 256-entry table expands

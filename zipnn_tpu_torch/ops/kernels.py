@@ -58,9 +58,9 @@ _SIGNATURES = {
     # payload, hsym, kinds, srcs, hsym_row, chunk_size, total_bytes,
     # num_buf, byte_reorder, bit_reorder, out, stream
     "combine_cells": [_P] * 4 + [_L, _L, _L, _I, _I, _I, _P, _P],
-    # planes, streams, table, n_streams, seg_words, row_words, rows,
+    # planes, streams, table, n_streams, seg_words, row_words, group, rows,
     # total_bits, stream
-    "huf_shared_encode": [_P] * 3 + [_I, _I, _I, _P, _P, _P],
+    "huf_shared_encode": [_P] * 3 + [_I, _I, _I, _I, _P, _P, _P],
     # rows, n_rows, width, out, stream
     "const_scan_rows": [_P, _L, _L, _P, _P],
 }
