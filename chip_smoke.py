@@ -14,15 +14,22 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    (each with the mean and max of its synchronisation passes per stream),
    ``combine_cells`` at 2 planes (bf16) and 4 planes (fp32), the encode
    kernels ``const_scan_rows`` and ``huf_shared_encode`` on the bf16 shared
-   encode path (stream bytes and ``total_bits``), and ``combine_cells``
-   once more at 1 plane (8 MiB of fp8 at 64 KB chunks) and at 256 B chunks
-   of bf16 (1 MiB) into an output 4 bytes past a 16-byte boundary;
+   encode path (stream bytes and ``total_bits``), ``hist_cells`` and
+   ``huf_pc_encode`` on the bf16 per-chunk encode path (with the host plan
+   of its cells between them, timed), and ``combine_cells`` once more at
+   1 plane (8 MiB of fp8 at 64 KB chunks) and at 256 B chunks of bf16
+   (1 MiB) into an output 4 bytes past a 16-byte boundary;
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
    written by the port's golden encoder) through ``ZipNN(engine="cuda")``;
    encode the same four inputs on the card, from host and CUDA tensors,
-   byte-equal to the golden containers and decoded back bit-exact; and a
+   byte-equal to the golden containers and decoded back bit-exact, in
+   both profiles (the default per-chunk one through ``hist_cells`` and
+   ``huf_pc_encode``); chunks of 1 and 2 bytes of every dtype and profile
+   decoded on the card (``combine_cells`` byte by byte), and the shared
+   encode of every chunk size whose planes are under one word (the golden
+   encoder, by ``codec.device_encodes``); and a
    bf16 input of 520 small chunks (stride 8) with an uncodeable cell (a
    non-sampled chunk holding an exponent byte no sampled chunk has: it
    must store raw) and a constant cell on the hopeless plane (RLE),
@@ -56,10 +63,14 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    b. fp32 (``--mib`` MiB + 6004 bytes) from a CUDA tensor (4-plane split);
    c. bf16 again with a batch bound of half its size (256 MiB at the
       default ``--mib``, set through ``encode.batch_chunks``): at least
-      two batches.
+      two batches;
+   and the default per-chunk encode at full width from a CUDA tensor,
+   bf16 and fp32, each container byte-equal to phase 4's golden one: must
+   launch ``hist_cells`` and ``huf_pc_encode`` and not ``const_scan_rows``
+   or ``huf_shared_encode``, and upload none of the input.
 
-Each encode path prints its phase times (split, histogram, K8, K7, fetch,
-splice) and end-to-end GB/s beside the golden encoder's seconds.  It
+Each encode path prints its phase times (split, histogram, plan, kernels,
+fetch, splice) and end-to-end GB/s beside the golden encoder's seconds.  It
 prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the exit code is not 0 and no result line is printed.
@@ -412,16 +423,87 @@ def hold_encode_kernels(x_cpu: torch.Tensor, dev):
     return k8, hold_huf_encode(g, planes, tables, dev)
 
 
+def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
+    """``hist_cells`` and ``huf_pc_encode`` against their plain versions at
+    a per-chunk encode path's first batch, with the host plan of its cells
+    between them (``encode.plan_cells``): bit-exact counts, stream bytes
+    and ``total_bits``; their times, byte bounds, and for the histogram the
+    one PyTorch call that computes it (``torch.bincount`` over
+    ``cell * 256 + byte``, its index built outside the timing).  Returns
+    the two kernels' numbers and the batch's inputs to them (``rows``,
+    ``planes``, ``tables``, ``streams``, ``seg``)."""
+    from zipnn_tpu_torch.core import dtypes  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode, hist, huf_enc, transforms  # noqa: PLC0415
+
+    gr = dtypes.grouping_for_code(dtypes.from_any(x_cpu.dtype).code)
+    nb = gr.num_buf
+    x_dev = x_cpu.to(dev).view(torch.uint8).reshape(-1)
+    g = encode.Geometry(x_dev.numel(), nb, chunk, shared=False)
+    lo, hi = g.batches[0]
+    k, pw = hi - lo, g.plane_bytes // 4
+    check(k >= 64, f"first per-chunk encode batch has {k} chunks, want >= 64")
+    planes = transforms.split_device(encode.Source(x_dev, g, dev).batch(lo, hi), nb,
+                                     gr.byte_reorder, gr.bit_reorder)
+    rows = planes.view(k * nb, pw)
+    h_k = hist.hist_cells(rows)
+    h_p, plain_h = host_ms(lambda: hist.hist_cells_plain(rows))
+    check(torch.equal(h_k, h_p), "hist_cells != plain")
+    del h_p
+    ms_h = cuda_ms(lambda: hist.hist_cells(rows))
+    idx = hist.cell_byte_index(rows).reshape(-1)
+    lib_h = cuda_ms(lambda: torch.bincount(idx, minlength=k * nb * 256))
+    del idx
+    log(f"[kernels] hist_cells ({k * nb} cells of {g.plane_bytes} B): {ms_h:.3f} ms "
+        f"(plain {plain_h:.1f} ms, torch.bincount {lib_h:.3f} ms), bit-exact")
+    hk = {"ms": ms_h, "plain_ms": plain_h, "max_abs_err": 0, "library_ms": lib_h,
+          "bound_ms": 1e3 * (rows.numel() * 4 + h_k.numel() * 4) / HBM_BYTES_PER_S}
+    t0 = time.perf_counter()
+    plan = encode.plan_cells(h_k.cpu().numpy().reshape(k, nb, 256).astype(np.int64),
+                             g.plane_bytes, np.zeros(nb, dtype=bool))
+    plan_s = time.perf_counter() - t0
+    log(f"[kernels] host plan of {k * nb} cells: {int(plan.rle.sum())} RLE, "
+        f"{plan.cand.size} Huffman tables built in {plan_s:.3f} s")
+    check(plan.cand.size > 0, "no Huffman cell in the per-chunk batch")
+    tables = torch.from_numpy(plan.tables).to(dev)
+    quarter = torch.arange(4, dtype=torch.int64, device=dev) * (pw // 4)
+    streams = (torch.from_numpy(plan.cand).to(dev)[:, None] * pw + quarter).reshape(-1)
+    r_k, t_k = huf_enc.huf_pc_encode(planes, tables, g.seg, streams)
+    (r_p, t_p), plain7 = host_ms(
+        lambda: huf_enc.huf_pc_encode_plain(planes, tables, g.seg, streams))
+    check(torch.equal(t_k, t_p), "huf_pc_encode total_bits != plain")
+    sb = ((t_p & 0x3FFFFFFF) + 7) // 8
+    width = int(sb.max())
+    keep = torch.arange(width, device=dev) < sb[:, None]
+    check(torch.equal(r_k.view(torch.uint8)[:, :width][keep],
+                      r_p.view(torch.uint8)[:, :width][keep]), "huf_pc_encode bytes != plain")
+    del r_p, keep
+    ms7 = cuda_ms(lambda: huf_enc.huf_pc_encode(planes, tables, g.seg, streams))
+    S = int(streams.numel())
+    tl = int(np.max(plan.tables.view(np.uint16) >> 12))
+    log(f"[kernels] huf_pc_encode ({S} streams of {g.seg} symbols, {plan.cand.size} "
+        f"tables, codes up to {tl} bits): {ms7:.3f} ms (plain {plain7:.1f} ms), bit-exact "
+        f"on every stream's bytes and total_bits")
+    # symbols read, stream bytes written, tables, offsets, total_bits
+    nbytes7 = S * g.seg + int(sb.sum()) + tables.numel() * 2 + 8 * S + 4 * S
+    k7 = {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0,
+          "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
+    return hk, k7, {"rows": rows, "planes": planes, "tables": tables,
+                    "streams": streams, "seg": g.seg}
+
+
 def encode_small(x: torch.Tensor, want: bytes, label: str, **kw) -> None:
-    """A shared-table encode on the card from the host tensor and from a
-    CUDA tensor: both byte-equal to ``want``, decoded back bit-exact."""
+    """An encode on the card (shared profile unless ``huffman_table``
+    says otherwise) from the host tensor and from a CUDA tensor: both
+    byte-equal to ``want``, decoded back bit-exact."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.ops import encode  # noqa: PLC0415
 
-    z = ZipNN(input_format="torch", engine="cuda", huffman_table="shared", **kw)
+    kw.setdefault("huffman_table", "shared")
+    encoder = "huf_shared_encode" if kw["huffman_table"] == "shared" else "huf_pc_encode"
+    z = ZipNN(input_format="torch", engine="cuda", **kw)
     for src in (x, x.to("cuda")):
         got = bytes(z.compress(src))
-        check(encode.last_timings["encoder"] == "huf_shared_encode", f"{label}: encoder")
+        check(encode.last_timings["encoder"] == encoder, f"{label}: encoder")
         check(got == want, f"{label}: card container != golden ({src.device})")
     y = ZipNN(input_format="torch", engine="cuda").decompress(got)
     check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)),
@@ -479,6 +561,38 @@ def small_chunk_case(seed: int) -> None:
             f"the per-chunk container decodes on the card bit-exact")
 
 
+def sub_word_case(seed: int) -> None:
+    """Chunks of 1 and 2 bytes: every dtype's container in both profiles
+    (the golden encoder's) decodes on the card bit-exact, ``combine_cells``
+    filling them byte by byte; and the shared encode of every chunk size
+    whose planes are under one word (bf16 and fp16 up to 4 bytes, fp32 up
+    to 8, fp8 up to 2) takes the golden encoder from a CUDA tensor,
+    byte-equal to it."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode, kernels  # noqa: PLC0415
+
+    for i, (dt, top) in enumerate(((torch.bfloat16, 4), (torch.float16, 4),
+                                   (torch.float32, 8), (torch.float8_e4m3fn, 2))):
+        x = synth(dt, 1200, seed + i)
+        for chunk in (c for c in (1, 2, 4, 8) if c <= top):
+            for profile in ("per_chunk", "shared"):
+                want = bytes(ZipNN(input_format="torch", engine="numpy", compression_chunk=chunk,
+                                   huffman_table=profile).compress(x))
+                if chunk <= 2:
+                    kernels.reset_launches()
+                    y = ZipNN(input_format="torch", engine="cuda").decompress(want)
+                    check(kernels.launches["combine_cells"] > 0, f"{dt} {chunk} B: no K2")
+                    check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)),
+                          f"{dt} at {chunk} B chunks ({profile}) decoded on the card")
+                if profile == "shared":
+                    got = bytes(ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
+                                      huffman_table=profile).compress(x.to("cuda")))
+                    check(encode.last_timings["encoder"] == "golden", f"{dt} {chunk} B encoder")
+                    check(got == want, f"{dt} shared encode at {chunk} B chunks != golden")
+        log(f"[sub-word] {dt}: chunks of 1 and 2 B decoded on the card (both profiles); "
+            f"shared encode at chunks up to {top} B == golden (golden encoder)")
+
+
 def encode_path(label, x_cpu, want: bytes, golden_s, smi):
     """One full-width shared encode from a CUDA tensor, with the launch
     counts set to 0 just before the call and read just after: byte-equal
@@ -518,6 +632,52 @@ def encode_path(label, x_cpu, want: bytes, golden_s, smi):
         f"{ms2 / 1e3:.3f} s = {nbytes / ms2 / 1e6:.3f} GB/s); golden encoder {gs}; "
         f"launches {launches}; card: {smi}")
     return x_dev, launches, got
+
+
+def pc_encode_path(label, x_cpu, want: bytes, golden_s, smi):
+    """The default per-chunk encode at full width from a CUDA tensor, the
+    launch counts set to 0 just before the call and read just after:
+    byte-equal to ``want``, ``hist_cells`` and ``huf_pc_encode`` launched
+    and neither shared-profile kernel, none of the input uploaded (only the
+    tables and indices, under 1/100 of its size) and less fetched than the
+    container, the cell counts and 1 MiB.  A second call for its time.
+    Returns the launches."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode, kernels  # noqa: PLC0415
+
+    nbytes = x_cpu.numel() * x_cpu.element_size()
+    x_dev = x_cpu.to("cuda")
+    z = ZipNN(input_format="torch", engine="cuda")
+    kernels.reset_launches()
+    got, ms = host_ms(lambda: z.compress(x_dev))
+    launches = dict(kernels.launches)
+    t = dict(encode.last_timings)
+    kms = encode.kernel_ms()
+    check(t["encoder"] == "huf_pc_encode", f"{label}: encoder {t['encoder']}")
+    check(bytes(got) == want, f"{label}: card container != golden")
+    check(t["upload_bytes"] == 0,
+          f"{label}: {t['upload_bytes']} input bytes uploaded from a CUDA tensor")
+    check(t["h2d_bytes"] < nbytes // 100,
+          f"{label}: {t['h2d_bytes']} bytes of tables and indices uploaded")
+    cells = 1024 * (nbytes // (256 * 1024)) * 4
+    check(t["d2h_bytes"] <= len(want) + cells + (1 << 20),
+          f"{label}: fetched {t['d2h_bytes']} bytes for a {len(want)}-byte container")
+    for k in ("hist_cells", "huf_pc_encode"):
+        check(launches[k] > 0, f"kernel {k} not launched on the {label} path")
+    for k in ("const_scan_rows", "huf_shared_encode"):
+        check(launches[k] == 0, f"kernel {k} launched on the {label} path")
+    _, ms2 = host_ms(lambda: z.compress(x_dev))
+    gs = "cached" if golden_s is None else f"{golden_s:.1f} s"
+    log(f"[encode] {label}: {nbytes} bytes {x_cpu.dtype} from a CUDA tensor -> "
+        f"{len(want)} bytes == golden; {t['batches']} batches; split {t['split_s']:.3f} s, "
+        f"hist {t['hist_s']:.3f} s (hist_cells {kms['hist_cells']:.3f} ms), plan "
+        f"{t['plan_s']:.3f} s, kernels {t['kernels_s']:.3f} s (huf_pc_encode "
+        f"{kms['huf_pc_encode']:.3f} ms), fetch {t['fetch_s']:.3f} s ({t['d2h_bytes']} bytes "
+        f"down, {t['h2d_bytes']} bytes of tables and indices up), splice {t['splice_s']:.3f} s; "
+        f"end to end {ms / 1e3:.3f} s = {nbytes / ms / 1e6:.3f} GB/s (second run "
+        f"{ms2 / 1e3:.3f} s = {nbytes / ms2 / 1e6:.3f} GB/s); golden encoder {gs}; "
+        f"launches {launches}; card: {smi}")
+    return launches
 
 
 def main() -> int:
@@ -597,6 +757,8 @@ def main() -> int:
         dv.k6_args(lo, hi), 512)
     del dv
     rows["k8"], rows["k7"] = hold_encode_kernels(x_bf16, dev)
+    rows["hist"], rows["k7pc"], _ = hold_pc_encode_kernels(x_bf16, dev)
+    torch.cuda.empty_cache()
     # K2 at one plane (fp8, 64 KB chunks) and into an out that is 4- but not
     # 16-byte aligned at 256 B chunks (every word by the per-word path)
     x8 = synth(torch.float8_e4m3fn, SMALL_MIB << 20, args.seed + 9)
@@ -625,11 +787,15 @@ def main() -> int:
         check(decode.last_timings["decoder"] == "huf_shared_decode", f"shared {dt}")
         check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)), f"shared {dt}")
         encode_small(x, bytes(comp), f"shared {dt}")
+        pc = bytes(ZipNN(input_format="torch", engine="numpy").compress(x))
+        encode_small(x, pc, f"per-chunk {dt}", huffman_table="per_chunk")
         log(f"[fixtures] shared-table {dt} {SMALL_MIB} MiB (ratio "
             f"{len(comp) / (SMALL_MIB << 20):.4f}): bit-exact; encoded on the card "
-            f"(host and CUDA tensor) == golden, decoded back bit-exact")
+            f"(host and CUDA tensor) == golden, decoded back bit-exact; per-chunk "
+            f"(ratio {len(pc) / (SMALL_MIB << 20):.4f}) encoded on the card == golden")
     uncodeable_case(args.seed + 7)
     small_chunk_case(args.seed + 8)
+    sub_word_case(args.seed + 11)
 
     # ---- 4. the paths ---------------------------------------------------
     paths = {
@@ -640,7 +806,6 @@ def main() -> int:
         "shared": drive("bf16 shared", c_shared, x_bf16,
                         ("huf_shared_decode", "combine_cells"), ("huf_pc_decode",), smi),
     }
-    del c_bf16, c_fp32
 
     # ---- 5. corruption --------------------------------------------------
     check(corrupt_case("per-chunk bf16", (fix / "bf16_gauss.znn").read_bytes(), 1)
@@ -669,7 +834,7 @@ def main() -> int:
     del got
     encode_path("fp32 shared encode", x_fp32, c_fp32_shared,
                 GOLDEN_S.get(("fp32", "shared")), smi)
-    del x_fp32, c_fp32_shared
+    del c_fp32_shared
     batch_chunks = encode.batch_chunks
     half = mib // 2  # 256 MiB at the default --mib 512
     encode.batch_chunks = lambda cs, stride: max(stride, half // (cs * stride) * stride)
@@ -680,12 +845,18 @@ def main() -> int:
     finally:
         encode.batch_chunks = batch_chunks
     del c_shared
+    pc = {"bf16": pc_encode_path("bf16 per-chunk encode", x_bf16, c_bf16,
+                                 GOLDEN_S.get(("bf16", "per_chunk")), smi)}
+    del c_bf16
+    pc["fp32"] = pc_encode_path("fp32 per-chunk encode", x_fp32, c_fp32,
+                                GOLDEN_S.get(("fp32", "per_chunk")), smi)
+    del c_fp32
 
     # ---- 7. summary -----------------------------------------------------
     def row(key, kname, source, replaces, path, launches):
         return {"name": kname, "path": path, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, **rows[key],
-                "bound_by": "bytes", "library_ms": None}
+                "replaces": replaces, "launches": launches, "bound_by": "bytes",
+                "library_ms": None, **rows[key]}
 
     k1 = "zipnn_tpu/ops/pallas_huf_pc.py:425 (K1); zipnn_tpu/ops/pallas_gather.py:84 (K3)"
     k2 = "zipnn_tpu/ops/pallas_combine.py:249 (K2)"
@@ -709,6 +880,12 @@ def main() -> int:
         row("k7", "huf_shared_encode", "zipnn_tpu_torch/csrc/huf_enc.cu",
             "zipnn_tpu/ops/pallas_huf_enc.py:225 (K7)", "bf16 shared encode",
             enc["huf_shared_encode"]),
+        row("hist", "hist_cells", "zipnn_tpu_torch/csrc/hist.cu",
+            "zipnn_tpu/ops/jax_entropy.py:139 histogram_cells (XLA device code, not a "
+            "pl.pallas_call site)", "bf16 per-chunk encode", pc["bf16"]["hist_cells"]),
+        row("k7pc", "huf_pc_encode", "zipnn_tpu_torch/csrc/huf_enc.cu",
+            "zipnn_tpu/ops/jax_entropy.py:89 encode_streams (XLA device code, not a "
+            "pl.pallas_call site)", "bf16 per-chunk encode", pc["bf16"]["huf_pc_encode"]),
     ]
     for r in out:
         log(f"[summary] {r['name']} ({r['path']}): {r['launches']} launches, "

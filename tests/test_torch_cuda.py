@@ -1,6 +1,5 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-and the whole decode and the shared-table encode against the golden
-model.
+and the whole decode and both profiles' encode against the golden model.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 This file imports neither ``jax`` nor ``zipnn_tpu``, so it runs where only
@@ -16,7 +15,8 @@ import torch
 
 from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec
 from zipnn_tpu_torch.ops import (
-    combine, const_scan, decode, encode, huf_enc, huf_pc, huf_shared, huf_sync, kernels,
+    combine, const_scan, decode, encode, hist, huf_enc, huf_pc, huf_shared, huf_sync, kernels,
+    transforms,
 )
 from zipnn_tpu_torch.ops.byte_group import plane_lengths
 from zipnn_tpu_torch.ops.entropy import huf
@@ -558,3 +558,116 @@ def test_shared_encode_on_card_uncodeable_cell(card):
     sizes = np.diff(starts, axis=1)
     assert types[1, 9] == 0 and types[1, 8] == 1
     assert types[0, 13] == 1 and sizes[0, 13] == 1
+
+
+@pytest.mark.parametrize("chunk", [256, 4096, 262144])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hist_cells_kernel_matches_plain(card, dtype, chunk):
+    """The per-cell histograms of split planes: the skewed bf16 exponent
+    plane (one byte ~1/3 of the bytes), constant rows, and rows read at an
+    odd word offset (word loads, no 16-byte path)."""
+    n_chunks = max(3, min(64, (8 << 20) // chunk))
+    raw = _raw(dtype, n_chunks * chunk, seed=chunk)
+    gr = (2, 1) if dtype == torch.bfloat16 else (4, 1)
+    words = torch.from_numpy(raw.view("<i4").copy()).view(n_chunks, chunk // 4)
+    planes = transforms.split_device(words.to(card), gr[0], 10 if gr[0] == 2 else 220, gr[1])
+    rows = planes.reshape(n_chunks * gr[0], -1)
+    rows[1] = 0x3C3C3C3C
+    got = hist.hist_cells(rows)
+    assert torch.equal(got.cpu(), hist.hist_cells_plain(rows.cpu()))
+    if dtype == torch.bfloat16:
+        assert int(got[1::2].max(1).values.min()) > chunk // 2 // 5  # skewed
+    shifted = torch.zeros(rows.numel() + 1, dtype=torch.int32, device=card)[1:]
+    shifted.copy_(rows.reshape(-1))
+    view = shifted.view(rows.shape)
+    assert view.data_ptr() % 16 == 4
+    assert torch.equal(hist.hist_cells(view).cpu(), got.cpu())
+
+
+def _pc_tables(n_cells, seed):
+    """A different table on every cell, codes of up to 8, 11 or 12 bits
+    (geometric counts), and each cell's symbols drawn from its table."""
+    rng = np.random.default_rng(seed)
+    tabs, syms_of = [], []
+    for i in range(n_cells):
+        n_syms, bits = ((5, 8), (40, 11), (220, 12))[i % 3]
+        syms = rng.permutation(256)[:n_syms]
+        count = np.zeros(256, np.int64)
+        count[syms] = np.maximum(1, (1 << 20) >> np.minimum(np.arange(n_syms), 40))
+        lengths = huf.build_code_lengths(count, bits)
+        vals = huf.canonical_values(lengths, int(lengths.max()))
+        tabs.append(huf_enc.pack_pc_table(vals, lengths))
+        syms_of.append(syms)
+    return torch.from_numpy(np.stack(tabs)), syms_of
+
+
+@pytest.mark.parametrize("schedule", ["warp", "lane"])
+@pytest.mark.parametrize("seg", [4, 32, 60, 128, 512, 1024, 32768])
+def test_huf_pc_encode_kernel_matches_plain(card, seg, schedule, monkeypatch):
+    """The per-chunk K7 against its plain version under both schedules:
+    a table per cell with codes of up to 12 bits, short streams (256 B to
+    4 KB bf16 chunks give 32 to 512 symbols), and streams at word offsets
+    of every residue mod 4 (odd word offsets)."""
+    monkeypatch.setattr(huf_enc, "WARP_SYMBOLS", 0 if schedule == "warp" else 1 << 30)
+    n_cells = max(3, min(96, (2 << 20) // seg))
+    tables, syms_of = _pc_tables(n_cells, seed=seg)
+    rng = np.random.default_rng(seg + 1)
+    w = seg // 4
+    syms = np.zeros(4 * (4 * n_cells * (w + 4) + 8), np.uint8)
+    offs = []
+    for s in range(4 * n_cells):
+        o = s * (w + 4) + s % 4
+        syms[4 * o : 4 * o + seg] = rng.choice(syms_of[s // 4], seg)
+        offs.append(o)
+    syms[4 * offs[2] : 4 * offs[2] + 3] = syms_of[0][-1]
+    words = torch.from_numpy(syms.view("<i4").copy())
+    streams = torch.tensor(offs, dtype=torch.int64)
+    rows_p, bits_p = huf_enc.huf_pc_encode(words, tables, seg, streams)
+    kernels.reset_launches()
+    rows_k, bits_k = huf_enc.huf_pc_encode(*_to((words, tables), card), seg, streams.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["huf_pc_encode"] == 1
+    assert torch.equal(bits_k.cpu(), bits_p) and int((bits_p >> 30).sum()) == 0
+    nbytes = ((bits_p & 0x3FFFFFFF) + 7) // 8
+    assert int(nbytes.max()) > seg  # codes longer than 8 bits
+    rk, rp = rows_k.cpu().numpy().view(np.uint8), rows_p.numpy().view(np.uint8)
+    for s in range(4 * n_cells):
+        assert bytes(rk[s, : nbytes[s]]) == bytes(rp[s, : nbytes[s]]), s
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+                                   torch.float32])
+def test_pc_encode_on_card_matches_golden(card, dtype):
+    """The default per-chunk profile from host input and from a CUDA
+    tensor (read in place), equal to the golden container, through
+    hist_cells and huf_pc_encode only."""
+    raw = _raw(dtype, 9 * CHUNK + 6004, seed=12)
+    x = torch.from_numpy(raw.copy()).view(dtype)
+    want = bytes(ZipNN(input_format="torch", engine="numpy",
+                       compression_chunk=CHUNK).compress(x))
+    z = ZipNN(input_format="torch", engine="cuda", compression_chunk=CHUNK)
+    assert bytes(z.compress(x)) == want
+    kernels.reset_launches()
+    assert bytes(z.compress(x.to(card))) == want
+    assert encode.last_timings["encoder"] == "huf_pc_encode"
+    assert encode.last_timings["upload_bytes"] == 0
+    assert kernels.launches["hist_cells"] > 0 and kernels.launches["huf_pc_encode"] > 0
+    assert kernels.launches["huf_shared_encode"] == 0
+    assert kernels.launches["const_scan_rows"] == 0
+    assert encode.kernel_ms()["huf_pc_encode"] > 0
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_sub_word_chunks_on_card(card, chunk):
+    """Chunks of 1 and 2 bytes decode on the card (K2 byte by byte), bf16
+    and fp32, both profiles; their encode takes the golden encoder."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(_raw(dtype, 1000, seed=chunk).copy()).view(dtype)
+        for profile in ("per_chunk", "shared"):
+            comp = ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
+                         huffman_table=profile).compress(x.to(card))
+            assert encode.last_timings["encoder"] == "golden"
+            kernels.reset_launches()
+            y = ZipNN(input_format="torch", engine="cuda").decompress(comp)
+            assert kernels.launches["combine_cells"] == 1
+            assert torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8))

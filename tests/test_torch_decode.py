@@ -174,6 +174,24 @@ def test_shared_encoder_byte_identical(dtype, stride):
         assert types[1, 3] == 0 and types[1, 4] == 1  # the unseen byte stores raw
 
 
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+@pytest.mark.parametrize("chunk", [1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_chunks_below_a_word(dtype, chunk, profile):
+    """Chunks of 1 and 2 bytes (cells stored or RLE, never Huffman) start
+    off word boundaries: K2 fills them byte by byte.  Where a chunk is
+    smaller than a value (bf16, fp16 and fp32 at 1 byte, fp32 at 2), the
+    reference's readers refuse the container its encoder wrote (their
+    full-chunk cell lengths are ``chunk // planes``); the port reads the
+    lengths the encoder wrote, and the numpy engine agrees."""
+    raw = _raw(dtype, 4 * 75 + 2, seed=chunk)
+    comp = _ref_container(raw, dtype, compression_chunk=chunk, huffman_table=profile)
+    for engine in ("cuda", "numpy"):
+        assert bytes(_port(engine=engine).decompress(comp)) == raw, engine
+    if chunk % dtypes.grouping_for_code(dtypes.from_any(dtype).code).num_buf == 0:
+        assert bytes(zipnn_tpu.ZipNN(engine="numpy").decompress(comp)) == raw
+
+
 def test_per_chunk_container_with_one_shared_header_takes_k6():
     """Per-chunk tables that happen to agree (every chunk a permutation of
     the first) take the shared-table kernel, like the JAX package's

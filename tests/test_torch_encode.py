@@ -1,6 +1,7 @@
 """PyTorch port: the shared-table compress of ``engine="cuda"``
-(``ops/encode.py``), run here through the kernels' plain versions
-(``device="cpu"``), held against the JAX package with tolerance 0:
+(``ops/encode.py``; the per-chunk profile is in ``test_torch_pc_encode.py``),
+run here through the kernels' plain versions (``device="cpu"``), held
+against the JAX package with tolerance 0:
 
 * ``transforms.split_device`` equals ``jax_transforms.split_device`` and
   the golden ``byte_group.split``;
@@ -8,6 +9,8 @@
   for byte: four dtypes at sampling stride 1 and 8, ragged tails on and
   off the stride, an uncodeable cell, an RLE cell on a hopeless plane, an
   all-constant input, inputs shorter than a chunk, and several batches;
+* chunks whose planes are under one word take the golden encoder, both
+  profiles;
 * a container decodes back through the port's own ``engine="cuda"``
   decode.
 
@@ -46,8 +49,9 @@ def _golden(x: torch.Tensor, chunk=CHUNK) -> bytes:
 
 
 def _port(x, chunk=CHUNK, **kw) -> bytes:
+    kw.setdefault("huffman_table", "shared")
     return bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
-                       huffman_table="shared", compression_chunk=chunk, **kw).compress(x))
+                       compression_chunk=chunk, **kw).compress(x))
 
 
 @pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder", [
@@ -197,24 +201,54 @@ def test_small_chunks_encode_on_device(dtype, chunk):
 
 
 def test_planes_below_a_word_raise():
-    x = _tensor(torch.float32, 4096, seed=1)
+    """The device encoder itself refuses planes under one word; the codec
+    never hands it one (``test_planes_below_a_word_take_golden``)."""
     with pytest.raises(ValueError, match="whole 4-byte words"):
-        _port(x, chunk=8)
+        encode.compress_payload(np.zeros(4096, np.uint8), 4, 1, 220, 8, device="cpu")
+
+
+# every chunk size whose planes are under one 4-byte word
+SUB_WORD = [(dt, cs) for dt, top in ((torch.bfloat16, 4), (torch.float16, 4),
+                                     (torch.float32, 8), (torch.float8_e4m3fn, 2))
+            for cs in (1, 2, 4, 8) if cs <= top]
+
+
+@pytest.mark.parametrize("dtype,chunk", SUB_WORD,
+                         ids=[f"{str(d).split('.')[-1]}-{c}" for d, c in SUB_WORD])
+def test_planes_below_a_word_take_golden(dtype, chunk):
+    """``engine="cuda"`` writes the golden container there, both profiles
+    (``codec.device_encodes``: ``chunk_size % (4 * num_buf)``), and says
+    so; the port decodes it back."""
+    x = _tensor(dtype, 301 * 4, seed=chunk)
+    for profile in ("shared", "per_chunk"):
+        got = _port(x, chunk=chunk, huffman_table=profile)
+        assert encode.last_timings["encoder"] == "golden"
+        assert got == bytes(zipnn_tpu.ZipNN(
+            input_format="torch", engine="numpy", huffman_table=profile,
+            compression_chunk=chunk).compress(x)), profile
+        y = ZipNN(input_format="torch", engine="cuda", device="cpu").decompress(got)
+        assert torch.equal(y.view(torch.uint8), x.view(torch.uint8))
 
 
 def test_golden_routes_named(monkeypatch):
-    """The per-chunk profile takes the golden encoder on ``engine="cuda"``,
-    never the device encoder."""
+    """The geometry alone routes a call: planes under one word take the
+    golden encoder on ``engine="cuda"``, never the device encoder, in
+    either profile; whole-word planes take the device encoder."""
     def refuse(*a, **kw):
-        raise AssertionError("the per-chunk profile reached the device encoder")
+        raise AssertionError("a sub-word geometry reached the device encoder")
 
+    assert codec.device_encodes("cuda", 8, 2) and not codec.device_encodes("cuda", 4, 2)
+    assert codec.device_encodes("cuda", 16, 4) and not codec.device_encodes("cuda", 8, 4)
+    assert not codec.device_encodes("numpy", CHUNK, 2)
     monkeypatch.setattr(encode, "compress_payload", refuse)
-    x = _tensor(torch.bfloat16, 40 * CHUNK + 5, seed=2)
-    got = bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
-                      compression_chunk=CHUNK).compress(x))
-    want = bytes(zipnn_tpu.ZipNN(input_format="torch", engine="numpy",
-                                 compression_chunk=CHUNK).compress(x))
-    assert got == want
+    x = _tensor(torch.bfloat16, 40 * 4 + 2, seed=2)
+    for profile in ("per_chunk", "shared"):
+        got = bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
+                          huffman_table=profile, compression_chunk=4).compress(x))
+        want = bytes(zipnn_tpu.ZipNN(input_format="torch", engine="numpy",
+                                     huffman_table=profile, compression_chunk=4).compress(x))
+        assert got == want
+        assert encode.last_timings["encoder"] == "golden"
 
 
 def test_cuda_device_without_a_card_raises():
@@ -225,7 +259,7 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_encode_modules_import_neither_jax_nor_reference():
-    for name in ("encode", "huf_enc", "const_scan", "transforms"):
+    for name in ("encode", "huf_enc", "const_scan", "hist", "transforms"):
         tree = ast.parse((ROOT / "zipnn_tpu_torch" / "ops" / f"{name}.py").read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

@@ -3,7 +3,8 @@
 Run from the repository root:
 
     python3 time_kernels.py [--pkg DIR] [--label NAME] [--seed 0]
-                            [--kernels k1,k6,k2,k7] [--chunks 16384] [--max-mib 256]
+                            [--kernels k1,k6,k2,k7,hist,k7pc] [--chunks 16384]
+                            [--max-mib 256]
                             [--chunk-sizes 256,1024,4096,8192,16384,262144]
                             [--group-symbols N] [--warp-symbols N]
 
@@ -22,6 +23,11 @@ first batch of each:
 * ``k7``: ``huf_shared_encode`` over every stream of each live plane of
   the bf16 shared encode's first batch (split on the card), held
   bit-exact against its plain version (stream bytes and ``total_bits``);
+* ``hist``: ``hist_cells`` over every cell of the bf16 per-chunk encode's
+  first batch, beside ``torch.bincount`` (``library_ms``), and ``k7pc``:
+  ``huf_pc_encode`` over the streams of its Huffman cells, both held
+  bit-exact against their plain versions (``chip_smoke.py``'s
+  ``hold_pc_encode_kernels``);
 
 and timed: the median of 5 CUDA-event timings around the call after one
 warm-up (K2, K7: 3, as ``chip_smoke.py`` times them), and for K2 and K7
@@ -42,9 +48,10 @@ where the package has it.
 
 Prints the card's name and power limit, then one JSON line per kernel and
 chunk size: ``label``, ``kernel``, ``chunk``, ``streams`` (K1, K6, K7),
-``symbols`` (per stream), ``ms``, ``launch_ms`` and ``plain_ms`` (K2,
-K7), ``bound_ms``
-(bytes the kernel must move over 3.35 TB/s).  Any mismatch raises.
+``symbols`` (per stream), ``cells`` (``hist_cells``),
+``ms``, ``launch_ms`` and ``plain_ms`` (K2, K7, ``hist_cells``),
+``library_ms`` (``hist_cells``), ``bound_ms`` (bytes the kernel must move
+over 3.35 TB/s).  Any mismatch raises.
 """
 from __future__ import annotations
 
@@ -107,7 +114,7 @@ def main(argv=None) -> None:
                     help="directory that holds the zipnn_tpu_torch to time")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="k1,k6,k2,k7")
+    ap.add_argument("--kernels", default="k1,k6,k2,k7,hist,k7pc")
     ap.add_argument("--chunks", type=int, default=16384)
     ap.add_argument("--max-mib", type=int, default=256)
     ap.add_argument("--chunk-sizes", default="256,1024,4096,8192,16384,262144")
@@ -206,6 +213,23 @@ def main(argv=None) -> None:
             emit("huf_shared_encode", chunk, streams=4 * k * len(tables), symbols=g.seg,
                  ms=r["ms"], launch_ms=lms, plain_ms=r["plain_ms"], bound_ms=r["bound_ms"])
             del planes, tables
+        if which & {"hist", "k7pc"}:
+            from zipnn_tpu_torch.ops import hist  # noqa: PLC0415
+
+            hk, k7, b = cs.hold_pc_encode_kernels(x, dev, chunk)
+            cells = int(b["rows"].shape[0])
+            if "hist" in which:
+                emit("hist_cells", chunk, cells=cells, ms=hk["ms"],
+                     launch_ms=launch_ms(lambda: hist.hist_cells(b["rows"])),
+                     plain_ms=hk["plain_ms"], library_ms=hk["library_ms"],
+                     bound_ms=hk["bound_ms"])
+            if "k7pc" in which:
+                emit("huf_pc_encode", chunk, streams=int(b["streams"].numel()),
+                     symbols=b["seg"], ms=k7["ms"], plain_ms=k7["plain_ms"],
+                     launch_ms=launch_ms(lambda: huf_enc.huf_pc_encode(
+                         b["planes"], b["tables"], b["seg"], b["streams"])),
+                     bound_ms=k7["bound_ms"])
+            del b
         torch.cuda.empty_cache()
 
 

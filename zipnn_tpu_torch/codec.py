@@ -16,11 +16,10 @@ Engines:
 * ``numpy`` — pure-Python/numpy golden model (this module): compress and
   decompress on the host.
 * ``cuda``  — decompress through the hand-written CUDA kernels
-  (``ops.decode``); the shared-table profile also compresses on the card
-  (``ops.encode``: split, sampled histogram, RLE scan and Huffman encode
-  of every full chunk), byte-identical to the golden encoder, for any
-  chunk size whose planes hold whole 4-byte words.  The per-chunk profile
-  compresses with the golden encoder (:func:`device_encodes`).
+  (``ops.decode``) and compress on the card (``ops.encode``), both
+  profiles, byte-identical to the golden encoder, for any chunk size whose
+  planes hold whole 4-byte words; smaller chunks compress with the golden
+  encoder (:func:`device_encodes`).
 
 The golden encoder here is a copy of the JAX package's
 ``codec.compress_payload_numpy`` (both the per-chunk table profile and the
@@ -240,12 +239,14 @@ def compress_cell_shared(plane: np.ndarray, table) -> Optional[bytes]:
     return huf.compress_with_table(plane, lengths, vals, header)
 
 
-def device_encodes(engine: str, shared_tables: bool) -> bool:
-    """Whether compress runs on the device (``ops.encode``): the shared
-    profile on ``engine="cuda"``.  The per-chunk profile and the ``numpy``
-    engine run the golden encoder on the host (the JAX package encodes the
-    per-chunk profile in XLA, with no Pallas kernel; ROADMAP M6b)."""
-    return engine == "cuda" and shared_tables
+def device_encodes(engine: str, chunk_size: int, num_buf: int) -> bool:
+    """Whether compress runs on the device (``ops.encode``), either
+    profile: ``engine="cuda"`` and planes of whole 4-byte words
+    (``chunk_size % (4 * num_buf) == 0``), the unit the device split and
+    encode work in.  Smaller chunks, and the ``numpy`` engine, take the
+    golden encoder on the host, as the JAX package hands chunks that are
+    not a multiple of 512 bytes to its golden model."""
+    return engine == "cuda" and chunk_size % (4 * num_buf) == 0
 
 
 def compress_payload(
@@ -270,13 +271,17 @@ def compress_payload(
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if device_encodes(engine, shared_tables):
+    if engine == "cuda":
         from .ops import encode  # noqa: PLC0415
 
-        return encode.compress_payload(
-            data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-            device=device,
-        )
+        if device_encodes(engine, chunk_size, num_buf):
+            return encode.compress_payload(
+                data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+                check_th_after_percent=check_th_after_percent,
+                shared_tables=shared_tables, device=device,
+            )
+        encode.last_timings.clear()
+        encode.last_timings["encoder"] = "golden"
     return compress_payload_numpy(
         np.asarray(data), num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
         check_th_after_percent=check_th_after_percent,
@@ -318,12 +323,20 @@ def plane_chunk_lengths(
     """Uncompressed length of every (plane, chunk) cell, [num_buf, n_chunks]:
     full chunks give ``chunk_size // num_buf`` per plane, and the last
     chunk's remainder goes one byte at a time to the leading planes
-    (zipnn_core.c:914-928, 1006-1028)."""
+    (zipnn_core.c:914-928, 1006-1028).  A full chunk smaller than a
+    value (1-byte chunks of bf16, fp16, fp32; 2-byte chunks of fp32) is
+    split as the last one is: that is what the encoder writes, where the
+    reference's reader expects ``chunk_size // num_buf`` and refuses the
+    container."""
     n_chunks = num_chunks_for(orig_size, chunk_size)
     out = np.zeros((num_buf, max(n_chunks, 0)), dtype=np.int64)
     if n_chunks == 0:
         return out
-    out[:, :-1] = chunk_size // num_buf
+    if chunk_size % num_buf:
+        out[:, :-1] = np.asarray(
+            byte_group.plane_lengths(chunk_size, num_buf, byte_reorder))[:, None]
+    else:
+        out[:, :-1] = chunk_size // num_buf
     last = orig_size - chunk_size * (n_chunks - 1)
     out[:, -1] = byte_group.plane_lengths(last, num_buf, byte_reorder)
     return out

@@ -42,6 +42,13 @@
 // by word.  Bytes past the chunk's end are written as zero (the output's
 // padding).
 //
+// Chunks of a size that is not a multiple of 4 (1 and 2 bytes: such cells
+// are stored or RLE, never Huffman, as a HUF block under 12 bytes is never
+// written) start off word boundaries, so a word of `out` may hold bytes of
+// several chunks.  They take a second kernel, a thread per output byte,
+// which keeps that byte of the chunk's word_at: the same function, byte
+// by byte.
+//
 // What bounds it now: bytes.  Each output byte reads one plane byte (none
 // for RLE cells), so the least traffic is the plane bytes read once and
 // the output written once; per 512 output bytes a warp issues two to four
@@ -285,6 +292,40 @@ __global__ void __launch_bounds__(32 * kWarps) combine_cells_kernel(
   }
 }
 
+// A thread per output byte (chunks off word boundaries): byte p & 3 of
+// word p >> 2 of its chunk; the padding up to the next word is zero.
+template <int L>
+__global__ void __launch_bounds__(32 * kWarps) combine_bytes_kernel(
+    Bufs bufs,
+    const int32_t* __restrict__ kinds,
+    const int64_t* __restrict__ srcs,
+    int chunk_size,
+    int64_t total_bytes,
+    int64_t n_out,  // total_bytes rounded up to a word
+    int keep,
+    int bit_reorder,
+    uint8_t* __restrict__ out) {
+  constexpr int NB = planes_of<L>();
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n_out) return;
+  if (g >= total_bytes) {
+    out[g] = 0;
+    return;
+  }
+  const int64_t c = g / chunk_size;
+  const int p = (int)(g - c * chunk_size);
+  const int64_t rem = total_bytes - c * chunk_size;
+  const int chunk_len = rem < chunk_size ? (int)rem : chunk_size;
+  Cells<NB> d;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    d.kind[b] = __ldg(kinds + c * NB + b);
+    d.src[b] = __ldg(srcs + c * NB + b);
+  }
+  const uint32_t w = word_at<L>(d, bufs, p >> 2, chunk_len, keep, bit_reorder);
+  out[g] = (uint8_t)(w >> (8 * (p & 3)));
+}
+
 }  // namespace
 
 extern "C" int combine_cells(
@@ -293,21 +334,30 @@ extern "C" int combine_cells(
     long long total_bytes, int num_buf, int byte_reorder, int bit_reorder,
     void* out, void* stream) {
   if (total_bytes <= 0) return 0;
-  if (chunk_size <= 0 || chunk_size % 4 || chunk_size >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
+  if (chunk_size <= 0 || chunk_size >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const long long n_chunks = (total_bytes + chunk_size - 1) / chunk_size;
   const long long tiles = (chunk_size + kTile - 1) / kTile;
   const long long units = n_chunks * tiles;
-  if (units >= (1LL << 32) - kWarps) return (int)cudaErrorInvalidValue;
-  const unsigned int blocks = (unsigned int)((units + kWarps - 1) / kWarps);
+  const long long n_out = (total_bytes + 3) & ~3LL;
+  const bool bytewise = chunk_size % 4 != 0;
+  if (bytewise ? n_out / (32 * kWarps) >= (1LL << 31) - 1 : units >= (1LL << 32) - kWarps)
+    return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = bytewise
+      ? (unsigned int)((n_out + 32 * kWarps - 1) / (32 * kWarps))
+      : (unsigned int)((units + kWarps - 1) / kWarps);
   const Bufs bufs{(const uint8_t*)payload, (const uint8_t*)hsym, (int64_t)hsym_row};
   const int keep = byte_reorder == 8;
   cudaStream_t st = (cudaStream_t)stream;
-#define ZIPNN_COMBINE(L)                                                     \
-  combine_cells_kernel<L><<<blocks, 32 * kWarps, 0, st>>>(                 \
-      bufs, (const int32_t*)kinds, (const int64_t*)srcs, (int)chunk_size,  \
-      (int64_t)total_bytes, (uint32_t)tiles, (uint32_t)units, keep,        \
-      bit_reorder, (uint8_t*)out)
+#define ZIPNN_COMBINE(L)                                                         \
+  if (bytewise)                                                                \
+    combine_bytes_kernel<L><<<blocks, 32 * kWarps, 0, st>>>(                   \
+        bufs, (const int32_t*)kinds, (const int64_t*)srcs, (int)chunk_size,    \
+        (int64_t)total_bytes, (int64_t)n_out, keep, bit_reorder, (uint8_t*)out); \
+  else                                                                         \
+    combine_cells_kernel<L><<<blocks, 32 * kWarps, 0, st>>>(                   \
+        bufs, (const int32_t*)kinds, (const int64_t*)srcs, (int)chunk_size,    \
+        (int64_t)total_bytes, (uint32_t)tiles, (uint32_t)units, keep,          \
+        bit_reorder, (uint8_t*)out)
   if (num_buf == 1) {
     ZIPNN_COMBINE(kOne);
   } else if (num_buf == 2 && byte_reorder == 10) {

@@ -1,7 +1,13 @@
-// Shared-table Huffman encode of HUF streams (codes of at most 8 bits).
+// Huffman encode of HUF streams: the shared-table profile (codes of at most
+// 8 bits, one table for the launch) and the per-chunk profile (codes of at
+// most 12 bits, a table per cell).
 //
-// Replaces the Pallas kernel zipnn_tpu/ops/pallas_huf_enc.py:225
-// (`_encode_call_cached`, K7; `_build_kernel` :43).
+// `huf_shared_encode` replaces the Pallas kernel
+// zipnn_tpu/ops/pallas_huf_enc.py:225 (`_encode_call_cached`, K7;
+// `_build_kernel` :43).  `huf_pc_encode` replaces XLA device code of the
+// JAX package, not a Pallas kernel: zipnn_tpu/ops/jax_entropy.py:89
+// `encode_streams` (a lockstep scan over every stream's symbols and a
+// segment_sum of the code words), which its per-chunk encode runs.
 //
 // What it computes, per stream (bit-exact with ops/entropy/huf.py
 // `encode_stream`): the stream's symbols in descending index order, each
@@ -45,6 +51,19 @@
 // kernel for both schedules cost the lane schedule ~25 % at 256 B chunks
 // (the warp path's registers and size).
 //
+// The per-chunk profile (`huf_pc_encode`) runs the same two schedules,
+// instantiated for 12-bit codes and a table per stream (the templates'
+// CodeBits and PerStream; the 8-bit shared instance is unchanged).  Its
+// stream s takes the table of cell s / 4: the host lists the 4 streams of
+// each Huffman cell in turn and a [cells, 256] uint16 table array of
+// `val | nb << 12` entries, which a signed 16-bit entry would not hold.
+// Rows are ceil((12 seg + 1) / 32) words; the staging row holds a tile of
+// 512 symbols at 12 bits (192 words) plus the carry, 196 words; the codes
+// are or-ed into the 64-bit accumulator two symbols between flushes, not
+// four.  Neighbouring warps of a block encode other cells, so each warp
+// copies its table (256 entries) into its own 1 KB of shared memory; the
+// lane schedule reads each lane's table through L1.
+//
 // What bounds it now.  Its bytes (the symbols read once, the stream bytes
 // written once) would take 0.107 ms for a 512 MiB bf16 batch's exponent
 // plane; it takes ~3.5x that.  With one load per lane and tile, a warp
@@ -69,8 +88,27 @@ constexpr int kWarps = 8;          // warps per block, warp schedule
 constexpr int kLaneThreads = 64;   // threads per block, lane schedule
 constexpr int kLaneWords = 4;      // input words per lane and tile
 constexpr int kTileWords = 32 * kLaneWords;  // 512 symbols
-constexpr int kStage = 132;        // staging words per warp (>= 129)
 constexpr int kAhead = 2;          // tiles a lane's loads run ahead
+
+// A table entry is `val | nb << CB` for codes of at most CB bits (8: the
+// shared profile, 12: the per-chunk profile).
+template <int CB>
+struct Code {
+  static constexpr uint32_t kVal = (1u << CB) - 1;
+  // codes appended between flushes: < 32 carried bits plus kFlush codes
+  // fit the 64-bit accumulator
+  static constexpr int kFlush = 32 / CB;
+  // staging words per warp: a tile's code bits plus < 32 carried, and the
+  // carry word (132 at 8 bits, 196 at 12)
+  static constexpr int kStage = ((4 * kTileWords * CB + 31) / 32 + 1 + 3) & ~3;
+};
+
+// A lane's table in device memory (read through L1), indexed as the
+// shared-memory tables are.
+struct GlobalTable {
+  const uint16_t* p;
+  __device__ __forceinline__ uint32_t operator[](uint32_t i) const { return __ldg(p + i); }
+};
 
 struct Writer {
   uint64_t acc;    // pending bits, LSB first
@@ -80,43 +118,43 @@ struct Writer {
 };
 
 // Append the codes of one input word's four symbols, highest byte first
-// (symbols run in descending index order), then flush one word if full.
-__device__ __forceinline__ void put_word(Writer& w, uint32_t x,
-                                         const uint32_t* tbl,
+// (symbols run in descending index order), flushing a word when full.
+template <int CB, typename Tbl>
+__device__ __forceinline__ void put_word(Writer& w, uint32_t x, const Tbl& tbl,
                                          uint32_t* __restrict__ dst) {
 #pragma unroll
   for (int k = 3; k >= 0; --k) {
     const uint32_t e = tbl[(x >> (8 * k)) & 0xFFu];
-    const uint32_t nb = e >> 8;
+    const uint32_t nb = e >> CB;
     w.bad |= (nb == 0u);
-    w.acc |= (uint64_t)(e & 0xFFu) << w.nbits;
+    w.acc |= (uint64_t)(e & Code<CB>::kVal) << w.nbits;
     w.nbits += (int)nb;
-  }
-  if (w.nbits >= 32) {
-    dst[w.words++] = (uint32_t)w.acc;
-    w.acc >>= 32;
-    w.nbits -= 32;
+    if (k % Code<CB>::kFlush == 0 && w.nbits >= 32) {
+      dst[w.words++] = (uint32_t)w.acc;
+      w.acc >>= 32;
+      w.nbits -= 32;
+    }
   }
 }
 
 // One stream by one thread (the lane schedule): 16-byte loads from the
 // segment's end where the segment is 16-byte aligned, else 4.
-__device__ void encode_lane(const uint32_t* src, int seg_words,
-                            const uint32_t* tbl, uint32_t* __restrict__ dst,
-                            int32_t* total_bits) {
+template <int CB, typename Tbl>
+__device__ void encode_lane(const uint32_t* src, int seg_words, const Tbl& tbl,
+                            uint32_t* __restrict__ dst, int32_t* total_bits) {
   Writer w{0ull, 0, 0, 0u};
   const bool vec = ((seg_words & 3) == 0) && (((uintptr_t)src & 15) == 0);
   if (vec) {
     const uint4* v = reinterpret_cast<const uint4*>(src);
     for (int q = (seg_words >> 2) - 1; q >= 0; --q) {
       const uint4 x = __ldg(v + q);
-      put_word(w, x.w, tbl, dst);
-      put_word(w, x.z, tbl, dst);
-      put_word(w, x.y, tbl, dst);
-      put_word(w, x.x, tbl, dst);
+      put_word<CB>(w, x.w, tbl, dst);
+      put_word<CB>(w, x.z, tbl, dst);
+      put_word<CB>(w, x.y, tbl, dst);
+      put_word<CB>(w, x.x, tbl, dst);
     }
   } else {
-    for (int i = seg_words - 1; i >= 0; --i) put_word(w, __ldg(src + i), tbl, dst);
+    for (int i = seg_words - 1; i >= 0; --i) put_word<CB>(w, __ldg(src + i), tbl, dst);
   }
   const int64_t code_bits = 32 * w.words + w.nbits;
   // closing sentinel, then the last partial word (zero-padded)
@@ -148,6 +186,7 @@ struct WarpState {
 
 // One tile: the lane's group `v` (from word `lo`) coded, scanned, or-ed
 // into the staging row, the row's complete words stored.
+template <int CB>
 __device__ __forceinline__ void encode_tile(uint4 v, int lo, int seg_words,
                                             const uint32_t* tbl,
                                             uint32_t* __restrict__ dst,
@@ -163,9 +202,9 @@ __device__ __forceinline__ void encode_tile(uint4 v, int lo, int seg_words,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const uint32_t ent = tbl[(x[k] >> (8 * (3 - r))) & 0xFFu] & keep;
-      st.bad |= keep & (ent < 0x100u);
+      st.bad |= keep & (ent < (1u << CB));
       e[4 * k + r] = ent;
-      len += (int)(ent >> 8);
+      len += (int)(ent >> CB);
     }
   }
   int incl = len;
@@ -176,7 +215,7 @@ __device__ __forceinline__ void encode_tile(uint4 v, int lo, int seg_words,
   }
   const int tile_bits = __shfl_sync(kFull, incl, 31);
   const int first = (st.pos & 31) + incl - len;  // the lane's first bit in the row
-  for (int i = lane; i < kStage; i += 32) stage[i] = i ? 0u : st.carry;
+  for (int i = lane; i < Code<CB>::kStage; i += 32) stage[i] = i ? 0u : st.carry;
   __syncwarp();
   uint64_t acc = 0;
   int nbits = first & 31;
@@ -186,14 +225,14 @@ __device__ __forceinline__ void encode_tile(uint4 v, int lo, int seg_words,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const uint32_t ent = e[4 * g + r];
-      acc |= (uint64_t)(ent & 0xFFu) << nbits;
-      nbits += (int)(ent >> 8);
-    }
-    if (nbits >= 32) {
-      if ((uint32_t)acc) atomicOr(stage + wi, (uint32_t)acc);
-      ++wi;
-      acc >>= 32;
-      nbits -= 32;
+      acc |= (uint64_t)(ent & Code<CB>::kVal) << nbits;
+      nbits += (int)(ent >> CB);
+      if ((r + 1) % Code<CB>::kFlush == 0 && nbits >= 32) {
+        if ((uint32_t)acc) atomicOr(stage + wi, (uint32_t)acc);
+        ++wi;
+        acc >>= 32;
+        nbits -= 32;
+      }
     }
   }
   if ((uint32_t)acc) atomicOr(stage + wi, (uint32_t)acc);
@@ -209,6 +248,7 @@ __device__ __forceinline__ void encode_tile(uint4 v, int lo, int seg_words,
 // One stream by one warp (the warp schedule); `stage` is the warp's
 // staging row.  Each lane keeps its groups of the next kAhead tiles in
 // flight while it codes one.
+template <int CB>
 __device__ void encode_warp(const uint32_t* src, int seg_words,
                             const uint32_t* tbl, uint32_t* __restrict__ dst,
                             uint32_t* stage, int lane, int32_t* total_bits) {
@@ -229,7 +269,7 @@ __device__ void encode_warp(const uint32_t* src, int seg_words,
       const int lo = lo0 - (t + a) * kTileWords;
       const uint4 v = ring[a];
       ring[a] = load_group(src, seg_words, lo - kAhead * kTileWords);
-      encode_tile(v, lo, seg_words, tbl, dst, stage, lane, st);
+      encode_tile<CB>(v, lo, seg_words, tbl, dst, stage, lane, st);
     }
   }
   const uint32_t bad = __any_sync(kFull, st.bad != 0);
@@ -245,38 +285,84 @@ __device__ __forceinline__ void load_table(uint32_t* tbl, const uint16_t* __rest
   __syncthreads();
 }
 
+// PerStream: stream s codes with table s / 4 of `tables`, copied by its
+// warp into the warp's own shared table; else one table for the launch.
+template <int CB, bool PerStream>
 __global__ void __launch_bounds__(32 * kWarps) huf_encode_warps_kernel(
     const uint32_t* __restrict__ planes,
     const int64_t* __restrict__ streams,
-    const uint16_t* __restrict__ table,
+    const uint16_t* __restrict__ tables,
     int n_streams, int seg_words, int row_words,
     uint32_t* __restrict__ rows,
     int32_t* __restrict__ total_bits) {
-  __shared__ uint32_t tbl[256];
-  __shared__ uint32_t stage[kWarps][kStage];
-  load_table(tbl, table);
+  __shared__ uint32_t tbl[PerStream ? kWarps : 1][256];
+  __shared__ uint32_t stage[kWarps][Code<CB>::kStage];
+  if constexpr (!PerStream) load_table(tbl[0], tables);
   const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + warp;
   if (s >= n_streams) return;  // the whole warp
-  encode_warp(planes + streams[s], seg_words, tbl, rows + (int64_t)s * row_words,
-              stage[warp], threadIdx.x & 31, total_bits + s);
+  uint32_t* t = tbl[0];
+  if constexpr (PerStream) {
+    t = tbl[warp];
+    const uint16_t* src = tables + (int64_t)(s >> 2) * 256;
+    for (int i = lane; i < 256; i += 32) t[i] = __ldg(src + i);
+    __syncwarp();
+  }
+  encode_warp<CB>(planes + streams[s], seg_words, t, rows + (int64_t)s * row_words,
+                  stage[warp], lane, total_bits + s);
 }
 
 // A kernel of its own, so the lane schedule keeps the first design's
 // registers and block size rather than the warp schedule's.
+template <int CB, bool PerStream>
 __global__ void __launch_bounds__(kLaneThreads) huf_encode_lanes_kernel(
     const uint32_t* __restrict__ planes,
     const int64_t* __restrict__ streams,
-    const uint16_t* __restrict__ table,
+    const uint16_t* __restrict__ tables,
     int n_streams, int seg_words, int row_words,
     uint32_t* __restrict__ rows,
     int32_t* __restrict__ total_bits) {
-  __shared__ uint32_t tbl[256];
-  load_table(tbl, table);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_streams) return;
-  encode_lane(planes + streams[s], seg_words, tbl, rows + (int64_t)s * row_words,
-              total_bits + s);
+  if constexpr (PerStream) {
+    if (s >= n_streams) return;
+    const GlobalTable tbl{tables + (int64_t)(s >> 2) * 256};
+    encode_lane<CB>(planes + streams[s], seg_words, tbl, rows + (int64_t)s * row_words,
+                    total_bits + s);
+  } else {
+    __shared__ uint32_t tbl[256];
+    load_table(tbl, tables);
+    if (s >= n_streams) return;
+    const uint32_t* t = tbl;
+    encode_lane<CB>(planes + streams[s], seg_words, t, rows + (int64_t)s * row_words,
+                    total_bits + s);
+  }
+}
+
+template <int CB, bool PerStream>
+int encode(const void* planes, const void* streams, const void* tables, int n_streams,
+           int seg_words, int row_words, int group, void* rows, void* total_bits,
+           void* stream) {
+  if (n_streams <= 0) return 0;
+  // CB bits per symbol plus the sentinel must fit the row and stay below
+  // bit 30 of total_bits
+  const int64_t most = (int64_t)seg_words * 4 * CB + 1;
+  if (seg_words < 0 || most >= (1 << 30) || (int64_t)row_words * 32 < most ||
+      (group != 1 && group != 32))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (group == 1) {
+    huf_encode_warps_kernel<CB, PerStream>
+        <<<(n_streams + kWarps - 1) / kWarps, 32 * kWarps, 0, st>>>(
+            (const uint32_t*)planes, (const int64_t*)streams, (const uint16_t*)tables,
+            n_streams, seg_words, row_words, (uint32_t*)rows, (int32_t*)total_bits);
+  } else {
+    huf_encode_lanes_kernel<CB, PerStream>
+        <<<(n_streams + kLaneThreads - 1) / kLaneThreads, kLaneThreads, 0, st>>>(
+            (const uint32_t*)planes, (const int64_t*)streams, (const uint16_t*)tables,
+            n_streams, seg_words, row_words, (uint32_t*)rows, (int32_t*)total_bits);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -285,22 +371,14 @@ extern "C" int huf_shared_encode(const void* planes, const void* streams,
                                  const void* table, int n_streams,
                                  int seg_words, int row_words, int group,
                                  void* rows, void* total_bits, void* stream) {
-  if (n_streams <= 0) return 0;
-  // 8 bits per symbol plus the sentinel must fit the row and stay below
-  // bit 30 of total_bits
-  if (seg_words < 0 || row_words < seg_words + 1 || seg_words >= (1 << 25) ||
-      (group != 1 && group != 32))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (group == 1) {
-    huf_encode_warps_kernel<<<(n_streams + kWarps - 1) / kWarps, 32 * kWarps, 0, st>>>(
-        (const uint32_t*)planes, (const int64_t*)streams, (const uint16_t*)table,
-        n_streams, seg_words, row_words, (uint32_t*)rows, (int32_t*)total_bits);
-  } else {
-    huf_encode_lanes_kernel<<<(n_streams + kLaneThreads - 1) / kLaneThreads, kLaneThreads,
-                              0, st>>>(
-        (const uint32_t*)planes, (const int64_t*)streams, (const uint16_t*)table,
-        n_streams, seg_words, row_words, (uint32_t*)rows, (int32_t*)total_bits);
-  }
-  return (int)cudaGetLastError();
+  return encode<8, false>(planes, streams, table, n_streams, seg_words, row_words, group,
+                          rows, total_bits, stream);
+}
+
+extern "C" int huf_pc_encode(const void* planes, const void* streams,
+                             const void* tables, int n_streams,
+                             int seg_words, int row_words, int group,
+                             void* rows, void* total_bits, void* stream) {
+  return encode<12, true>(planes, streams, tables, n_streams, seg_words, row_words, group,
+                          rows, total_bits, stream);
 }

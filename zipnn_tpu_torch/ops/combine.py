@@ -14,7 +14,9 @@ interleave of 2 planes, modes 1/8 zero-fill, mode 220 interleave of 4
 planes, the bf16 or fp32 sign rotation reverted on the whole words of
 each chunk).  Chunks are ``chunk_size`` bytes except a
 ragged last one; the output is written as words, so up to 3 bytes past
-``total_bytes`` are written (as zero).
+``total_bytes`` are written (as zero).  Chunks of 1 or 2 bytes (whose
+cells are stored or RLE) start off word boundaries; the kernel writes
+them byte by byte.
 """
 from __future__ import annotations
 
@@ -49,8 +51,8 @@ def combine_cells(
         raise ValueError(
             f"combine_cells: {num_buf} planes in mode {byte_reorder} not supported"
         )
-    if chunk_size % 4:
-        raise ValueError(f"combine_cells: chunk_size {chunk_size} is not a multiple of 4")
+    if chunk_size < 1:
+        raise ValueError(f"combine_cells: chunk_size {chunk_size} < 1")
     for name, t, dt in (
         ("payload", payload, torch.uint8), ("hsym", hsym, torch.uint8),
         ("kinds", kinds, torch.int32), ("srcs", srcs, torch.int64),
@@ -132,7 +134,7 @@ def combine_cells_plain(
             keep = 0 if byte_reorder == 1 else 1
             dst.zero_()
             dst[keep::2][: lens[0]] = planes[0]
-        if bit_reorder:
+        if bit_reorder and clen >= 4:
             nw = clen // 4
             words = dst[: 4 * nw].view(torch.int32)
             revert = transforms.revert_sign_16 if num_buf == 2 else transforms.revert_sign_32

@@ -236,8 +236,6 @@ def build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
     """Host plan of a container, or None when it holds no bytes."""
     if num_buf not in (1, 2, 4):
         raise ValueError(f"unsupported plane count {num_buf}")
-    if chunk_size % 4:
-        raise NotImplementedError(f"chunk size {chunk_size} is not a multiple of 4")
     if orig_size == 0:
         return None
     return Plan(Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder,

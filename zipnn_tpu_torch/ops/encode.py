@@ -1,32 +1,43 @@
-"""Compress a buffer with the shared-table profile on the card.
+"""Compress a buffer on the card, either Huffman profile.
 
-The counterpart of the JAX package's device encode
-(``jax_codec.plan_fast_encode``, its ``_assemble`` and
-``fast_encode_payload_batched``), reduced to what the format needs.  The
-container it returns equals the golden encoder's
-(``codec.compress_payload_numpy(..., shared_tables=True)``) byte for
-byte:
+The counterpart of the JAX package's device encodes: the per-chunk
+profile of ``jax_codec.compress_payload`` (its split, ``_histogram``,
+``_plan_cell``, ``_encode`` and the bounded threshold check's post-pass)
+and the shared-table profile of ``jax_codec.plan_fast_encode``,
+``_assemble`` and ``fast_encode_payload_batched``, reduced to what the
+format needs.  The container it returns equals the golden encoder's
+(``codec.compress_payload_numpy``) byte for byte:
 
-1. **Geometry**: the full chunks, the ragged tail, the sampling stride
-   (``codec.shared_sample_stride``) and chunk-range batches, each a
-   multiple of the stride (:func:`batch_chunks`).
-2. **Pass 1, the tables**: the per-plane byte histogram of the sampled
-   chunks (every ``stride``-th chunk from 0, and the tail cell when its
-   index is on stride), split and counted on the device, summed in int64;
-   then ``codec.shared_tables_from_counts``.
-3. **Pass 2, per batch**: the batch's words (a view of the caller's CUDA
-   tensor, or uploaded), the byte-plane split
-   (``transforms.split_device``), kernel K8 (``const_scan.const_scan_rows``)
-   over every (chunk, plane) row, and kernel K7
-   (``huf_enc.huf_shared_encode``) over the 4 streams of every cell of
-   each live plane.  One device-to-host copy brings the RLE flags and bit
-   counts; the host takes every cell's decision (:func:`decide`); a second
-   copy brings the bytes the container needs: each Huffman stream's bytes
+1. **Geometry**: the full chunks, the ragged tail and chunk-range batches;
+   in the shared profile each batch is a multiple of the sampling stride
+   (``codec.shared_sample_stride``, :func:`batch_chunks`).
+2. **Shared profile, pass 1, the tables**: the per-plane byte histogram of
+   the sampled chunks (every ``stride``-th chunk from 0, and the tail cell
+   when its index is on stride), split and counted on the device, summed
+   in int64; then ``codec.shared_tables_from_counts``.
+3. **Per batch**: the batch's words (a view of the caller's CUDA tensor,
+   or uploaded) and the byte-plane split (``transforms.split_device``),
+   then the profile's kernels:
+
+   * shared: K8 (``const_scan.const_scan_rows``) over every (chunk, plane)
+     row and K7 (``huf_enc.huf_shared_encode``) over the 4 streams of
+     every cell of each live plane;
+   * per-chunk: ``hist.hist_cells`` over every cell, one fetch of the
+     counts, the host plan of each cell (:func:`plan_cells`: RLE, raw, or a
+     Huffman table, in the golden encoder's order of checks), then
+     ``huf_enc.huf_pc_encode`` over the 4 streams of every Huffman cell,
+     each with its cell's table.
+
+   One device-to-host copy brings the bit counts (and K8's flags); the
+   host takes every cell's decision (:func:`decide`) and, per-chunk, the
+   bounded threshold check (:class:`Abandon`); a second copy brings the
+   bytes the container needs (:func:`fetch`): each Huffman stream's bytes
    and the raw cells.
-4. **Tail and output**: the tail cell goes through the golden
-   ``codec.compress_cell_shared`` on the host; the host writes the chunk
-   tables and splices every plane's cells at their global offsets, so
-   several batches stitch into one container.
+4. **Tail and output**: the tail cell goes through the golden encoder's
+   cell code on the host (``huf.compress``, or
+   ``codec.compress_cell_shared``); the host writes the chunk tables and
+   splices every plane's cells at their global offsets (:func:`splice`),
+   so several batches stitch into one container.
 
 On CPU tensors the kernels' plain versions run, so the same pipeline
 encodes on the host for the tests.
@@ -42,20 +53,25 @@ import numpy as np
 import torch
 
 from .. import codec
-from . import byte_group, const_scan, huf_enc, kernels, transforms
-from .entropy import huf
+from . import byte_group, const_scan, hist, huf_enc, kernels, transforms
+from .entropy import fse, huf
 
 RAW, RLE, HUF = 0, 1, 2
 BATCH_BYTES = 512 << 20  # input bytes per device batch
 
-# what the last device compress spent, for callers that report it: the
-# encoder that ran ("huf_shared_encode"), host-clock phase seconds
-# (split_s, hist_s, kernels_s, fetch_s, splice_s, upload_s), the input
-# bytes uploaded (upload_bytes), every byte moved each way (h2d_bytes:
-# the input's uploads, the tables and the fetch indices; d2h_bytes), the
-# batch count and, on CUDA, the events recorded around each K8 and K7
-# launch
+# what the last compress spent, for callers that report it: the encoder
+# that ran ("huf_shared_encode", "huf_pc_encode", or "golden" where
+# ``codec.device_encodes`` routes the call to the golden encoder), the
+# device kernels it launches ("kernels"), host-clock phase seconds
+# (split_s, hist_s, plan_s, kernels_s, fetch_s, splice_s, upload_s), the
+# input bytes uploaded (upload_bytes), every byte moved each way
+# (h2d_bytes: the input's uploads, the tables and the fetch indices;
+# d2h_bytes), the batch count and, on CUDA, the events recorded around
+# each kernel launch
 last_timings: Dict = {}
+
+SHARED_KERNELS = ("const_scan_rows", "huf_shared_encode")
+PC_KERNELS = ("hist_cells", "huf_pc_encode")
 
 
 def batch_chunks(chunk_size: int, stride: int) -> int:
@@ -66,16 +82,17 @@ def batch_chunks(chunk_size: int, stride: int) -> int:
 
 
 class Geometry:
-    """Chunks, tail, sampling stride and batches of one buffer."""
+    """Chunks, tail, sampling stride (1 in the per-chunk profile) and
+    batches of one buffer."""
 
-    def __init__(self, n: int, num_buf: int, chunk_size: int):
+    def __init__(self, n: int, num_buf: int, chunk_size: int, shared: bool = True):
         if chunk_size % (4 * num_buf):
             raise ValueError(f"chunk size {chunk_size}: the device encoder needs planes "
                              f"of whole 4-byte words (chunks of {4 * num_buf} bytes or more)")
         self.n, self.num_buf, self.chunk_size = n, num_buf, chunk_size
         self.full = n // chunk_size
         self.n_chunks = codec.num_chunks_for(n, chunk_size)
-        self.stride = codec.shared_sample_stride(self.n_chunks)
+        self.stride = codec.shared_sample_stride(self.n_chunks) if shared else 1
         self.plane_bytes = chunk_size // num_buf
         self.seg = self.plane_bytes // 4  # bytes of each of a cell's 4 streams
         B = batch_chunks(chunk_size, self.stride)
@@ -130,6 +147,13 @@ class Source:
             self.h2d += arr.nbytes
         return torch.from_numpy(arr).to(self.device)
 
+    def get(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host, its bytes counted."""
+        out = t.cpu().numpy()
+        if self.device.type == "cuda":
+            self.d2h += out.nbytes
+        return out
+
     def batch(self, lo: int, hi: int) -> torch.Tensor:
         if self.words is not None:
             return self.words[lo:hi]
@@ -147,9 +171,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _tick(clock: Dict, key: str, t0: float, device: torch.device) -> float:
+    """Add the seconds since ``t0`` (after a sync) to ``clock[key]``."""
+    _sync(device)
+    t = time.perf_counter()
+    clock[key] = clock.get(key, 0.0) + t - t0
+    return t
+
+
 def sampled_counts(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int,
                    tail_planes) -> np.ndarray:
-    """Pass 1: [num_buf, 256] int64 byte counts of the sampled cells."""
+    """Shared profile, pass 1: [num_buf, 256] int64 byte counts of the
+    sampled cells."""
     nb = g.num_buf
     counts = torch.zeros((nb, 256), dtype=torch.int64, device=src.device)
     for lo, hi in g.batches:
@@ -158,9 +191,7 @@ def sampled_counts(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int
         for b in range(nb):
             counts[b] += torch.bincount(
                 planes[:, b].contiguous().view(torch.uint8).reshape(-1), minlength=256)
-    out = counts.cpu().numpy()
-    if src.device.type == "cuda":
-        src.d2h += out.nbytes
+    out = src.get(counts)
     if tail_planes is not None and g.full % g.stride == 0:
         for b, plane in enumerate(tail_planes):  # the tail cell is on stride
             if plane.size:
@@ -168,120 +199,271 @@ def sampled_counts(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int
     return out
 
 
-def decide(flags: np.ndarray, bits: Dict[int, np.ndarray], hlen: np.ndarray,
-           plane_bytes: int, threshold: float):
-    """Each full-chunk cell's kind and stored size, as the golden
-    ``compress_cell_shared`` + ``huf.compress_with_table`` + threshold
-    decide them.
+def cell_table(count: np.ndarray, n: int):
+    """The Huffman table of one per-chunk cell of ``n`` bytes with byte
+    counts ``count`` (past the RLE and raw checks of :func:`plan_cells`):
+    (weight header bytes, ``huf_enc.pack_pc_table`` entries), or None when
+    the golden ``huf.compress`` stores the cell raw (no code lengths, no
+    header, or a header too long for the cell)."""
+    max_sv = int(np.nonzero(count)[0][-1])
+    table_log = fse.optimal_table_log(huf.HUF_TABLELOG_DEFAULT, n, max_sv, minus=1)
+    lengths = huf.build_code_lengths(count, table_log)
+    if lengths is None:
+        return None
+    table_log = int(lengths.max())
+    header = huf.write_ctable(lengths, max_sv, table_log)
+    if header is None or len(header) + 12 >= n:
+        return None
+    vals = huf.canonical_values(lengths, table_log)
+    return header, huf_enc.pack_pc_table(vals, lengths)
 
-    ``flags``: K8's [k, num_buf] ``b0 | const << 8``; ``bits``: K7's
-    [k, 4] ``total_bits`` of each plane it ran on (live planes whose cells
-    the HUF block size limits allow).  Returns (kind, size, sbytes): kind
-    and size [k, num_buf], stream bytes [k, num_buf, 4].  A constant cell
-    is RLE; else a cell is Huffman when its plane ran K7, no stream met an
-    uncoded byte, every stream holds 1..65535 bytes and the block is
-    shorter than ``plane_bytes - 1`` and than ``plane_bytes * threshold``;
-    else raw.  Every block, RLE too, must beat the threshold.
+
+@dataclass
+class PcPlan:
+    """One batch's per-chunk plan: ``rle`` [k, num_buf] (one repeated
+    byte, ``b0``); the Huffman cells (flat indices ``c * num_buf + b``, in
+    order), their weight headers and [m, 256] tables."""
+
+    rle: np.ndarray
+    b0: np.ndarray
+    cand: np.ndarray
+    headers: List[bytes]
+    tables: np.ndarray
+
+
+def plan_cells(counts: np.ndarray, n: int, abandoned: np.ndarray) -> PcPlan:
+    """Each cell's plan from its byte counts ([k, num_buf, 256]), in the
+    order of checks of the golden ``huf.compress`` (the JAX package's
+    ``_plan_cell``): a cell of 0 or more than ``HUF_BLOCKSIZE_MAX`` bytes
+    is raw (a constant one too); one repeated byte is RLE; a cell whose
+    largest count is at most ``(n >> 7) + 4``, or under 12 bytes, is raw;
+    else :func:`cell_table` builds its table.  The cheap checks run
+    vectorised over all cells, so only the cells that pass them pay for a
+    table build.  Cells of ``abandoned`` planes are raw."""
+    k, nb, _ = counts.shape
+    rle = np.zeros((k, nb), dtype=bool)
+    b0 = np.zeros((k, nb), dtype=np.uint8)
+    cand, headers, tables = [], [], []
+    if 0 < n <= huf.HUF_BLOCKSIZE_MAX:
+        largest = counts.max(axis=2)
+        live = ~abandoned[None, :]
+        rle = (largest == n) & live
+        b0 = counts.argmax(axis=2).astype(np.uint8)
+        coded = live & ~rle & (largest > (n >> 7) + 4) & (n >= 12)
+        flat = counts.reshape(k * nb, 256)
+        for f in np.nonzero(coded.reshape(-1))[0]:
+            t = cell_table(flat[f], n)
+            if t is not None:
+                cand.append(f)
+                headers.append(t[0])
+                tables.append(t[1])
+    tables = np.stack(tables) if tables else np.zeros((0, 256), np.int16)
+    return PcPlan(rle, b0, np.asarray(cand, dtype=np.int64), headers, tables)
+
+
+def decide(rle: np.ndarray, cand: np.ndarray, bits: np.ndarray, hlen: np.ndarray,
+           plane_bytes: int, threshold: float):
+    """Each full-chunk cell's kind and stored size, as the golden encoder
+    and its threshold decide them.
+
+    ``rle`` [k, num_buf]: the cells of one repeated byte that may be RLE
+    (K8's flags; per-chunk, the plan's RLE cells); ``cand`` [m]: the cells
+    K7 encoded (flat indices ``c * num_buf + b``), ``bits`` [m, 4] their
+    streams' ``total_bits`` and ``hlen`` [m] the length of the weight
+    header each would carry.  Returns (kind, size) [k, num_buf] and the
+    stream bytes [m, 4].  An RLE cell is stored as one byte; else a cell
+    is Huffman when K7 encoded it, no stream met an uncoded byte, every
+    stream holds 1..65535 bytes and the block is shorter than
+    ``plane_bytes - 1`` and than ``plane_bytes * threshold``; else raw.
+    Every block, RLE too, must beat the threshold.
     """
-    k, nb = flags.shape
     limit = plane_bytes * threshold
-    const = (flags >> 8).astype(bool)
-    kind = np.full((k, nb), RAW, dtype=np.uint8)
-    size = np.full((k, nb), plane_bytes, dtype=np.int64)
-    sbytes = np.zeros((k, nb, 4), dtype=np.int64)
-    rle = const & (1 < limit)
-    kind[rle] = RLE
-    size[rle] = 1
-    for b, tb in bits.items():
-        tb = tb.astype(np.int64)
-        sb = ((tb & 0x3FFFFFFF) + 7) // 8
-        comp = hlen[b] + 6 + sb.sum(axis=1)
-        ok = (~const[:, b] & ~((tb >> 30) & 1).any(axis=1)
-              & ((sb >= 1) & (sb <= 65535)).all(axis=1)
-              & (comp < plane_bytes - 1) & (comp < limit))
-        kind[ok, b] = HUF
-        size[ok, b] = comp[ok]
-        sbytes[:, b] = sb
-    return kind, size, sbytes
+    kind = np.full(rle.shape, RAW, dtype=np.uint8)
+    size = np.full(rle.shape, plane_bytes, dtype=np.int64)
+    r = rle & (1 < limit)
+    kind[r] = RLE
+    size[r] = 1
+    tb = bits.astype(np.int64).reshape(-1, 4)
+    sb = ((tb & 0x3FFFFFFF) + 7) // 8
+    comp = hlen + 6 + sb.sum(axis=1)
+    ok = (~rle.reshape(-1)[cand] & ~((tb >> 30) & 1).any(axis=1)
+          & ((sb >= 1) & (sb <= 65535)).all(axis=1)
+          & (comp < plane_bytes - 1) & (comp < limit))
+    kind.reshape(-1)[cand[ok]] = HUF
+    size.reshape(-1)[cand[ok]] = comp[ok]
+    return kind, size, sb
+
+
+class Abandon:
+    """The per-chunk profile's bounded threshold check
+    (``codec.check_abandon_index``): the batch holding chunk ``idx`` knows
+    every size up to it before its fetch; a plane whose stored bytes over
+    chunks 0..idx exceed ``threshold`` times their raw bytes stores every
+    later cell raw (RLE ones too; the tail cell as well), in that batch
+    before its fetch and in each later batch before its kernels."""
+
+    def __init__(self, n_chunks: int, percent: int, num_buf: int):
+        self.idx = codec.check_abandon_index(n_chunks, percent)
+        self.planes = np.zeros(num_buf, dtype=bool)
+        self.stored = np.zeros(num_buf, dtype=np.int64)  # over chunks before the batch
+
+    def apply(self, lo: int, kind: np.ndarray, size: np.ndarray, plane_bytes: int,
+              threshold: float) -> None:
+        if self.idx is None or self.idx < lo:
+            return
+        k = kind.shape[0]
+        if self.idx >= lo + k:
+            self.stored += size.sum(axis=0)
+            return
+        j = self.idx - lo + 1  # chunks of this batch up to the check
+        stored = self.stored + size[:j].sum(axis=0)
+        uncomp = np.full(kind.shape[1], (self.idx + 1) * plane_bytes, dtype=np.int64)
+        flips = codec.check_abandon_planes(stored, uncomp, threshold)
+        kind[j:, flips] = RAW
+        size[j:, flips] = plane_bytes
+        self.planes |= flips
 
 
 @dataclass
 class Batch:
-    """One batch's decisions ([k, num_buf] arrays from :func:`decide`, the
-    RLE bytes ``b0``) and the bytes fetched for its cells: ``blob`` holds
-    each plane's Huffman streams from ``huf_off[plane]``, then the raw
-    cells from ``raw_off`` in ``raw_idx`` order."""
+    """One batch's decisions ([k, num_buf] ``kind``, ``size``, the RLE
+    bytes ``b0``, the header index ``hid`` of each Huffman cell into
+    ``headers``, its stream bytes ``sbytes`` [k, num_buf, 4]) and the bytes
+    fetched for its cells: cell (c, b)'s Huffman streams or raw bytes from
+    ``blob[boff[c, b]]``."""
 
     lo: int
     kind: np.ndarray
     size: np.ndarray
-    sbytes: np.ndarray
     b0: np.ndarray
+    hid: np.ndarray
+    headers: list
+    sbytes: np.ndarray
+    boff: np.ndarray
     blob: np.ndarray
-    huf_off: Dict[int, int]
-    raw_off: int
-    raw_idx: np.ndarray
 
 
-def encode_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
-                 bit_reorder: int, tables: Dict[int, torch.Tensor], hlen, threshold,
-                 clock: Dict) -> Batch:
-    """Pass 2 on chunks [lo, hi): split, K8, K7, the decisions, and the
-    fetch of the bytes the container needs."""
+def fetch(src: Source, planes: torch.Tensor, kind: np.ndarray, cand: np.ndarray,
+          sb: np.ndarray, groups: List[torch.Tensor]):
+    """The bytes the container needs, in one device-to-host copy: the
+    Huffman cells' streams, then the raw cells.  ``groups`` hold K7's rows
+    of the ``cand`` cells in order (4 rows a cell).  Returns (blob, boff
+    [k, num_buf])."""
     dev = src.device
+    k, nb = kind.shape
+    pb = planes.shape[-1] * 4
+    flat_kind = kind.reshape(-1)
+    boff = np.zeros(k * nb, dtype=np.int64)
+    parts, pos, start = [], 0, 0
+    for rows in groups:
+        m = rows.shape[0] // 4
+        sel = np.nonzero(flat_kind[cand[start : start + m]] == HUF)[0]
+        if sel.size:
+            s = sb[start + sel]
+            width = int(s.max())
+            pick = src.put((sel[:, None] * 4 + np.arange(4)).reshape(-1))
+            got = rows.view(torch.uint8)[:, :width].index_select(0, pick)
+            keep = torch.arange(width, device=dev) < src.put(s.reshape(-1))[:, None]
+            parts.append(got[keep])
+            tot = s.sum(axis=1)
+            boff[cand[start + sel]] = pos + np.cumsum(tot) - tot
+            pos += int(tot.sum())
+        start += m
+    raw = np.nonzero(flat_kind == RAW)[0]
+    if raw.size:
+        parts.append(planes.reshape(k * nb, -1)[src.put(raw)].reshape(-1).view(torch.uint8))
+        boff[raw] = pos + np.arange(raw.size) * pb
+    blob = src.get(torch.cat(parts)) if parts else np.zeros(0, np.uint8)
+    return blob, boff.reshape(k, nb)
+
+
+def _batch(lo, kind, size, b0, cand, sb, hid, headers, blob, boff) -> Batch:
+    k, nb = kind.shape
+    hidk = np.full(k * nb, -1, dtype=np.int64)
+    hidk[cand] = hid
+    sbk = np.zeros((k * nb, 4), dtype=np.int64)
+    sbk[cand] = sb
+    return Batch(lo, kind, size, b0, hidk.reshape(k, nb), headers, sbk.reshape(k, nb, 4),
+                 boff, blob)
+
+
+def _split(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
+           bit_reorder: int, clock: Dict):
+    words = src.batch(lo, hi)
+    t = time.perf_counter()
+    planes = transforms.split_device(words, g.num_buf, byte_reorder, bit_reorder)
+    return planes, _tick(clock, "split_s", t, src.device)
+
+
+def _streams(cells: torch.Tensor, pw: int) -> torch.Tensor:
+    """Word offsets of the 4 streams of each cell (a flat index into the
+    [k * num_buf, pw] plane rows)."""
+    quarter = torch.arange(4, dtype=torch.int64, device=cells.device) * (pw // 4)
+    return (cells[:, None] * pw + quarter).reshape(-1)
+
+
+def encode_shared_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
+                        bit_reorder: int, tables: Dict[int, torch.Tensor], headers,
+                        threshold, clock: Dict) -> Batch:
+    """Shared profile, pass 2 on chunks [lo, hi): split, K8, K7, the
+    decisions, and the fetch of the bytes the container needs."""
     nb, pw = g.num_buf, g.plane_bytes // 4
     k = hi - lo
-    words = src.batch(lo, hi)
-    t1 = time.perf_counter()
-    planes = transforms.split_device(words, nb, byte_reorder, bit_reorder)
-    _sync(dev)
-    t2 = time.perf_counter()
+    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock)
     flags = const_scan.const_scan_rows(planes.view(k * nb, pw))
-    cells = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * nb
-    quarter = torch.arange(4, dtype=torch.int64, device=dev) * (pw // 4)
-    rows, bits = {}, {}
+    chunks = np.arange(k, dtype=np.int64) * nb
+    cand = np.concatenate([chunks + b for b in tables] or [np.zeros(0, np.int64)])
+    rows, bits = [], []
     for b, table in tables.items():
-        streams = ((cells + b) * pw + quarter).reshape(-1)
-        rows[b], bits[b] = huf_enc.huf_shared_encode(planes, table, g.seg, streams)
-    _sync(dev)
-    t3 = time.perf_counter()
-    dec = torch.cat([flags] + list(bits.values())).cpu().numpy()
+        r, tb = huf_enc.huf_shared_encode(planes, table, g.seg,
+                                          _streams(src.put(chunks + b), pw))
+        rows.append(r)
+        bits.append(tb)
+    t = _tick(clock, "kernels_s", t, src.device)
+    dec = src.get(torch.cat([flags] + bits))
     flags_h = dec[: k * nb].reshape(k, nb)
-    bits_h = {b: dec[k * nb + 4 * k * i : k * nb + 4 * k * (i + 1)].reshape(k, 4)
-              for i, b in enumerate(bits)}
-    kind, size, sbytes = decide(flags_h, bits_h, hlen, g.plane_bytes, threshold)
-
-    # the bytes the container needs: Huffman streams, then raw cells
-    parts, huf_off, pos = [], {}, 0
-    for b, r in rows.items():
-        cs = np.nonzero(kind[:, b] == HUF)[0]
-        if not cs.size:
-            continue
-        sb = sbytes[cs, b].reshape(-1)
-        width = int(sb.max())
-        sel = src.put((cs[:, None] * 4 + np.arange(4)).reshape(-1))
-        got = r.view(torch.uint8)[:, :width].index_select(0, sel)
-        keep = torch.arange(width, device=dev) < src.put(sb)[:, None]
-        parts.append(got[keep])
-        huf_off[b] = pos
-        pos += int(sb.sum())
-    raw_c, raw_b = np.nonzero(kind == RAW)
-    raw_idx = np.full((k, nb), -1, dtype=np.int64)
-    raw_idx[raw_c, raw_b] = np.arange(raw_c.size)
-    if raw_c.size:
-        pick = planes[src.put(raw_c), src.put(raw_b)]
-        parts.append(pick.reshape(-1).view(torch.uint8))
-    blob = (torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.uint8))
-    if dev.type == "cuda":
-        src.d2h += dec.nbytes + blob.nbytes
-    t4 = time.perf_counter()
-    for key, dt in (("split_s", t2 - t1), ("kernels_s", t3 - t2), ("fetch_s", t4 - t3)):
-        clock[key] = clock.get(key, 0.0) + dt
-    return Batch(lo, kind, size, sbytes, (flags_h & 0xFF).astype(np.uint8), blob,
-                 huf_off, pos, raw_idx)
+    hid = np.repeat(np.asarray(list(tables), dtype=np.int64), k)
+    hlen = np.asarray([0 if h is None else len(h) for h in headers], dtype=np.int64)
+    kind, size, sb = decide((flags_h >> 8).astype(bool), cand, dec[k * nb :], hlen[hid],
+                            g.plane_bytes, threshold)
+    blob, boff = fetch(src, planes, kind, cand, sb, rows)
+    _tick(clock, "fetch_s", t, src.device)
+    return _batch(lo, kind, size, (flags_h & 0xFF).astype(np.uint8), cand, sb, hid,
+                  headers, blob, boff)
 
 
-def splice(g: Geometry, batches: List[Batch], headers, tail_types, tail_sizes,
+def encode_pc_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
+                    bit_reorder: int, threshold, abandon: Abandon, clock: Dict) -> Batch:
+    """Per-chunk profile on chunks [lo, hi): split, the cell histograms
+    and their fetch, the host plan, K7 over the Huffman cells' streams, the
+    decisions and the threshold check, and the fetch of the bytes the
+    container needs."""
+    nb, pw = g.num_buf, g.plane_bytes // 4
+    k = hi - lo
+    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock)
+    counts = src.get(hist.hist_cells(planes.view(k * nb, pw)))
+    t = _tick(clock, "hist_s", t, src.device)
+    plan = plan_cells(counts.reshape(k, nb, 256).astype(np.int64), g.plane_bytes,
+                      abandon.planes)
+    t = _tick(clock, "plan_s", t, src.device)
+    rows, bits = [], np.zeros((0, 4), np.int32)
+    if plan.cand.size:
+        r, tb = huf_enc.huf_pc_encode(planes, src.put(plan.tables), g.seg,
+                                      _streams(src.put(plan.cand), pw))
+        rows = [r]
+        bits = src.get(tb)
+    t = _tick(clock, "kernels_s", t, src.device)
+    hlen = np.asarray([len(h) for h in plan.headers], dtype=np.int64)
+    kind, size, sb = decide(plan.rle, plan.cand, bits, hlen, g.plane_bytes, threshold)
+    abandon.apply(lo, kind, size, g.plane_bytes, threshold)
+    blob, boff = fetch(src, planes, kind, plan.cand, sb, rows)
+    _tick(clock, "fetch_s", t, src.device)
+    headers = [np.frombuffer(h, np.uint8) for h in plan.headers]
+    return _batch(lo, kind, size, plan.b0, plan.cand, sb,
+                  np.arange(plan.cand.size, dtype=np.int64), headers, blob, boff)
+
+
+def splice(g: Geometry, batches: List[Batch], tail_types, tail_sizes,
            tail_blobs) -> memoryview:
     """The container payload: chunk-type and cumulative-size tables, then
     each plane's cells in chunk order, batches at their global offsets
@@ -308,25 +490,23 @@ def splice(g: Geometry, batches: List[Batch], headers, tail_types, tail_sizes,
     for bt in batches:
         jump = bt.sbytes[:, :, :3].astype("<u2").view(np.uint8)  # [k, nb, 6]
         for b in range(nb):
-            hdr = headers[b]
-            hl = 0 if hdr is None else hdr.size
             o = int(plane_base[b] + starts[b, bt.lo])
-            h = bt.huf_off.get(b, 0)
             for c in range(bt.kind.shape[0]):
                 kd = bt.kind[c, b]
+                r = int(bt.boff[c, b])
                 if kd == RLE:
                     out[o] = bt.b0[c, b]
                     o += 1
                 elif kd == RAW:
-                    r = bt.raw_off + int(bt.raw_idx[c, b]) * pb
                     out[o : o + pb] = bt.blob[r : r + pb]
                     o += pb
                 else:
+                    hdr = bt.headers[bt.hid[c, b]]
+                    hl = hdr.size
                     m = int(bt.sbytes[c, b].sum())
                     out[o : o + hl] = hdr
                     out[o + hl : o + hl + 6] = jump[c, b]
-                    out[o + hl + 6 : o + hl + 6 + m] = bt.blob[h : h + m]
-                    h += m
+                    out[o + hl + 6 : o + hl + 6 + m] = bt.blob[r : r + m]
                     o += hl + 6 + m
     if tail_blobs is not None:
         for b in range(nb):
@@ -337,44 +517,63 @@ def splice(g: Geometry, batches: List[Batch], headers, tail_types, tail_sizes,
 
 def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
                      chunk_size: int, threshold: float = codec.DEFAULT_THRESHOLD,
+                     check_th_after_percent: int = 0, shared_tables: bool = False,
                      device="cuda") -> memoryview:
     """Compress ``data`` (a host uint8 array, or a uint8 tensor, read in
-    place on its CUDA device) into the shared-table payload on ``device``;
-    its bytes equal ``codec.compress_payload_numpy(...,
-    shared_tables=True)``'s."""
+    place on its CUDA device) into the payload of either profile on
+    ``device``; its bytes equal ``codec.compress_payload_numpy(...)``'s
+    for the same arguments (``check_th_after_percent`` applies to the
+    per-chunk profile only, as there)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is available")
     last_timings.clear()
-    last_timings["encoder"] = "huf_shared_encode"
+    last_timings["encoder"] = "huf_shared_encode" if shared_tables else "huf_pc_encode"
+    last_timings["kernels"] = SHARED_KERNELS if shared_tables else PC_KERNELS
     if isinstance(data, torch.Tensor):
         n = int(data.numel())
     else:
         data = np.frombuffer(memoryview(data), dtype=np.uint8)
         n = data.size
-    g = Geometry(n, num_buf, chunk_size)
+    g = Geometry(n, num_buf, chunk_size, shared_tables)
     src = Source(data, g, device)
-    t0, up0 = time.perf_counter(), src.upload_s
     tail_planes = None
     if src.tail.size:
         tail_planes = byte_group.split(src.tail, num_buf, byte_reorder, bit_reorder)
-    counts = sampled_counts(src, g, byte_reorder, bit_reorder, tail_planes)
-    shared, live = codec.shared_tables_from_counts(counts, threshold, g.stride)
-    # the sampled chunks' uploads (several batches of host input) count as upload
-    last_timings["hist_s"] = time.perf_counter() - t0 - (src.upload_s - up0)
-    headers = [None if t is None else np.frombuffer(t[2], np.uint8) for t in shared]
-    hlen = np.asarray([0 if h is None else h.size for h in headers], dtype=np.int64)
-    tables = {}
-    if 12 <= g.plane_bytes <= huf.HUF_BLOCKSIZE_MAX:  # else every cell is raw or RLE
-        for b in range(num_buf):
-            if live[b]:
-                lengths, vals, _, _ = shared[b]
-                tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
 
-    with kernels.recording() as events:
-        batches = [encode_batch(src, g, lo, hi, byte_reorder, bit_reorder, tables,
-                                hlen, threshold, last_timings) for lo, hi in g.batches]
-    last_timings["events"] = events
+    def run(one):
+        with kernels.recording() as events:
+            batches = [one(lo, hi) for lo, hi in g.batches]
+        last_timings["events"] = events
+        return batches
+
+    if shared_tables:
+        t0, up0 = time.perf_counter(), src.upload_s
+        counts = sampled_counts(src, g, byte_reorder, bit_reorder, tail_planes)
+        shared, live = codec.shared_tables_from_counts(counts, threshold, g.stride)
+        # the sampled chunks' uploads (several batches of host input) count as upload
+        last_timings["hist_s"] = time.perf_counter() - t0 - (src.upload_s - up0)
+        headers = [None if t is None else np.frombuffer(t[2], np.uint8) for t in shared]
+        tables = {}
+        if 12 <= g.plane_bytes <= huf.HUF_BLOCKSIZE_MAX:  # else every cell is raw or RLE
+            for b in range(num_buf):
+                if live[b]:
+                    lengths, vals, _, _ = shared[b]
+                    tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
+        batches = run(lambda lo, hi: encode_shared_batch(
+            src, g, lo, hi, byte_reorder, bit_reorder, tables, headers, threshold,
+            last_timings))
+
+        def tail_cell(b, plane):
+            return codec.compress_cell_shared(plane, shared[b] if live[b] else None)
+    else:
+        abandon = Abandon(g.n_chunks, check_th_after_percent, num_buf)
+        batches = run(lambda lo, hi: encode_pc_batch(
+            src, g, lo, hi, byte_reorder, bit_reorder, threshold, abandon, last_timings))
+
+        def tail_cell(b, plane):
+            return None if abandon.planes[b] else huf.compress(plane)
+
     t2 = time.perf_counter()
     tail_types = tail_sizes = tail_blobs = None
     if tail_planes is not None:
@@ -382,7 +581,7 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
         tail_sizes = np.zeros(num_buf, dtype=np.int64)
         tail_blobs = []
         for b, plane in enumerate(tail_planes):
-            comp = codec.compress_cell_shared(plane, shared[b] if live[b] else None)
+            comp = tail_cell(b, plane)
             if comp is not None and len(comp) < plane.size * threshold:
                 tail_types[b] = 1
                 blob = np.frombuffer(comp, np.uint8)
@@ -390,7 +589,7 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
                 blob = plane
             tail_sizes[b] = blob.size
             tail_blobs.append(blob)
-    payload = splice(g, batches, headers, tail_types, tail_sizes, tail_blobs)
+    payload = splice(g, batches, tail_types, tail_sizes, tail_blobs)
     last_timings["splice_s"] = time.perf_counter() - t2
     last_timings.update(upload_s=src.upload_s, upload_bytes=src.uploaded,
                         h2d_bytes=src.h2d, d2h_bytes=src.d2h, batches=len(batches))
@@ -398,8 +597,9 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
 
 
 def kernel_ms() -> Dict[str, float]:
-    """Device milliseconds of the last CUDA compress by kernel name (K8
-    and K7, summed over batches), from the events that ``kernels.launch``
-    recorded around each launch; synchronises on them."""
+    """Device milliseconds of the last CUDA compress by kernel name (the
+    profile's two kernels, summed over batches), from the events that
+    ``kernels.launch`` recorded around each launch; synchronises on
+    them."""
     return kernels.elapsed_ms(last_timings.get("events", []),
-                              ("const_scan_rows", "huf_shared_encode"))
+                              last_timings.get("kernels", SHARED_KERNELS))

@@ -1,11 +1,15 @@
-"""Shared-table Huffman encode: the table packing, the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Huffman encode of HUF streams: the table packing, the CUDA kernel's two
+entries' wrappers and their plain PyTorch versions.
 
-The counterpart of the JAX package's ``ops/pallas_huf_enc.py`` (K7).  The
-shared-table profile codes every cell of a byte plane with one table of
-at most 8-bit codes; the kernel (``csrc/huf_enc.cu``) encodes one HUF
-stream per warp (one per lane for short streams, ``streams_per_warp``),
-with the table in shared memory.  Each stream's bytes equal
+* ``huf_shared_encode``, the counterpart of the JAX package's
+  ``ops/pallas_huf_enc.py`` (K7): the shared-table profile codes every
+  cell of a byte plane with one table of at most 8-bit codes.
+* ``huf_pc_encode``, the counterpart of ``jax_entropy.encode_streams``
+  (XLA device code of the per-chunk encode, not a Pallas kernel): codes of
+  at most 12 bits, each cell with its own table.
+
+The kernel (``csrc/huf_enc.cu``) encodes one HUF stream per warp (one per
+lane for short streams, ``streams_per_warp``).  Each stream's bytes equal
 ``huf.encode_stream`` on the same symbols: symbols in descending index
 order, LSB-first codes, a closing sentinel bit, zero padding.
 """
@@ -18,7 +22,8 @@ import torch
 
 from . import kernels
 
-TMAX = 8  # the longest code one 256-entry table holds
+TMAX = 8  # the longest code of a shared table
+PC_TMAX = 12  # the longest code of a per-chunk table (HUF_TABLELOG_MAX)
 _M32 = 0xFFFFFFFF
 # a launch of streams of fewer symbols encodes one stream per lane
 # (``streams_per_warp``; the crossover measured by time_kernels.py)
@@ -44,9 +49,53 @@ def pack_etable(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return (vals | (lengths << 8)).astype(np.int16)
 
 
-def row_words(seg: int) -> int:
-    """Words of one output row: 8 bits per symbol plus the sentinel."""
-    return seg // 4 + 1
+def pack_pc_table(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """A per-chunk cell's 256 entries ``val | nb << 12``: uint16 values
+    held in int16 (the kernel reads them as uint16; ``val`` masked to its
+    ``nb`` bits).  Raises ValueError for a code longer than 12 bits."""
+    lengths = np.asarray(lengths, dtype=np.int64)[:256]
+    if int(lengths.max()) > PC_TMAX:
+        raise ValueError("per-chunk encode table must have <=12-bit codes")
+    vals = np.asarray(vals, dtype=np.int64)[:256] & ((1 << lengths) - 1)
+    return (vals | (lengths << 12)).astype(np.uint16).view(np.int16)
+
+
+def row_words(seg: int, code_bits: int = TMAX) -> int:
+    """Words of one output row: ``code_bits`` per symbol plus the
+    sentinel."""
+    return (code_bits * seg + 1 + 31) // 32
+
+
+def _check(name, planes, tables, seg, streams):
+    dev = planes.device
+    for what, t, dt in (("planes", planes, torch.int32), ("table", tables, torch.int16),
+                        ("streams", streams, torch.int64)):
+        if t.device != dev:
+            raise ValueError(f"{name}: {what} on {t.device}, planes on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {what} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if streams.dim() != 1:
+        raise ValueError(f"{name}: streams must be 1-D")
+    if seg % 4 or not 0 <= seg < 1 << 27:
+        raise ValueError(f"{name}: seg {seg} must be a multiple of 4 below 2^27")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _launch(name, planes, tables, seg, streams, code_bits):
+    dev = planes.device
+    S = int(streams.numel())
+    rw = row_words(seg, code_bits)
+    rows = torch.empty((S, rw), dtype=torch.int32, device=dev)
+    total_bits = torch.empty(S, dtype=torch.int32, device=dev)
+    if S:
+        kernels.launch(
+            name, dev, planes.data_ptr(), streams.data_ptr(), tables.data_ptr(), S,
+            seg // 4, rw, streams_per_warp(seg), rows.data_ptr(), total_bits.data_ptr(),
+        )
+    return rows, total_bits
 
 
 def huf_shared_encode(
@@ -65,61 +114,72 @@ def huf_shared_encode(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    dev = planes.device
-    for name, t, dt in (("planes", planes, torch.int32), ("table", table, torch.int16),
-                        ("streams", streams, torch.int64)):
-        if t.device != dev:
-            raise ValueError(f"huf_shared_encode: {name} on {t.device}, planes on {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"huf_shared_encode: {name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"huf_shared_encode: {name} must be contiguous")
+    _check("huf_shared_encode", planes, table, seg, streams)
     if table.shape != (256,):
         raise ValueError(f"huf_shared_encode: table shape {tuple(table.shape)} != (256,)")
-    if streams.dim() != 1:
-        raise ValueError("huf_shared_encode: streams must be 1-D")
-    if seg % 4 or not 0 <= seg < 1 << 27:
-        raise ValueError(f"huf_shared_encode: seg {seg} must be a multiple of 4 "
-                         f"below 2^27")
-    if dev.type == "cpu":
+    if planes.device.type == "cpu":
         return huf_shared_encode_plain(planes, table, seg, streams)
-    if dev.type != "cuda":
-        raise ValueError(f"huf_shared_encode: unsupported device {dev}")
-    S = int(streams.numel())
-    rw = row_words(seg)
-    rows = torch.empty((S, rw), dtype=torch.int32, device=dev)
-    total_bits = torch.empty(S, dtype=torch.int32, device=dev)
-    if S:
-        kernels.launch(
-            "huf_shared_encode", dev, planes.data_ptr(), streams.data_ptr(),
-            table.data_ptr(), S, seg // 4, rw, streams_per_warp(seg), rows.data_ptr(),
-            total_bits.data_ptr(),
-        )
-    return rows, total_bits
+    return _launch("huf_shared_encode", planes, table, seg, streams, TMAX)
+
+
+def huf_pc_encode(
+    planes: torch.Tensor, tables: torch.Tensor, seg: int, streams: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode S = 4 T streams of ``seg`` symbols, stream ``s`` with table
+    ``s // 4`` of ``tables`` ([T, 256] int16, :func:`pack_pc_table`'s
+    entries: the 4 streams of each cell in turn).
+
+    ``planes`` and ``streams`` as in :func:`huf_shared_encode`.  Returns
+    (rows int32 [S, ceil((12 seg + 1) / 32)], total_bits int32 [S]), read
+    as :func:`huf_shared_encode`'s.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    _check("huf_pc_encode", planes, tables, seg, streams)
+    if tables.dim() != 2 or tables.shape[1] != 256 or 4 * tables.shape[0] != streams.numel():
+        raise ValueError(f"huf_pc_encode: tables {tuple(tables.shape)} for "
+                         f"{streams.numel()} streams, want [S / 4, 256]")
+    if planes.device.type == "cpu":
+        return huf_pc_encode_plain(planes, tables, seg, streams)
+    return _launch("huf_pc_encode", planes, tables, seg, streams, PC_TMAX)
 
 
 def huf_shared_encode_plain(planes, table, seg: int, streams):
-    """Plain PyTorch version of :func:`huf_shared_encode`, vectorised over
-    streams: every code's bit offset is an exclusive prefix sum of the code
-    lengths, and its value lands in the one or two words it spans (codes
-    never overlap, so adding the parts is or-ing them)."""
+    """Plain PyTorch version of :func:`huf_shared_encode`."""
+    tab = table.to(torch.int64)
+    return _encode_plain(planes, lambda syms: tab[syms], seg, streams, TMAX)
+
+
+def huf_pc_encode_plain(planes, tables, seg: int, streams):
+    """Plain PyTorch version of :func:`huf_pc_encode`: the shared plain
+    version with each stream's symbols looked up in its cell's table."""
+    tab = tables.to(torch.int64) & 0xFFFF
+    cell = torch.arange(int(streams.numel()), device=planes.device)[:, None] // 4
+    return _encode_plain(planes, lambda syms: tab[cell, syms], seg, streams, PC_TMAX)
+
+
+def _encode_plain(planes, lookup, seg: int, streams, code_bits: int):
+    """Vectorised over streams: ``lookup`` maps the [S, seg] symbols to
+    their entries; every code's bit offset is an exclusive prefix sum of
+    the code lengths, and its value lands in the one or two words it spans
+    (codes never overlap, so adding the parts is or-ing them)."""
     dev = planes.device
     S = int(streams.numel())
-    rw = row_words(seg)
+    rw = row_words(seg, code_bits)
     idx = streams[:, None] + torch.arange(seg // 4, device=dev)
     words = planes.reshape(-1)[idx]  # [S, seg / 4]
     syms = words.contiguous().view(torch.uint8).reshape(S, seg).flip(1)
-    ent = table.to(torch.int64)[syms.to(torch.int64)]
-    nb = ent >> 8
-    val = ent & 0xFF
+    ent = lookup(syms.to(torch.int64))
+    nb = ent >> code_bits
+    val = ent & ((1 << code_bits) - 1)
     end = nb.cumsum(1)
     pos = end - nb
-    code_bits = end[:, -1] if seg else torch.zeros(S, dtype=torch.int64, device=dev)
+    code_bits_s = end[:, -1] if seg else torch.zeros(S, dtype=torch.int64, device=dev)
     bad = (nb == 0).any(1).to(torch.int64)
     acc = torch.zeros((S, rw + 1), dtype=torch.int64, device=dev)
     shifted = val << (pos & 31)
     acc.scatter_add_(1, pos >> 5, shifted & _M32)
     acc.scatter_add_(1, (pos >> 5) + 1, shifted >> 32)
-    acc.scatter_add_(1, (code_bits >> 5)[:, None], (1 << (code_bits & 31))[:, None])
+    acc.scatter_add_(1, (code_bits_s >> 5)[:, None], (1 << (code_bits_s & 31))[:, None])
     rows = acc[:, :rw].to(torch.int32).contiguous()
-    return rows, ((code_bits + 1) | (bad << 30)).to(torch.int32)
+    return rows, ((code_bits_s + 1) | (bad << 30)).to(torch.int32)

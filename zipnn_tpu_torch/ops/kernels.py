@@ -35,7 +35,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 launches: Dict[str, int] = {
     "huf_pc_decode": 0, "huf_shared_decode": 0, "combine_cells": 0,
-    "huf_shared_encode": 0, "const_scan_rows": 0,
+    "huf_shared_encode": 0, "const_scan_rows": 0, "hist_cells": 0, "huf_pc_encode": 0,
 }
 
 # the event list of the innermost ``recording()`` block of this thread
@@ -61,8 +61,13 @@ _SIGNATURES = {
     # planes, streams, table, n_streams, seg_words, row_words, group, rows,
     # total_bits, stream
     "huf_shared_encode": [_P] * 3 + [_I, _I, _I, _I, _P, _P, _P],
+    # planes, streams, tables, n_streams, seg_words, row_words, group, rows,
+    # total_bits, stream
+    "huf_pc_encode": [_P] * 3 + [_I, _I, _I, _I, _P, _P, _P],
     # rows, n_rows, width, out, stream
     "const_scan_rows": [_P, _L, _L, _P, _P],
+    # rows, n_rows, width, out, stream
+    "hist_cells": [_P, _L, _L, _P, _P],
 }
 
 

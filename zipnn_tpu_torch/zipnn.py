@@ -8,13 +8,12 @@ an explicit ``device``:
 * ``engine="cuda"`` (default) decompresses through the CUDA kernels onto
   ``device`` (the card unless the caller passes ``device="cpu"``, where
   the kernels' plain versions run); ``engine="numpy"`` runs the golden
-  model on the host.  With ``huffman_table="shared"``, ``engine="cuda"``
-  also compresses on ``device`` (``ops.encode``: the split, histogram, RLE
-  scan and Huffman encode of every full chunk run there), byte-identical
-  to the golden encoder; a torch input already on the card is read in
-  place.  The per-chunk profile compresses with the golden encoder on the
-  host in both engines (the JAX package encodes it in XLA, with no Pallas
-  kernel; ROADMAP M6b).
+  model on the host.  ``engine="cuda"`` also compresses on ``device``,
+  either profile (``ops.encode``: the split, histogram and Huffman encode
+  of every full chunk run there), byte-identical to the golden encoder; a
+  torch input already on the card is read in place.  Chunks whose planes
+  are shorter than a 4-byte word compress with the golden encoder
+  (``codec.device_encodes``).
 * ``input_format="torch"`` returns a tensor on ``device`` (on the host
   with ``engine="numpy"``); ``"byte"`` and ``"numpy"`` return host data.
 * ``huffman_table="per_chunk"`` (default, the reference library's
@@ -118,7 +117,7 @@ class ZipNN:
         if fmt == EnumFormat.TORCH.value:
             info = dtypes.from_any(data.dtype)
             t = data.detach().contiguous().reshape(-1)
-            if not codec.device_encodes(self.engine, self.huffman_table == "shared"):
+            if not (info.is_float and self._device_encodes(info.code)):
                 t = t.cpu()  # only the device encoder reads a CUDA tensor in place
             # an empty tensor may carry stride 0, which a dtype view refuses
             t = t.view(torch.uint8) if t.numel() else t.new_empty(0, dtype=torch.uint8)
@@ -126,6 +125,11 @@ class ZipNN:
         info = dtypes.from_any(data.dtype)
         arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
         return info.code, data.shape, arr
+
+    def _device_encodes(self, code: int) -> bool:
+        num_buf = dtypes.grouping_for_code(code).num_buf
+        chunk = codec.effective_chunk(self.compression_chunk, num_buf)
+        return codec.device_encodes(self.engine, chunk, num_buf)
 
     def compress(self, data):
         """Compress ``data`` (bytes / torch.Tensor / np.ndarray) into one
