@@ -4,10 +4,11 @@ Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--mib 512]
 
-It needs a CUDA device and ``nvcc`` (it builds the kernels from
-``zipnn_tpu_torch/csrc/*.cu``) and no network.  Phases:
+It needs a CUDA device, ``nvcc`` (it builds the kernels from
+``zipnn_tpu_torch/csrc/*.cu``), ``g++`` (it builds the native host core
+from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
 
-1. build the kernels;
+1. build the kernels and, at the same time, the native host core;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of its path's first batch (bit-exact): ``huf_pc_decode`` on the
    bf16 and fp32 paths, ``huf_shared_decode`` on the shared-table path
@@ -18,7 +19,13 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    ``huf_pc_encode`` on the bf16 per-chunk encode path (with the host plan
    of its cells between them, timed), and ``combine_cells`` once more at
    1 plane (8 MiB of fp8 at 64 KB chunks) and at 256 B chunks of bf16
-   (1 MiB) into an output 4 bytes past a 16-byte boundary;
+   (1 MiB) into an output 4 bytes past a 16-byte boundary; and the native
+   host core against the plain Python it replaces on the card's paths:
+   ``native.build_ctables`` against ``encode.cell_table`` on every
+   Huffman cell of the bf16 per-chunk encode's first batch, the native
+   weight-header parse against the Python one on the bf16 per-chunk
+   container, and the native splice against the Python one on the bf16
+   per-chunk encode's batches (each timed);
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
@@ -26,10 +33,12 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
    encode the same four inputs on the card, from host and CUDA tensors,
    byte-equal to the golden containers and decoded back bit-exact, in
    both profiles (the default per-chunk one through ``hist_cells`` and
-   ``huf_pc_encode``); chunks of 1 and 2 bytes of every dtype and profile
-   decoded on the card (``combine_cells`` byte by byte), and the shared
-   encode of every chunk size whose planes are under one word (the golden
-   encoder, by ``codec.device_encodes``); and a
+   ``huf_pc_encode``), and by engine ``"native"`` (both profiles, decoded
+   back); chunks of 1 and 2 bytes of every dtype and profile
+   decoded on the card (``combine_cells`` byte by byte), and the encode of
+   every chunk size whose planes are under one word, both profiles, from
+   a CUDA tensor on the card (the sub-word route: none of the input
+   uploaded), byte-equal to the golden encoder; and a
    bf16 input of 520 small chunks (stride 8) with an uncodeable cell (a
    non-sampled chunk holding an exponent byte no sampled chunk has: it
    must store raw) and a constant cell on the hopeless plane (RLE),
@@ -71,17 +80,20 @@ It needs a CUDA device and ``nvcc`` (it builds the kernels from
 
 Each encode path prints its phase times (split, histogram, plan, kernels,
 fetch, splice) and end-to-end GB/s beside the golden encoder's seconds.  It
-prints a ``kernels`` JSON line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.  Any failure raises, so
+prints a ``kernels`` JSON line, the card's name and power limit and the
+host CPU's model (the plan and splice are host timings), and as its last
+line ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the exit code is not 0 and no result line is printed.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -166,8 +178,8 @@ def compressed(cache_dir: Path, tag: str, x: torch.Tensor, profile: str) -> byte
         comp = cache.read_bytes()
         how = f"read from {cache.name}"
     else:
-        comp = ZipNN(input_format="torch", engine="numpy",
-                     huffman_table=profile).compress(x)
+        comp = bytes(ZipNN(input_format="torch", engine="numpy",
+                           huffman_table=profile).compress(x))
         cache.parent.mkdir(parents=True, exist_ok=True)
         cache.write_bytes(comp)
         GOLDEN_S[(tag, profile)] = time.perf_counter() - t0
@@ -488,7 +500,83 @@ def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
     k7 = {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0,
           "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
     return hk, k7, {"rows": rows, "planes": planes, "tables": tables,
-                    "streams": streams, "seg": g.seg}
+                    "streams": streams, "seg": g.seg,
+                    "counts": h_k.cpu().numpy().reshape(k, nb, 256), "n": g.plane_bytes}
+
+
+def hold_native(batch: dict, x_cpu: torch.Tensor, container: bytes, dev) -> None:
+    """The native host core against the plain Python it replaces, on the
+    bf16 per-chunk paths: ``native.build_ctables`` against
+    ``encode.cell_table`` on every cell of the encode's first batch that
+    passes the cheap checks (status, header bytes, packed entries); the
+    native weight-header parse (``huf_pc.cell_tables``) against the Python
+    one on every Huffman cell of ``container``; the native splice against
+    the Python one on the batches of a per-chunk encode of ``x_cpu`` from
+    the card, whose container must equal ``container``.  Each timed on the
+    host."""
+    from zipnn_tpu_torch import ZipNN, native  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, encode, huf_enc, huf_pc  # noqa: PLC0415
+
+    counts, n = batch["counts"], batch["n"]
+    flat = counts.reshape(-1, 256)
+    largest = flat.max(axis=1)
+    coded = flat[(largest < n) & (largest > (n >> 7) + 4)]
+    got, nat_ms = host_ms(lambda: native.build_ctables(coded, n))
+    status, lengths, vals, headers, hlens = got
+    want, plain_ms = host_ms(lambda: [encode.cell_table(c, n) for c in coded])
+    for i, w in enumerate(want):
+        check(bool(status[i]) == (w is not None), f"build_ctables status, cell {i}")
+        if w is not None:
+            check(bytes(headers[i, : hlens[i]]) == w[0], f"build_ctables header, cell {i}")
+            check(np.array_equal(huf_enc.pack_pc_table(vals[i], lengths[i]), w[1]),
+                  f"build_ctables table, cell {i}")
+    log(f"[native] build_ctables: {coded.shape[0]} cells of {n} B ({int(status.sum())} "
+        f"Huffman) in {nat_ms:.2f} ms, cell_table (Python) {plain_ms:.1f} ms: equal")
+
+    seen = []
+    parse = huf_pc.cell_tables
+
+    def spy(hdrs):
+        seen.append(list(hdrs))
+        return parse(hdrs)
+
+    z = ZipNN(engine="cuda")
+    after = z._retrieve_header(memoryview(container))
+    huf_pc.cell_tables = spy
+    try:
+        decode.build_plan(memoryview(container)[after:], 2, z._bit_reorder, z._byte_reorder,
+                          z.compression_chunk, z.original_len)
+    finally:
+        huf_pc.cell_tables = parse
+    hdrs = seen[0]
+    (t_n, l_n, k_n), nat_ms = host_ms(lambda: huf_pc.cell_tables(hdrs))
+    (t_p, l_p, k_p), plain_ms = host_ms(lambda: huf_pc.cell_tables_plain(hdrs))
+    check(k_n == k_p and np.array_equal(t_n, t_p) and np.array_equal(l_n, l_p),
+          "native header parse != Python")
+    log(f"[native] header parse: {len(hdrs)} weight headers ({len(set(hdrs))} distinct) in "
+        f"{nat_ms:.2f} ms, Python {plain_ms:.1f} ms: equal tables")
+
+    captured = []
+    splice = encode.splice
+
+    def keep(g, batches, tail, prefix_len=0):
+        captured.append((g, batches, tail, prefix_len))
+        return splice(g, batches, tail, prefix_len)
+
+    encode.splice = keep
+    try:
+        got = ZipNN(input_format="torch", engine="cuda").compress(x_cpu.to(dev))
+    finally:
+        encode.splice = splice
+    check(bytes(got) == container, "per-chunk encode with the captured splice != golden")
+    del got
+    args = captured[0]
+    out_n, nat_ms = host_ms(lambda: encode.splice(*args))
+    out_p, plain_ms = host_ms(lambda: encode.splice_plain(*args))
+    pre = args[3]
+    check(np.array_equal(out_n[pre:], out_p[pre:]), "native splice != Python splice")
+    log(f"[native] splice: {len(args[1])} batches, {out_n.size - pre} bytes in {nat_ms:.1f} ms, "
+        f"Python {plain_ms:.1f} ms: equal")
 
 
 def encode_small(x: torch.Tensor, want: bytes, label: str, **kw) -> None:
@@ -564,10 +652,11 @@ def small_chunk_case(seed: int) -> None:
 def sub_word_case(seed: int) -> None:
     """Chunks of 1 and 2 bytes: every dtype's container in both profiles
     (the golden encoder's) decodes on the card bit-exact, ``combine_cells``
-    filling them byte by byte; and the shared encode of every chunk size
-    whose planes are under one word (bf16 and fp16 up to 4 bytes, fp32 up
-    to 8, fp8 up to 2) takes the golden encoder from a CUDA tensor,
-    byte-equal to it."""
+    filling them byte by byte; and the encode of every chunk size whose
+    planes are under one word (bf16 and fp16 up to 4 bytes, fp32 up to 8,
+    fp8 up to 2), both profiles, runs on the card from a CUDA tensor (the
+    sub-word route, none of the input uploaded), byte-equal to the golden
+    encoder."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.ops import encode, kernels  # noqa: PLC0415
 
@@ -584,13 +673,15 @@ def sub_word_case(seed: int) -> None:
                     check(kernels.launches["combine_cells"] > 0, f"{dt} {chunk} B: no K2")
                     check(torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8)),
                           f"{dt} at {chunk} B chunks ({profile}) decoded on the card")
-                if profile == "shared":
-                    got = bytes(ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
-                                      huffman_table=profile).compress(x.to("cuda")))
-                    check(encode.last_timings["encoder"] == "golden", f"{dt} {chunk} B encoder")
-                    check(got == want, f"{dt} shared encode at {chunk} B chunks != golden")
+                got = bytes(ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
+                                  huffman_table=profile).compress(x.to("cuda")))
+                t = encode.last_timings
+                check(t["encoder"] == "sub_word", f"{dt} {chunk} B encoder {t['encoder']}")
+                check(t["upload_bytes"] == 0, f"{dt} {chunk} B: {t['upload_bytes']} bytes uploaded")
+                check(got == want, f"{dt} {profile} encode at {chunk} B chunks != golden")
         log(f"[sub-word] {dt}: chunks of 1 and 2 B decoded on the card (both profiles); "
-            f"shared encode at chunks up to {top} B == golden (golden encoder)")
+            f"encode at chunks up to {top} B on the card (sub-word route, nothing uploaded), "
+            f"both profiles == golden")
 
 
 def encode_path(label, x_cpu, want: bytes, golden_s, smi):
@@ -680,6 +771,25 @@ def pc_encode_path(label, x_cpu, want: bytes, golden_s, smi):
     return launches
 
 
+def cpu_model() -> str:
+    """The host CPU's model (``lscpu``'s "Model name", else
+    ``/proc/cpuinfo``'s "model name"), with its core count: the plan and
+    splice are host timings."""
+    lines = []
+    try:
+        lines = subprocess.run(["lscpu"], capture_output=True, text=True,
+                               check=False).stdout.splitlines()
+    except OSError:
+        pass
+    try:
+        lines += Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        pass
+    model = next((ln.split(":", 1)[1].strip() for ln in lines
+                  if ln.strip().lower().startswith("model name")), "unknown")
+    return f"{model} ({os.cpu_count()} cores)"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -699,12 +809,21 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     ).stdout.strip()
+    host_cpu = cpu_model()
+    log(f"host CPU: {host_cpu}")
 
     # ---- 1. build -------------------------------------------------------
+    from zipnn_tpu_torch import native  # noqa: PLC0415
+
     t0 = time.perf_counter()
-    kernels.lib()
-    log(f"[build] {len(kernels._sources())} kernel sources built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(1) as pool:
+        core = pool.submit(native.lib)  # g++ beside the nvcc processes
+        kernels.lib()
+        core.result()
+    log(f"[build] {len(kernels._sources())} kernel sources and the native host core built "
+        f"and loaded in {time.perf_counter() - t0:.2f} s (g++ "
+        + ("not run: built before" if native.build_seconds is None
+           else f"{native.build_seconds:.2f} s") + f", {native.build().name})")
     for line in kernels.build_log().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log("[build]", line.strip())
@@ -757,7 +876,9 @@ def main() -> int:
         dv.k6_args(lo, hi), 512)
     del dv
     rows["k8"], rows["k7"] = hold_encode_kernels(x_bf16, dev)
-    rows["hist"], rows["k7pc"], _ = hold_pc_encode_kernels(x_bf16, dev)
+    rows["hist"], rows["k7pc"], batch = hold_pc_encode_kernels(x_bf16, dev)
+    hold_native(batch, x_bf16, c_bf16, dev)
+    del batch
     torch.cuda.empty_cache()
     # K2 at one plane (fp8, 64 KB chunks) and into an out that is 4- but not
     # 16-byte aligned at 256 B chunks (every word by the per-word path)
@@ -789,10 +910,18 @@ def main() -> int:
         encode_small(x, bytes(comp), f"shared {dt}")
         pc = bytes(ZipNN(input_format="torch", engine="numpy").compress(x))
         encode_small(x, pc, f"per-chunk {dt}", huffman_table="per_chunk")
+        for profile, want in (("shared", bytes(comp)), ("per_chunk", pc)):
+            got = bytes(ZipNN(input_format="torch", engine="native",
+                              huffman_table=profile).compress(x))
+            check(got == want, f"engine native {profile} {dt} != golden")
+            y = ZipNN(input_format="torch", engine="native").decompress(got)
+            check(torch.equal(y.view(torch.uint8), x.view(torch.uint8)),
+                  f"engine native {profile} {dt} does not decode back")
         log(f"[fixtures] shared-table {dt} {SMALL_MIB} MiB (ratio "
             f"{len(comp) / (SMALL_MIB << 20):.4f}): bit-exact; encoded on the card "
             f"(host and CUDA tensor) == golden, decoded back bit-exact; per-chunk "
-            f"(ratio {len(pc) / (SMALL_MIB << 20):.4f}) encoded on the card == golden")
+            f"(ratio {len(pc) / (SMALL_MIB << 20):.4f}) encoded on the card == golden; "
+            f"engine native, both profiles, == golden and decoded back")
     uncodeable_case(args.seed + 7)
     small_chunk_case(args.seed + 8)
     sub_word_case(args.seed + 11)
@@ -892,6 +1021,7 @@ def main() -> int:
             f"{r['ms']:.3f} ms vs bound {r['bound_ms']:.4f} ms, plain match; "
             f"replaces {r['replaces']}")
     log(json.dumps({"kernels": out}))
+    log(f"host CPU: {host_cpu}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec
+from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec, native
 from zipnn_tpu_torch.ops import (
     combine, const_scan, decode, encode, hist, huf_enc, huf_pc, huf_shared, huf_sync, kernels,
     transforms,
@@ -660,14 +660,48 @@ def test_pc_encode_on_card_matches_golden(card, dtype):
 @pytest.mark.parametrize("chunk", [1, 2])
 def test_sub_word_chunks_on_card(card, chunk):
     """Chunks of 1 and 2 bytes decode on the card (K2 byte by byte), bf16
-    and fp32, both profiles; their encode takes the golden encoder."""
+    and fp32, both profiles; they encode on the card too (the sub-word
+    route), read in place from the CUDA tensor, equal to the golden
+    encoder's container."""
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.from_numpy(_raw(dtype, 1000, seed=chunk).copy()).view(dtype)
         for profile in ("per_chunk", "shared"):
             comp = ZipNN(input_format="torch", engine="cuda", compression_chunk=chunk,
                          huffman_table=profile).compress(x.to(card))
-            assert encode.last_timings["encoder"] == "golden"
+            assert encode.last_timings["encoder"] == "sub_word"
+            assert encode.last_timings["upload_bytes"] == 0
+            assert bytes(comp) == bytes(ZipNN(input_format="torch", engine="numpy",
+                                              compression_chunk=chunk,
+                                              huffman_table=profile).compress(x))
             kernels.reset_launches()
             y = ZipNN(input_format="torch", engine="cuda").decompress(comp)
             assert kernels.launches["combine_cells"] == 1
             assert torch.equal(y.view(torch.uint8).cpu(), x.view(torch.uint8))
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_encode_on_card_takes_native_plan_and_splice(card, dtype, profile, monkeypatch):
+    """Both profiles' encode from a CUDA tensor in several batches: the
+    per-chunk tables come from ``native.build_ctables`` (one call a batch),
+    every batch is spliced by ``native.splice_cells``, and the container
+    equals the golden encoder's."""
+    calls = {"build_ctables": 0, "splice_cells": 0}
+    for name in calls:
+        fn = getattr(native, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(native, name, counted)
+    monkeypatch.setattr(encode, "batch_chunks", lambda cs, stride: 3 * stride)
+    raw = _raw(dtype, 30 * 4096 + 6, seed=21)
+    x = torch.from_numpy(raw.copy()).view(dtype)
+    kw = dict(input_format="torch", compression_chunk=4096, huffman_table=profile)
+    got = ZipNN(engine="cuda", **kw).compress(x.to(card))
+    assert bytes(got) == bytes(ZipNN(engine="numpy", **kw).compress(x))
+    batches = encode.last_timings["batches"]
+    assert batches >= 2 and encode.last_timings["upload_bytes"] == 0
+    assert calls["splice_cells"] == batches + 1  # and the tail
+    assert calls["build_ctables"] == (batches if profile == "per_chunk" else 0)

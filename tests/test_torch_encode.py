@@ -9,8 +9,8 @@ against the JAX package with tolerance 0:
   for byte: four dtypes at sampling stride 1 and 8, ragged tails on and
   off the stride, an uncodeable cell, an RLE cell on a hopeless plane, an
   all-constant input, inputs shorter than a chunk, and several batches;
-* chunks whose planes are under one word take the golden encoder, both
-  profiles;
+* chunks whose planes are under one word take the device encoder's
+  sub-word route, both profiles;
 * a container decodes back through the port's own ``engine="cuda"``
   decode.
 
@@ -200,11 +200,11 @@ def test_small_chunks_encode_on_device(dtype, chunk):
     assert got == _golden(x, chunk=chunk)
 
 
-def test_planes_below_a_word_raise():
-    """The device encoder itself refuses planes under one word; the codec
-    never hands it one (``test_planes_below_a_word_take_golden``)."""
-    with pytest.raises(ValueError, match="whole 4-byte words"):
-        encode.compress_payload(np.zeros(4096, np.uint8), 4, 1, 220, 8, device="cpu")
+def test_planes_neither_words_nor_short_raise():
+    """Planes that are not whole words and could be Huffman (12 bytes or
+    more: chunk sizes that are not a power of 2) are refused."""
+    with pytest.raises(ValueError, match="whole 4-byte words or planes under 12"):
+        encode.compress_payload(np.zeros(4096, np.uint8), 2, 1, 10, 100, device="cpu")
 
 
 # every chunk size whose planes are under one 4-byte word
@@ -215,14 +215,16 @@ SUB_WORD = [(dt, cs) for dt, top in ((torch.bfloat16, 4), (torch.float16, 4),
 
 @pytest.mark.parametrize("dtype,chunk", SUB_WORD,
                          ids=[f"{str(d).split('.')[-1]}-{c}" for d, c in SUB_WORD])
-def test_planes_below_a_word_take_golden(dtype, chunk):
-    """``engine="cuda"`` writes the golden container there, both profiles
-    (``codec.device_encodes``: ``chunk_size % (4 * num_buf)``), and says
-    so; the port decodes it back."""
+def test_planes_below_a_word_on_device(dtype, chunk):
+    """``engine="cuda"`` encodes there by the device encoder's sub-word
+    route, both profiles (the per-chunk one with its threshold check,
+    ``check_th_after_percent`` 10, abandoning planes), equal to the JAX
+    package's numpy engine; the port decodes it back."""
     x = _tensor(dtype, 301 * 4, seed=chunk)
+    x.view(torch.uint8)[40:200] = 7  # RLE cells
     for profile in ("shared", "per_chunk"):
         got = _port(x, chunk=chunk, huffman_table=profile)
-        assert encode.last_timings["encoder"] == "golden"
+        assert encode.last_timings["encoder"] == "sub_word"
         assert got == bytes(zipnn_tpu.ZipNN(
             input_format="torch", engine="numpy", huffman_table=profile,
             compression_chunk=chunk).compress(x)), profile
@@ -230,25 +232,47 @@ def test_planes_below_a_word_take_golden(dtype, chunk):
         assert torch.equal(y.view(torch.uint8), x.view(torch.uint8))
 
 
-def test_golden_routes_named(monkeypatch):
-    """The geometry alone routes a call: planes under one word take the
-    golden encoder on ``engine="cuda"``, never the device encoder, in
-    either profile; whole-word planes take the device encoder."""
-    def refuse(*a, **kw):
-        raise AssertionError("a sub-word geometry reached the device encoder")
+@pytest.mark.parametrize("threshold", [0.5, 0.95, 1.5])
+def test_sub_word_route_thresholds(threshold):
+    """The sub-word route's decisions at every plane layout: a 2-byte RLE
+    cell stores raw at threshold 0.5, a 1-byte one RLE at 1.5, and the
+    per-chunk threshold check abandons planes (``check_th_after_percent``
+    0, 10, 50), equal to the golden encoder."""
+    rng = np.random.default_rng(int(threshold * 10))
+    data = rng.integers(0, 3, 3001, dtype=np.uint8)
+    data[500:900] = 5
+    for nb, bo, br, chunk in ((2, 1, 10, 4), (2, 1, 10, 2), (2, 0, 10, 1), (4, 1, 220, 8),
+                              (4, 1, 220, 4), (4, 0, 220, 2), (1, 0, 10, 2), (1, 0, 10, 1)):
+        for pct in (0, 10, 50):
+            for shared in (False, True):
+                got = codec.compress_payload(data, nb, bo, br, chunk, threshold, engine="cuda",
+                                             device="cpu", check_th_after_percent=pct,
+                                             shared_tables=shared)
+                assert encode.last_timings["encoder"] == "sub_word"
+                assert bytes(got) == ref_codec.compress_payload_numpy(
+                    data, nb, bo, br, chunk, threshold, check_th_after_percent=pct,
+                    shared_tables=shared), (nb, chunk, pct, shared)
 
-    assert codec.device_encodes("cuda", 8, 2) and not codec.device_encodes("cuda", 4, 2)
-    assert codec.device_encodes("cuda", 16, 4) and not codec.device_encodes("cuda", 8, 4)
-    assert not codec.device_encodes("numpy", CHUNK, 2)
-    monkeypatch.setattr(encode, "compress_payload", refuse)
+
+def test_golden_routes_named(monkeypatch):
+    """No geometry reaches the golden encoder on ``engine="cuda"``: planes
+    under one word take the device encoder's sub-word route in either
+    profile, whole-word planes its kernels."""
+    def refuse(*a, **kw):
+        raise AssertionError("engine='cuda' reached the golden encoder")
+
+    monkeypatch.setattr(codec, "compress_payload_numpy", refuse)
     x = _tensor(torch.bfloat16, 40 * 4 + 2, seed=2)
-    for profile in ("per_chunk", "shared"):
-        got = bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
-                          huffman_table=profile, compression_chunk=4).compress(x))
-        want = bytes(zipnn_tpu.ZipNN(input_format="torch", engine="numpy",
-                                     huffman_table=profile, compression_chunk=4).compress(x))
-        assert got == want
-        assert encode.last_timings["encoder"] == "golden"
+    for chunk, route in ((4, "sub_word"), (8, None)):
+        for profile in ("per_chunk", "shared"):
+            got = bytes(ZipNN(input_format="torch", engine="cuda", device="cpu",
+                              huffman_table=profile, compression_chunk=chunk).compress(x))
+            want = bytes(zipnn_tpu.ZipNN(input_format="torch", engine="numpy",
+                                         huffman_table=profile,
+                                         compression_chunk=chunk).compress(x))
+            assert got == want
+            assert encode.last_timings["encoder"] == route or (
+                route is None and encode.last_timings["encoder"] != "sub_word")
 
 
 def test_cuda_device_without_a_card_raises():
@@ -259,8 +283,9 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_encode_modules_import_neither_jax_nor_reference():
-    for name in ("encode", "huf_enc", "const_scan", "hist", "transforms"):
-        tree = ast.parse((ROOT / "zipnn_tpu_torch" / "ops" / f"{name}.py").read_text())
+    for name in ("ops/encode", "ops/huf_enc", "ops/const_scan", "ops/hist",
+                 "ops/transforms", "native"):
+        tree = ast.parse((ROOT / "zipnn_tpu_torch" / f"{name}.py").read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 tops = [a.name.split(".")[0] for a in node.names]

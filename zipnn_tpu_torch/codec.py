@@ -17,9 +17,12 @@ Engines:
   decompress on the host.
 * ``cuda``  — decompress through the hand-written CUDA kernels
   (``ops.decode``) and compress on the card (``ops.encode``), both
-  profiles, byte-identical to the golden encoder, for any chunk size whose
-  planes hold whole 4-byte words; smaller chunks compress with the golden
-  encoder (:func:`device_encodes`).
+  profiles, byte-identical to the golden encoder, at every chunk size
+  (planes under one word by the encoder's sub-word route); the host steps
+  between the kernels run in the native core (``native``).
+* ``native`` — the native C++ host codec (``native``, the port's copy of
+  the JAX package's core): compress and decompress on the host, both
+  profiles, byte-identical to the golden encoder.
 
 The golden encoder here is a copy of the JAX package's
 ``codec.compress_payload_numpy`` (both the per-chunk table profile and the
@@ -37,7 +40,7 @@ from .ops.entropy import huf
 
 DEFAULT_THRESHOLD = 0.95
 HUF_CAP = 128 * 1024  # HUF block limit; planes larger than this store raw
-ENGINES = ("numpy", "cuda")
+ENGINES = ("numpy", "cuda", "native")
 
 # Shared-table profile: table-build sampling (format policy).  At >= 512
 # chunks a plane's Huffman table is built from every 8th chunk's plane
@@ -239,16 +242,6 @@ def compress_cell_shared(plane: np.ndarray, table) -> Optional[bytes]:
     return huf.compress_with_table(plane, lengths, vals, header)
 
 
-def device_encodes(engine: str, chunk_size: int, num_buf: int) -> bool:
-    """Whether compress runs on the device (``ops.encode``), either
-    profile: ``engine="cuda"`` and planes of whole 4-byte words
-    (``chunk_size % (4 * num_buf) == 0``), the unit the device split and
-    encode work in.  Smaller chunks, and the ``numpy`` engine, take the
-    golden encoder on the host, as the JAX package hands chunks that are
-    not a multiple of 512 bytes to its golden model."""
-    return engine == "cuda" and chunk_size % (4 * num_buf) == 0
-
-
 def compress_payload(
     data,
     num_buf: int,
@@ -260,33 +253,51 @@ def compress_payload(
     check_th_after_percent: int = 0,
     shared_tables: bool = False,
     device="cuda",
+    prefix_len: int = 0,
 ):
-    """Engine-dispatched payload compress; returns the payload as bytes
-    (golden encoder) or a uint8 memoryview (device encoder).
+    """Engine-dispatched payload compress.
 
-    Where :func:`device_encodes`, ``data`` is a host uint8 array or a uint8
-    tensor, read in place on its CUDA device, and ``ops.encode`` encodes it
-    on ``device``; otherwise ``data`` is a host uint8 array for the golden
-    encoder.
+    ``cuda``: ``data`` is a host uint8 array or a uint8 tensor, read in
+    place on its CUDA device, and ``ops.encode`` encodes it on ``device``;
+    ``numpy`` and ``native``: ``data`` is a host uint8 array.  With
+    ``prefix_len`` 0 the result is the payload (bytes, or a uint8
+    memoryview); else one uint8 buffer (memoryview or array) of
+    ``prefix_len`` bytes left for the caller's container header, then the
+    payload: the ``cuda`` and ``native`` engines write the payload there
+    in place, the golden encoder's is copied in.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "cuda":
         from .ops import encode  # noqa: PLC0415
 
-        if device_encodes(engine, chunk_size, num_buf):
-            return encode.compress_payload(
+        return encode.compress_payload(
+            data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+            check_th_after_percent=check_th_after_percent,
+            shared_tables=shared_tables, device=device, prefix_len=prefix_len,
+        )
+    if engine == "native":
+        from . import native  # noqa: PLC0415
+
+        if shared_tables:
+            out = native.compress_payload_shared(
                 data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-                check_th_after_percent=check_th_after_percent,
-                shared_tables=shared_tables, device=device,
-            )
-        encode.last_timings.clear()
-        encode.last_timings["encoder"] = "golden"
-    return compress_payload_numpy(
+                prefix_len=prefix_len)
+        else:
+            out = native.compress_payload(
+                data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+                prefix_len=prefix_len, check_th_after_percent=check_th_after_percent)
+        return out if prefix_len else out.tobytes()
+    payload = compress_payload_numpy(
         np.asarray(data), num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
         check_th_after_percent=check_th_after_percent,
         shared_tables=shared_tables,
     )
+    if not prefix_len:
+        return payload
+    out = np.empty(prefix_len + len(payload), dtype=np.uint8)
+    out[prefix_len:] = np.frombuffer(payload, np.uint8)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -411,14 +422,26 @@ def decompress_payload(
 ):
     """Engine-dispatched payload decompress.
 
-    ``numpy`` returns a host uint8 array.  ``cuda`` returns a uint8 torch
-    tensor on ``device`` holding ``orig_size`` bytes (the card unless the
-    caller passes ``device="cpu"``, where the kernels' plain versions run).
+    ``numpy`` and ``native`` return a host uint8 array.  ``cuda`` returns
+    a uint8 torch tensor on ``device`` holding ``orig_size`` bytes (the
+    card unless the caller passes ``device="cpu"``, where the kernels'
+    plain versions run).
     """
     if engine == "numpy":
         return decompress_payload_numpy(
             payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size
         )
+    if engine == "native":
+        from . import native  # noqa: PLC0415
+
+        try:
+            return native.decompress_payload(
+                payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size)
+        except RuntimeError:
+            # the golden decoder names the corrupt (plane, chunk)
+            decompress_payload_numpy(
+                payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size)
+            raise
     if engine == "cuda":
         from .ops import decode  # noqa: PLC0415
 

@@ -8,7 +8,8 @@ plane count (fp8: 1, bf16/fp16: 2, fp32: 4):
 1. **Host plan** (:class:`Geometry`, :class:`Plan`): parse the chunk
    tables, classify every (plane, chunk) cell as stored, RLE or Huffman —
    the ragged tail chunk included — slice every Huffman cell's header and
-   jump table vectorised, and parse each distinct decode table once.
+   jump table vectorised, and parse every weight header into its decode
+   table in one call to the native host core (``huf_pc.cell_tables``).
 2. **One upload** of the payload bytes, the per-stream arrays and the
    tables.
 3. **Chunk-range batches**: per batch, a decode kernel writes the batch's

@@ -50,13 +50,14 @@ def pack_etable(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 
 
 def pack_pc_table(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-    """A per-chunk cell's 256 entries ``val | nb << 12``: uint16 values
-    held in int16 (the kernel reads them as uint16; ``val`` masked to its
-    ``nb`` bits).  Raises ValueError for a code longer than 12 bits."""
-    lengths = np.asarray(lengths, dtype=np.int64)[:256]
-    if int(lengths.max()) > PC_TMAX:
+    """Per-chunk cells' 256 entries ``val | nb << 12`` ([256] or [m, 256]
+    of each): uint16 values held in int16 (the kernel reads them as
+    uint16; ``val`` masked to its ``nb`` bits).  Raises ValueError for a
+    code longer than 12 bits."""
+    lengths = np.asarray(lengths, dtype=np.int64)[..., :256]
+    if lengths.size and int(lengths.max()) > PC_TMAX:
         raise ValueError("per-chunk encode table must have <=12-bit codes")
-    vals = np.asarray(vals, dtype=np.int64)[:256] & ((1 << lengths) - 1)
+    vals = np.asarray(vals, dtype=np.int64)[..., :256] & ((1 << lengths) - 1)
     return (vals | (lengths << 12)).astype(np.uint16).view(np.int16)
 
 

@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from . import kernels
 from .entropy import huf
 
@@ -52,12 +53,30 @@ last_sync_passes: Optional[torch.Tensor] = None
 # ---------------------------------------------------------------------------
 
 def cell_tables(headers: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Parse per-cell weight headers into decode tables.
+    """Parse per-cell weight headers into decode tables: the distinct
+    headers in one call to the native core (``native.cell_tables``), then
+    a row per cell.
 
-    Returns (tables int16 [n, 2^tlog_k], tlogs int32 [n], tlog_k).  Equal
-    headers share one parse.  Raises ValueError (with ``.index``, the first
-    bad cell) on a corrupt header.
+    Returns (tables int16 [n, 2^tlog_k], tlogs int32 [n], tlog_k).  Raises
+    ValueError (with ``.index``, the first bad cell) on a corrupt header.
     """
+    first: dict = {}  # distinct header -> its index, in order of first use
+    inv = np.fromiter((first.setdefault(h, len(first)) for h in headers), dtype=np.int64,
+                      count=len(headers))
+    sizes = np.fromiter(map(len, first), dtype=np.int64, count=len(first))
+    pool = np.frombuffer(b"".join(first), dtype=np.uint8)
+    try:
+        tables, tlogs, tlog_k = native.cell_tables(pool, np.cumsum(sizes) - sizes, sizes)
+    except ValueError as exc:
+        # the first bad distinct header is first used by the first bad cell
+        exc.index = int(np.argmax(inv == exc.index))
+        raise
+    return tables[inv], tlogs[inv], tlog_k
+
+
+def cell_tables_plain(headers: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Plain Python version of :func:`cell_tables`; equal headers share
+    one parse."""
     parsed = {}
     rows = []
     for i, hdr in enumerate(headers):

@@ -138,6 +138,34 @@ def split_device(words: torch.Tensor, num_buf: int, byte_reorder: int,
     return split_4(words, bit_reorder)
 
 
+def split_bytes(rows: torch.Tensor, num_buf: int, byte_reorder: int, bit_reorder: int,
+                lens) -> torch.Tensor:
+    """Byte-wise split of full chunks of any size: [k, chunk] uint8 ->
+    [k, num_buf, max(lens)] uint8, plane ``b`` in its first ``lens[b]``
+    bytes (``codec.plane_chunk_lengths`` of a full chunk), zeros after.
+
+    The golden ``byte_group.split`` of each chunk: the sign rotation on the
+    chunk's whole words only (none in a chunk under 4 bytes), then byte
+    ``p`` to plane ``p % num_buf``.  Index arithmetic on the rows' device;
+    the inverse of ``combine.combine_bytes_kernel``.
+    """
+    modes = {1: 10, 2: 10, 4: 220}
+    if modes.get(num_buf) != byte_reorder:
+        raise ValueError(f"Unsupported bytes_mode {byte_reorder} for {num_buf} planes")
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise TypeError("split_bytes: rows must be [k, chunk] uint8")
+    k, chunk = rows.shape
+    w = chunk // 4
+    if bit_reorder and num_buf > 1 and w:
+        rotate = reorder_sign_16 if num_buf == 2 else reorder_sign_32
+        head = rotate(rows[:, : 4 * w].contiguous().view(torch.int32)).view(torch.uint8)
+        rows = torch.cat([head, rows[:, 4 * w :]], dim=1)
+    out = torch.zeros((k, num_buf, max(lens)), dtype=torch.uint8, device=rows.device)
+    for b in range(num_buf):
+        out[:, b, : lens[b]] = rows[:, b::num_buf]
+    return out
+
+
 def combine_4(planes: torch.Tensor, bit_reorder: int) -> torch.Tensor:
     """4-plane combine of full chunks (mode 220): [..., 4, n] -> [..., 4n]
     words.

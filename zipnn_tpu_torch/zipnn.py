@@ -10,10 +10,11 @@ an explicit ``device``:
   the kernels' plain versions run); ``engine="numpy"`` runs the golden
   model on the host.  ``engine="cuda"`` also compresses on ``device``,
   either profile (``ops.encode``: the split, histogram and Huffman encode
-  of every full chunk run there), byte-identical to the golden encoder; a
-  torch input already on the card is read in place.  Chunks whose planes
-  are shorter than a 4-byte word compress with the golden encoder
-  (``codec.device_encodes``).
+  of every full chunk run there, at every chunk size), byte-identical to
+  the golden encoder; a torch input already on the card is read in place.
+  ``engine="native"`` runs the native C++ host codec (``native``) both
+  ways.  ``compress`` returns a memoryview of one buffer: the header is
+  written into room the encoder leaves in front of the payload.
 * ``input_format="torch"`` returns a tensor on ``device`` (on the host
   with ``engine="numpy"``); ``"byte"`` and ``"numpy"`` return host data.
 * ``huffman_table="per_chunk"`` (default, the reference library's
@@ -117,7 +118,7 @@ class ZipNN:
         if fmt == EnumFormat.TORCH.value:
             info = dtypes.from_any(data.dtype)
             t = data.detach().contiguous().reshape(-1)
-            if not (info.is_float and self._device_encodes(info.code)):
+            if not (info.is_float and self.engine == "cuda"):
                 t = t.cpu()  # only the device encoder reads a CUDA tensor in place
             # an empty tensor may carry stride 0, which a dtype view refuses
             t = t.view(torch.uint8) if t.numel() else t.new_empty(0, dtype=torch.uint8)
@@ -126,14 +127,11 @@ class ZipNN:
         arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
         return info.code, data.shape, arr
 
-    def _device_encodes(self, code: int) -> bool:
-        num_buf = dtypes.grouping_for_code(code).num_buf
-        chunk = codec.effective_chunk(self.compression_chunk, num_buf)
-        return codec.device_encodes(self.engine, chunk, num_buf)
-
     def compress(self, data):
         """Compress ``data`` (bytes / torch.Tensor / np.ndarray) into one
-        ``.znn`` frame, byte-identical to the JAX package's numpy engine."""
+        ``.znn`` frame, byte-identical to the JAX package's numpy engine: a
+        memoryview of one buffer, the header written into the room the
+        encoder leaves in front of the payload (no join copy)."""
         t0 = time.perf_counter()
         code, shape, arr = self._resolve_dtype_and_bytes(data)
         nbytes = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
@@ -153,17 +151,18 @@ class ZipNN:
         if self.input_format in _FORMATS_WITH_SHAPE:
             hdr.shape = shape
         chunk = codec.effective_chunk(self.compression_chunk, grouping.num_buf)
-        payload = codec.compress_payload(
+        prefix = HEADER_LEN + hdr.ext_len()
+        buf = memoryview(codec.compress_payload(
             arr, grouping.num_buf, grouping.bit_reorder, grouping.byte_reorder,
             chunk, self.compression_threshold, self.engine,
             check_th_after_percent=self.check_th_after_percent,
             shared_tables=self.huffman_table == "shared", device=self.device,
-        )
-        prefix = HEADER_LEN + hdr.ext_len()
-        hdr.total_len = prefix + len(payload)
-        result = hdr.to_bytes() + payload
-        self._record_stats("compress", nbytes, len(result), time.perf_counter() - t0)
-        return result
+            prefix_len=prefix,
+        ))
+        hdr.total_len = len(buf)
+        buf[:prefix] = hdr.to_bytes()
+        self._record_stats("compress", nbytes, len(buf), time.perf_counter() - t0)
+        return buf
 
     # ------------------------------------------------------------------
     # decompression
