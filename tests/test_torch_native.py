@@ -246,6 +246,35 @@ def test_splice_matches_plain(monkeypatch, shared):
     assert _spliced(monkeypatch, run) == [14]
 
 
+_GOOD_CELL = dict(kind=2, hid=0, hoff=0, hlen=3, boff=0, size=3 + 6 + 4)
+
+
+@pytest.mark.parametrize("bad", [
+    {}, dict(hoff=2), dict(hoff=-1), dict(hlen=5), dict(hid=1), dict(hid=-1),
+    dict(boff=1), dict(size=3 + 6 + 5), dict(kind=0, size=5), dict(kind=0, size=2, boff=-1),
+], ids=["valid", "header_past_pool", "header_before_pool", "header_longer_than_pool",
+        "header_id_past", "header_id_negative", "stream_past_blob", "cell_past_blob",
+        "raw_past_blob", "raw_before_blob"])
+def test_splice_cells_rejects_reads_outside(bad):
+    """One cell after a valid RLE cell: a Huffman cell (a 3-byte header
+    from a 4-byte pool, the jump table, 4 stream bytes) or a raw cell that
+    reads outside the header pool or the blob fails as cell 1 and writes
+    nothing there."""
+    cell = {**_GOOD_CELL, **bad}
+    out = np.zeros(32, np.uint8)
+    hpool, blob = np.arange(1, 5, dtype=np.uint8), np.arange(10, 14, dtype=np.uint8)
+    args = ([0, 1], [1, cell["kind"]], [1, cell["size"]], [0x42, 0], [0, cell["hid"]],
+            hpool, [cell["hoff"]], [cell["hlen"]], np.zeros((2, 3), np.uint16),
+            [0, cell["boff"]], blob)
+    if not bad:
+        native.splice_cells(out, *args)
+        assert bytes(out[:14]) == b"\x42\x01\x02\x03" + bytes(6) + bytes(range(10, 14))
+        return
+    with pytest.raises(ValueError, match="cell 1 reads outside"):
+        native.splice_cells(out, *args)
+    assert out[0] == 0x42 and not out[1:].any()
+
+
 @pytest.mark.parametrize("pct", [0, 10])
 @pytest.mark.parametrize("shared", [False, True], ids=["per_chunk", "shared"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d).split(".")[-1])
@@ -257,8 +286,7 @@ def test_engine_native_matches_reference(dtype, shared, pct):
     kw = dict(input_format="torch", compression_chunk=chunk, huffman_table=profile,
               check_th_after_percent=pct)
     got = ZipNN(engine="native", **kw).compress(x)
-    assert isinstance(got, memoryview)
-    got = bytes(got)
+    assert type(got) is bytes
     assert got == bytes(zipnn_tpu.ZipNN(engine="numpy", **kw).compress(x))
     gr = dtypes.grouping_for_code(dtypes.from_any(dtype).code)
     arr = x.view(torch.uint8).numpy()
@@ -270,7 +298,7 @@ def test_engine_native_matches_reference(dtype, shared, pct):
         ref = ref_native.compress_payload_shared(*args, threads=0)
     else:
         ref = ref_native.compress_payload(*args, threads=0, check_th_after_percent=pct)
-    assert mine == ref
+    assert type(mine) is bytes and mine == bytes(ref)
     y = ZipNN(input_format="torch", engine="native").decompress(got)
     assert torch.equal(y.view(torch.uint8), x.view(torch.uint8))
 

@@ -30,6 +30,7 @@ shared-table profile) and writes the same bytes for the same arguments.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -242,6 +243,37 @@ def compress_cell_shared(plane: np.ndarray, table) -> Optional[bytes]:
     return huf.compress_with_table(plane, lengths, vals, header)
 
 
+# ---------------------------------------------------------------------------
+# frames: bytes objects filled in place
+# ---------------------------------------------------------------------------
+
+def frame(n: int) -> np.ndarray:
+    """A writable uint8 array over the storage of a new ``bytes`` object of
+    ``n`` bytes, which the array keeps alive; :func:`frame_bytes` gives the
+    ``bytes`` back once it is filled.  This is the C API's way to build a
+    ``bytes`` in place (``PyBytes_FromStringAndSize(NULL, n)``, then writes
+    through ``PyBytes_AsString``), so an encoder can write a container into
+    the object that it returns, with no copy: fill the array before the
+    ``bytes`` is hashed or shared, and write to it no more after."""
+    api = ctypes.pythonapi
+    api.PyBytes_FromStringAndSize.argtypes = [ctypes.c_void_p, ctypes.c_ssize_t]
+    api.PyBytes_FromStringAndSize.restype = ctypes.py_object
+    api.PyBytes_AsString.argtypes = [ctypes.py_object]
+    api.PyBytes_AsString.restype = ctypes.c_void_p
+    obj = api.PyBytes_FromStringAndSize(None, n)
+    store = (ctypes.c_uint8 * n).from_address(api.PyBytes_AsString(obj))
+    store.frame = obj
+    return np.frombuffer(store, dtype=np.uint8)
+
+
+def frame_bytes(a: np.ndarray) -> bytes:
+    """The ``bytes`` object under ``a``, an array from :func:`frame` or a
+    view of one."""
+    while not hasattr(a, "frame"):
+        a = a.base
+    return a.frame
+
+
 def compress_payload(
     data,
     num_buf: int,
@@ -260,44 +292,46 @@ def compress_payload(
     ``cuda``: ``data`` is a host uint8 array or a uint8 tensor, read in
     place on its CUDA device, and ``ops.encode`` encodes it on ``device``;
     ``numpy`` and ``native``: ``data`` is a host uint8 array.  With
-    ``prefix_len`` 0 the result is the payload (bytes, or a uint8
-    memoryview); else one uint8 buffer (memoryview or array) of
-    ``prefix_len`` bytes left for the caller's container header, then the
-    payload: the ``cuda`` and ``native`` engines write the payload there
-    in place, the golden encoder's is copied in.
+    ``prefix_len`` 0 the result is the payload as ``bytes``; else a
+    :func:`frame` of ``prefix_len`` bytes left for the caller's container
+    header, then the payload (:func:`frame_bytes` gives the ``bytes``
+    once the header is in).  The ``cuda`` engine writes the payload into
+    the frame in place; the ``native`` engine copies it there from the
+    core's worst-case buffer, and the golden encoder's is copied in, so a
+    frame holds only its own bytes.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "cuda":
         from .ops import encode  # noqa: PLC0415
 
-        return encode.compress_payload(
+        out = encode.compress_payload(
             data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
             check_th_after_percent=check_th_after_percent,
             shared_tables=shared_tables, device=device, prefix_len=prefix_len,
         )
+        return out if prefix_len else frame_bytes(out)
     if engine == "native":
         from . import native  # noqa: PLC0415
 
         if shared_tables:
-            out = native.compress_payload_shared(
-                data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-                prefix_len=prefix_len)
+            payload = native.compress_payload_shared(
+                data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold)
         else:
-            out = native.compress_payload(
+            payload = native.compress_payload(
                 data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-                prefix_len=prefix_len, check_th_after_percent=check_th_after_percent)
-        return out if prefix_len else out.tobytes()
-    payload = compress_payload_numpy(
-        np.asarray(data), num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-        check_th_after_percent=check_th_after_percent,
-        shared_tables=shared_tables,
-    )
-    if not prefix_len:
-        return payload
-    out = np.empty(prefix_len + len(payload), dtype=np.uint8)
-    out[prefix_len:] = np.frombuffer(payload, np.uint8)
-    return out
+                check_th_after_percent=check_th_after_percent)
+    else:
+        payload = compress_payload_numpy(
+            np.asarray(data), num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+            check_th_after_percent=check_th_after_percent,
+            shared_tables=shared_tables,
+        )
+        if not prefix_len:
+            return payload
+    buf = frame(prefix_len + len(payload))
+    buf[prefix_len:] = np.frombuffer(payload, np.uint8)
+    return buf if prefix_len else frame_bytes(buf)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 //
 // The PyTorch/CUDA port's own copy of the JAX package's csrc/ztpu_core.cpp,
 // taken whole (engine "native" is the reference's engine), with the port's
-// entries at the end (``ztpu_build_ctables``, ``ztpu_huf_compress_table``,
-// ``ztpu_expand_dtables16``, ``ztpu_splice_cells``), built only from the
-// static routines above them.  Bound by zipnn_tpu_torch/native.py.
+// entries at the end (``ztpu_build_ctables``, ``ztpu_expand_dtables16``,
+// ``ztpu_splice_cells``), built only from the static routines above them
+// (the table steps of huf_compress_block are one static, huf_build_ctable,
+// that ztpu_build_ctables shares).  Bound by zipnn_tpu_torch/native.py.
 //
 // From-scratch C++ implementation of the same pipeline as the Python golden
 // model (zipnn_tpu/codec.py): byte-plane grouping with sign-bit rotation
@@ -1190,6 +1191,29 @@ static void hist_block(const uint8_t* data, size_t n, uint32_t* count,
   *largest_out = largest;
 }
 
+// The table steps of a block that passed the cheap checks (RLE,
+// (n >> 7) + 4, n < 12): tableLog, heap Huffman, package-merge past the
+// tableLog, the weight header (and its size check), canonical values.
+// false => store raw.
+static bool huf_build_ctable(const uint32_t* count, size_t n, unsigned max_sv,
+                             HufCTable& ct, std::vector<uint8_t>& header) {
+  int table_log = fse_optimal_table_log(HUF_TABLELOG_DEFAULT, n, max_sv, 1);
+  int max_len;
+  if (!huffman_lengths(count, ct.lengths, &max_len)) return false;
+  if (max_len > table_log) {
+    if (!package_merge_lengths(count, table_log, ct.lengths)) return false;
+    max_len = 0;
+    for (int s = 0; s < 256; s++)
+      if (ct.lengths[s] > max_len) max_len = ct.lengths[s];
+  }
+  ct.table_log = max_len;
+  ct.max_sv = max_sv;
+  if (!huf_write_ctable(ct, header)) return false;
+  if (header.size() + 12 >= n) return false;
+  canonical_values(ct);
+  return true;
+}
+
 // HUF-compress a block directly into dst (dst_cap >= n is sufficient:
 // anything larger than n-2 is rejected).  Result codes: >0 compressed
 // size written at dst; 0 => store raw (dst untouched); -1 => 1-byte RLE
@@ -1209,22 +1233,9 @@ static long long huf_compress_block(const uint8_t* data, size_t n,
   if (largest <= (n >> 7) + 4) return 0;
   if (n < 12) return 0;
 
-  int table_log = fse_optimal_table_log(HUF_TABLELOG_DEFAULT, n, max_sv, 1);
   HufCTable ct;
-  int max_len;
-  if (!huffman_lengths(count, ct.lengths, &max_len)) return 0;
-  if (max_len > table_log) {
-    if (!package_merge_lengths(count, table_log, ct.lengths)) return 0;
-    max_len = 0;
-    for (int s = 0; s < 256; s++)
-      if (ct.lengths[s] > max_len) max_len = ct.lengths[s];
-  }
-  ct.table_log = max_len;
-  ct.max_sv = max_sv;
   std::vector<uint8_t> header;
-  if (!huf_write_ctable(ct, header)) return 0;
-  if (header.size() + 12 >= n) return 0;
-  canonical_values(ct);
+  if (!huf_build_ctable(count, n, max_sv, ct, header)) return 0;
 
   size_t seg = (n + 3) / 4;
   size_t sizes[4] = {seg, seg, seg, n - 3 * seg};
@@ -2469,9 +2480,8 @@ long long ztpu_huf_decompress(const uint8_t* data, size_t c_size, uint8_t* out,
 // Per-cell Huffman tables of the per-chunk encode, a batch of m count rows
 // (u32 [m][256]) of cells of n bytes each: the table steps that
 // huf_compress_block takes once a cell has passed its cheap checks (RLE,
-// (n >> 7) + 4, n < 12; the caller takes those vectorised) — tableLog,
-// heap Huffman, package-merge past the tableLog, the weight header (and
-// its size check), canonical values.  Per row: status 1 (Huffman) or 0
+// (n >> 7) + 4, n < 12; the caller takes those vectorised), that is
+// huf_build_ctable.  Per row: status 1 (Huffman) or 0
 // (raw: no code lengths, no header, or a header too long for the cell),
 // lengths u8 [256], canonical values u16 [256], the header at
 // headers + i * hdr_stride (hdr_stride >= 128) and its length.  Rows of a
@@ -2492,22 +2502,9 @@ long long ztpu_build_ctables(const uint32_t* counts, long long m, long long n,
     unsigned max_sv = 0;
     for (int s = 0; s < 256; s++)
       if (count[s]) max_sv = (unsigned)s;
-    int table_log = fse_optimal_table_log(HUF_TABLELOG_DEFAULT, (size_t)n, max_sv, 1);
     HufCTable ct;
-    int max_len;
-    if (!huffman_lengths(count, ct.lengths, &max_len)) return;
-    if (max_len > table_log) {
-      if (!package_merge_lengths(count, table_log, ct.lengths)) return;
-      max_len = 0;
-      for (int s = 0; s < 256; s++)
-        if (ct.lengths[s] > max_len) max_len = ct.lengths[s];
-    }
-    ct.table_log = max_len;
-    ct.max_sv = max_sv;
     std::vector<uint8_t> header;
-    if (!huf_write_ctable(ct, header)) return;
-    if ((long long)header.size() + 12 >= n) return;
-    canonical_values(ct);
+    if (!huf_build_ctable(count, (size_t)n, max_sv, ct, header)) return;
     std::memcpy(lo, ct.lengths, 256);
     std::memcpy(vo, ct.vals, 256 * sizeof(uint16_t));
     std::memcpy(headers + i * hdr_stride, header.data(), header.size());
@@ -2515,49 +2512,6 @@ long long ztpu_build_ctables(const uint32_t* counts, long long m, long long n,
     status[i] = 1;
   });
   return 0;
-}
-
-// One block coded with a caller's table (the shared profile's cell): code
-// lengths u8 [256] (canonical values follow from them) and the table's
-// weight header, written in front of the jump table.  The size guards of
-// huf_compress_block: 0 => store raw (n == 0, n < 12, n > the block limit,
-// a stream of 0 or more than 65535 bytes, a block not shorter than n - 1
-// bytes); else the block's size.  Every byte of the block must have a code.
-long long ztpu_huf_compress_table(const uint8_t* data, size_t n,
-                                  const uint8_t* lengths, const uint8_t* header,
-                                  size_t hlen, uint8_t* out, size_t out_cap) {
-  if (n == 0 || n > HUF_BLOCKSIZE_MAX || n < 12) return 0;
-  HufCTable ct;
-  std::memcpy(ct.lengths, lengths, 256);
-  int max_len = 0;
-  for (int s = 0; s < 256; s++)
-    if (ct.lengths[s] > max_len) max_len = ct.lengths[s];
-  if (max_len < 1 || max_len > HUF_TABLELOG_MAX) return -1;
-  ct.table_log = max_len;
-  ct.max_sv = 0;
-  canonical_values(ct);
-  size_t seg = (n + 3) / 4;
-  size_t sizes[4] = {seg, seg, seg, n - 3 * seg};
-  size_t stride = seg + (seg >> 1) + 16;
-  size_t ssize[4];
-  huf_encode_4streams(data, sizes, ct, enc_scratch(4 * stride), stride, ssize);
-  for (int k = 0; k < 4; k++)
-    if (ssize[k] == 0 || ssize[k] > 65535) return 0;
-  size_t total = hlen + 6 + ssize[0] + ssize[1] + ssize[2] + ssize[3];
-  if (total >= n - 1 || total > out_cap) return 0;
-  uint8_t* op = out;
-  std::memcpy(op, header, hlen);
-  op += hlen;
-  write_le16(op + 0, (uint16_t)ssize[0]);
-  write_le16(op + 2, (uint16_t)ssize[1]);
-  write_le16(op + 4, (uint16_t)ssize[2]);
-  op += 6;
-  const uint8_t* sbase = t_enc_buf.get();
-  for (int k = 0; k < 4; k++) {
-    std::memcpy(op, sbase + (size_t)k * stride, ssize[k]);
-    op += ssize[k];
-  }
-  return (long long)total;
 }
 
 // Decode tables of the port's per-cell decode kernel from parsed weights
@@ -2606,7 +2560,8 @@ long long ztpu_expand_dtables16(const uint8_t* weights, const int* tlogs,
 //   0: copies sizes[c] bytes from blob + boffs[c] (a raw cell, or a block
 //      the caller coded whole);
 //   1: writes the RLE byte rle_vals[c];
-//   2: writes header hids[c] of the pool (hpool + hoffs[h], hlens[h] bytes),
+//   2: writes header h = hids[c] of the pool (hpool + hoffs[h], hlens[h]
+//      bytes, inside the pool's pool_len bytes),
 //      the 6-byte jump table (jumps[3c .. 3c + 2], little-endian) and
 //      sizes[c] - hlen - 6 stream bytes from blob + boffs[c].
 // Threaded over ranges of cells.  Returns 0, or -(c + 1) for a cell that
@@ -2614,8 +2569,9 @@ long long ztpu_expand_dtables16(const uint8_t* weights, const int* tlogs,
 long long ztpu_splice_cells(uint8_t* out, long long n_cells, const long long* starts,
                             const uint8_t* kinds, const long long* sizes,
                             const uint8_t* rle_vals, const long long* hids,
-                            const uint8_t* hpool, const long long* hoffs,
-                            const long long* hlens, long long n_headers,
+                            const uint8_t* hpool, long long pool_len,
+                            const long long* hoffs, const long long* hlens,
+                            long long n_headers,
                             const uint16_t* jumps, const long long* boffs,
                             const uint8_t* blob, long long blob_len, int threads) {
   tune_malloc_once();
@@ -2638,6 +2594,7 @@ long long ztpu_splice_cells(uint8_t* out, long long n_cells, const long long* st
           long long h = hids[c];
           if (h < 0 || h >= n_headers) goto fail;
           long long hl = hlens[h];
+          if (hl < 0 || hoffs[h] < 0 || hoffs[h] + hl > pool_len) goto fail;
           len -= hl + 6;
           if (len < 0 || boffs[c] < 0 || boffs[c] + len > blob_len) goto fail;
           std::memcpy(o, hpool + hoffs[h], (size_t)hl);

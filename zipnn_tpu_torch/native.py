@@ -6,8 +6,7 @@ entries the card's encode and decode paths call for their host steps:
 
 * :func:`build_ctables`: every surviving cell's Huffman table of one
   per-chunk encode batch in one call;
-* :func:`huf_compress` / :func:`huf_compress_table`: the tail cell of
-  either profile;
+* :func:`huf_compress`: the per-chunk profile's tail cell;
 * :func:`splice_cells`: every cell of a batch into the container buffer;
 * :func:`cell_tables`: the decode tables of a container's weight headers.
 
@@ -59,17 +58,15 @@ _SIGNATURES = {
     # payload, len, num_buf, bit_reorder, byte_reorder, chunk, orig, threads, out
     "ztpu_decompress": [_P, _S, _U, _I, _I, _S, _S, _I, _P],
     "ztpu_huf_compress": [_P, _S, _P, _S],
-    # data, n, lengths, header, hlen, out, out_cap
-    "ztpu_huf_compress_table": [_P, _S, _P, _P, _S, _P, _S],
     # payload, offsets, sizes, n, weights out, tlogs out, threads
     "ztpu_parse_dweights": [_P, _P, _P, _L, _P, _P, _I],
     # weights, tlogs, n, tlog_k, out, threads
     "ztpu_expand_dtables16": [_P, _P, _L, _I, _P, _I],
     # counts, m, n, status, lengths, vals, headers, hdr_stride, hlens, threads
     "ztpu_build_ctables": [_P, _L, _L, _P, _P, _P, _P, _L, _P, _I],
-    # out, n_cells, starts, kinds, sizes, rle_vals, hids, hpool, hoffs, hlens,
-    # n_headers, jumps, boffs, blob, blob_len, threads
-    "ztpu_splice_cells": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I],
+    # out, n_cells, starts, kinds, sizes, rle_vals, hids, hpool, pool_len, hoffs,
+    # hlens, n_headers, jumps, boffs, blob, blob_len, threads
+    "ztpu_splice_cells": [_P, _L, _P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _L, _I],
     "ztpu_sample_policy": [_P, _P],
 }
 
@@ -156,8 +153,8 @@ def _check_policy(handle) -> None:
             f"({codec.SHARED_SAMPLE_MIN_CHUNKS}, {codec.SHARED_SAMPLE_STRIDE})")
 
 
-def _threads(threads: int = 0) -> int:
-    return threads or os.cpu_count() or 1
+def _threads() -> int:
+    return os.cpu_count() or 1
 
 
 def _c(a, dtype) -> np.ndarray:
@@ -168,54 +165,53 @@ def _c(a, dtype) -> np.ndarray:
 # engine "native": the whole host codec
 # ---------------------------------------------------------------------------
 
-def _out_buffer(n: int, n_chunks: int, num_buf: int, prefix_len: int):
+def _out_buffer(n: int, n_chunks: int, num_buf: int):
     cap = n + n_chunks * num_buf * 9 + 4096 + (n_chunks + 1) * 64
-    return np.empty(prefix_len + cap, dtype=np.uint8), cap
+    return np.empty(cap, dtype=np.uint8)
 
 
 def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
-                     chunk_size: int, threshold: float, threads: int = 0,
-                     prefix_len: int = 0, check_th_after_percent: int = 0) -> np.ndarray:
-    """The per-chunk profile's payload, byte-equal to the golden encoder's,
-    in a uint8 array of ``prefix_len`` reserved bytes (left for the
-    caller's header) plus the payload."""
+                     chunk_size: int, threshold: float,
+                     check_th_after_percent: int = 0) -> np.ndarray:
+    """The per-chunk profile's payload, byte-equal to the golden encoder's:
+    a uint8 view of the core's worst-case output buffer (about the input's
+    size)."""
     data = _c(data, np.uint8).reshape(-1)
-    out, cap = _out_buffer(data.size, -(-data.size // chunk_size), num_buf, prefix_len)
+    out = _out_buffer(data.size, -(-data.size // chunk_size), num_buf)
     r = lib().ztpu_compress(data.ctypes.data, data.size, num_buf, bit_reorder, byte_reorder,
-                            chunk_size, threshold, _threads(threads),
+                            chunk_size, threshold, _threads(),
                             int(check_th_after_percent or 0), 0,
-                            out.ctypes.data + prefix_len, cap)
+                            out.ctypes.data, out.size)
     if r < 0:
         raise RuntimeError(f"native compress failed: {r}")
-    return out[: prefix_len + r]
+    return out[:r]
 
 
 def compress_payload_shared(data, num_buf: int, bit_reorder: int, byte_reorder: int,
-                            chunk_size: int, threshold: float, threads: int = 0,
-                            prefix_len: int = 0) -> np.ndarray:
+                            chunk_size: int, threshold: float) -> np.ndarray:
     """The shared-table profile's payload, as :func:`compress_payload`
     gives the per-chunk one.  Raises :class:`SharedOverflow` past the
     core's uint32 histograms."""
     data = _c(data, np.uint8).reshape(-1)
-    out, cap = _out_buffer(data.size, -(-data.size // chunk_size), num_buf, prefix_len)
+    out = _out_buffer(data.size, -(-data.size // chunk_size), num_buf)
     r = lib().ztpu_compress_shared(data.ctypes.data, data.size, num_buf, bit_reorder,
-                                   byte_reorder, chunk_size, threshold, _threads(threads),
-                                   None, None, out.ctypes.data + prefix_len, cap)
+                                   byte_reorder, chunk_size, threshold, _threads(),
+                                   None, None, out.ctypes.data, out.size)
     if r == -2:
         raise SharedOverflow("a shared-profile plane histogram exceeds uint32")
     if r < 0:
         raise RuntimeError(f"native shared compress failed: {r}")
-    return out[: prefix_len + r]
+    return out[:r]
 
 
 def decompress_payload(payload, num_buf: int, bit_reorder: int, byte_reorder: int,
-                       chunk_size: int, orig_size: int, threads: int = 0) -> np.ndarray:
+                       chunk_size: int, orig_size: int) -> np.ndarray:
     """Decode a payload of either profile into a host uint8 array; raises
     RuntimeError on a corrupt one."""
     buf = _c(np.frombuffer(memoryview(payload), dtype=np.uint8), np.uint8)
     out = np.empty(orig_size, dtype=np.uint8)
     r = lib().ztpu_decompress(buf.ctypes.data, buf.size, num_buf, bit_reorder, byte_reorder,
-                              chunk_size, orig_size, _threads(threads), out.ctypes.data)
+                              chunk_size, orig_size, _threads(), out.ctypes.data)
     if r != 0:
         raise RuntimeError(f"native decompress failed: {r}")
     return out
@@ -237,22 +233,7 @@ def huf_compress(block: np.ndarray) -> Optional[bytes]:
     return None if r == 0 else out[:r].tobytes()
 
 
-def huf_compress_table(block: np.ndarray, lengths: np.ndarray, header: bytes) -> Optional[bytes]:
-    """One block coded with a shared table (``huf.compress_with_table``):
-    None where it stores raw.  Every byte of the block must have a code."""
-    block = _c(block, np.uint8).reshape(-1)
-    lengths = _c(np.asarray(lengths)[:256], np.uint8)
-    hdr = np.frombuffer(header, dtype=np.uint8)
-    cap = block.size + len(header) + 4096
-    out = np.empty(cap, dtype=np.uint8)
-    r = lib().ztpu_huf_compress_table(block.ctypes.data, block.size, lengths.ctypes.data,
-                                      hdr.ctypes.data, hdr.size, out.ctypes.data, cap)
-    if r < 0:
-        raise RuntimeError("native table compress failed")
-    return None if r == 0 else out[:r].tobytes()
-
-
-def build_ctables(counts: np.ndarray, n: int, threads: int = 0):
+def build_ctables(counts: np.ndarray, n: int):
     """Huffman tables of ``m`` cells of ``n`` bytes from their byte counts
     ([m, 256]), one call: (status uint8 [m] (1 Huffman, 0 raw), lengths
     uint8 [m, 256], canonical values uint16 [m, 256], headers uint8
@@ -267,13 +248,13 @@ def build_ctables(counts: np.ndarray, n: int, threads: int = 0):
     hlens = np.empty(m, dtype=np.int32)
     r = lib().ztpu_build_ctables(counts.ctypes.data, m, n, status.ctypes.data,
                                  lengths.ctypes.data, vals.ctypes.data, headers.ctypes.data,
-                                 HDR_STRIDE, hlens.ctypes.data, _threads(threads))
+                                 HDR_STRIDE, hlens.ctypes.data, _threads())
     if r != 0:
         raise ValueError(f"build_ctables: bad arguments (n={n})")
     return status, lengths, vals, headers, hlens
 
 
-def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray, threads: int = 0):
+def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
     """Decode tables of weight headers (header ``i`` at ``pool[offsets[i]]``,
     at most ``sizes[i]`` bytes): (tables int16 [n, 2^tlog_k], entries
     ``symbol | nb << 8`` of ``huf.build_dtable``, zero past each cell's
@@ -288,7 +269,7 @@ def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray, thread
     tlogs = np.empty(n, dtype=np.int32)
     args = (pool.ctypes.data, off.ctypes.data, szs.ctypes.data, n, weights.ctypes.data,
             tlogs.ctypes.data)
-    r = L.ztpu_parse_dweights(*args, _threads(threads))
+    r = L.ztpu_parse_dweights(*args, _threads())
     if r != 0:
         r = L.ztpu_parse_dweights(*args, 1)  # in order: the first bad cell
         exc = ValueError(f"corrupt HUF weight header (cell {-r - 1})")
@@ -297,13 +278,13 @@ def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray, thread
     tlog_k = int(tlogs.max()) if n else 1
     tables = np.empty((n, 1 << tlog_k), dtype=np.int16)
     if n and L.ztpu_expand_dtables16(weights.ctypes.data, tlogs.ctypes.data, n, tlog_k,
-                                     tables.ctypes.data, _threads(threads)):
+                                     tables.ctypes.data, _threads()):
         raise ValueError("expand_dtables16: tableLog out of range")
     return tables, tlogs, tlog_k
 
 
 def splice_cells(out: np.ndarray, starts, kinds, sizes, rle_vals, hids, hpool, hoffs,
-                 hlens, jumps, boffs, blob, threads: int = 0) -> None:
+                 hlens, jumps, boffs, blob) -> None:
     """Write cells into ``out`` (uint8) at absolute ``starts`` (see
     ``ztpu_splice_cells``): kind 0 copies ``sizes`` bytes of ``blob`` from
     ``boffs``; 1 writes ``rle_vals``; 2 writes pool header ``hids``, the
@@ -320,8 +301,8 @@ def splice_cells(out: np.ndarray, starts, kinds, sizes, rle_vals, hids, hpool, h
         raise ValueError("splice_cells: a cell ends past the output")
     r = lib().ztpu_splice_cells(
         out.ctypes.data, n, starts.ctypes.data, kinds.ctypes.data, sizes.ctypes.data,
-        rle_vals.ctypes.data, hids.ctypes.data, hpool.ctypes.data, hoffs.ctypes.data,
-        hlens.ctypes.data, hoffs.size, jumps.ctypes.data, boffs.ctypes.data,
-        blob.ctypes.data, blob.size, _threads(threads))
+        rle_vals.ctypes.data, hids.ctypes.data, hpool.ctypes.data, hpool.size,
+        hoffs.ctypes.data, hlens.ctypes.data, hoffs.size, jumps.ctypes.data, boffs.ctypes.data,
+        blob.ctypes.data, blob.size, _threads())
     if r != 0:
         raise ValueError(f"splice_cells: cell {-r - 1} reads outside its blob or header pool")

@@ -41,13 +41,14 @@ format needs.  The container it returns equals the golden encoder's
    (``transforms.split_bytes``) and an RLE check on the device, the RLE
    and raw decisions on the host (such cells are never Huffman), and one
    fetch of the cells' stored bytes.
-4. **Tail and output**: the tail cell goes through the native core's
-   block encoder (``native.huf_compress``, or ``native.huf_compress_table``
-   with the plane's shared table); the chunk tables and every cell are
-   written at their global offsets into one buffer behind ``prefix_len``
-   bytes left for the caller's header (:func:`splice`, the native core's
-   ``splice_cells``), so several batches stitch into one container and
-   the header joins it without a copy.
+4. **Tail and output**: the per-chunk tail cell goes through the native
+   core's block encoder (``native.huf_compress``), the shared one through
+   ``codec.compress_cell_shared`` with the plane's shared table; the chunk
+   tables and every cell are written at their global offsets into one
+   ``codec.frame`` behind ``prefix_len`` bytes left for the caller's
+   header (:func:`splice`, the native core's ``splice_cells``), so several
+   batches stitch into one container and the header joins it without a
+   copy.
 
 On CPU tensors the kernels' plain versions run, so the same pipeline
 encodes on the host for the tests.
@@ -548,7 +549,7 @@ def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reord
 
 
 def _layout(g: Geometry, batches: List[Batch], tail, prefix_len: int):
-    """The output buffer with the chunk-type and cumulative-size tables
+    """The output frame with the chunk-type and cumulative-size tables
     written behind ``prefix_len`` bytes, and the absolute start of plane
     ``b``'s cell of chunk ``c`` (``base[b] + starts[b, c]``)."""
     nb = g.num_buf
@@ -566,7 +567,7 @@ def _layout(g: Geometry, batches: List[Batch], tail, prefix_len: int):
     starts[:, 1:] = cumulative
     tbl_len = types.nbytes + cumulative.nbytes
     base = prefix_len + tbl_len + np.concatenate([[0], np.cumsum(starts[:, -1])[:-1]])
-    out = np.empty(prefix_len + tbl_len + int(starts[:, -1].sum()), dtype=np.uint8)
+    out = codec.frame(prefix_len + tbl_len + int(starts[:, -1].sum()))
     out[prefix_len : prefix_len + types.nbytes] = types.reshape(-1)
     out[prefix_len + types.nbytes : prefix_len + tbl_len] = cumulative.view(np.uint8).reshape(-1)
     return out, base.astype(np.int64), starts
@@ -581,7 +582,7 @@ def _tail_cells(tail):
 
 def splice(g: Geometry, batches: List[Batch], tail, prefix_len: int = 0) -> np.ndarray:
     """The container payload behind ``prefix_len`` bytes left for the
-    caller's header, in one uint8 buffer: chunk-type and cumulative-size
+    caller's header, in one ``codec.frame``: chunk-type and cumulative-size
     tables, then each plane's cells in chunk order, every batch's cells
     written at their global offsets by one call to the native core
     (``native.splice_cells``), the tail's as one more.  ``tail`` is None or
@@ -633,32 +634,15 @@ def splice_plain(g: Geometry, batches: List[Batch], tail, prefix_len: int = 0) -
     return out
 
 
-def shared_tail_cell(plane: np.ndarray, table) -> Optional[bytes]:
-    """``codec.compress_cell_shared`` with the native core's block
-    encoder: RLE for one repeated byte, the shared table otherwise; None
-    (store raw) without a table or where the table lacks a byte of the
-    cell."""
-    if plane.size == 0:
-        return None
-    if np.all(plane == plane[0]):
-        return bytes(plane[:1])
-    if table is None:
-        return None
-    lengths, _, header, _ = table
-    if int(lengths[plane].min()) == 0:
-        return None
-    return native.huf_compress_table(plane, lengths, header)
-
-
 def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
                      chunk_size: int, threshold: float = codec.DEFAULT_THRESHOLD,
                      check_th_after_percent: int = 0, shared_tables: bool = False,
-                     device="cuda", prefix_len: int = 0) -> memoryview:
+                     device="cuda", prefix_len: int = 0) -> np.ndarray:
     """Compress ``data`` (a host uint8 array, or a uint8 tensor, read in
     place on its CUDA device) into the payload of either profile on
     ``device``; its bytes equal ``codec.compress_payload_numpy(...)``'s
     for the same arguments (``check_th_after_percent`` applies to the
-    per-chunk profile only, as there).  Returns a view of one buffer that
+    per-chunk profile only, as there).  Returns a ``codec.frame`` that
     holds ``prefix_len`` bytes for the caller's header, then the
     payload."""
     device = torch.device(device)
@@ -725,7 +709,7 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
         tail_blobs = []
         for b, plane in enumerate(tail_planes):
             if shared_tables:
-                comp = shared_tail_cell(plane, shared[b])
+                comp = codec.compress_cell_shared(plane, shared[b])
             else:
                 comp = None if abandon.planes[b] else native.huf_compress(plane)
             if comp is not None and len(comp) < plane.size * threshold:
@@ -740,7 +724,7 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
     last_timings["splice_s"] = time.perf_counter() - t2
     last_timings.update(upload_s=src.upload_s, upload_bytes=src.uploaded,
                         h2d_bytes=src.h2d, d2h_bytes=src.d2h, batches=len(batches))
-    return memoryview(out)
+    return out
 
 
 def kernel_ms() -> Dict[str, float]:

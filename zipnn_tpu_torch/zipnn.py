@@ -13,7 +13,7 @@ an explicit ``device``:
   of every full chunk run there, at every chunk size), byte-identical to
   the golden encoder; a torch input already on the card is read in place.
   ``engine="native"`` runs the native C++ host codec (``native``) both
-  ways.  ``compress`` returns a memoryview of one buffer: the header is
+  ways.  ``compress`` returns ``bytes``, filled in place: the header is
   written into room the encoder leaves in front of the payload.
 * ``input_format="torch"`` returns a tensor on ``device`` (on the host
   with ``engine="numpy"``); ``"byte"`` and ``"numpy"`` return host data.
@@ -129,9 +129,9 @@ class ZipNN:
 
     def compress(self, data):
         """Compress ``data`` (bytes / torch.Tensor / np.ndarray) into one
-        ``.znn`` frame, byte-identical to the JAX package's numpy engine: a
-        memoryview of one buffer, the header written into the room the
-        encoder leaves in front of the payload (no join copy)."""
+        ``.znn`` frame (``bytes``), byte-identical to the JAX package's
+        numpy engine: the header is written into the room the encoder
+        leaves in front of the payload (no join copy)."""
         t0 = time.perf_counter()
         code, shape, arr = self._resolve_dtype_and_bytes(data)
         nbytes = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
@@ -152,17 +152,17 @@ class ZipNN:
             hdr.shape = shape
         chunk = codec.effective_chunk(self.compression_chunk, grouping.num_buf)
         prefix = HEADER_LEN + hdr.ext_len()
-        buf = memoryview(codec.compress_payload(
+        buf = codec.compress_payload(
             arr, grouping.num_buf, grouping.bit_reorder, grouping.byte_reorder,
             chunk, self.compression_threshold, self.engine,
             check_th_after_percent=self.check_th_after_percent,
             shared_tables=self.huffman_table == "shared", device=self.device,
             prefix_len=prefix,
-        ))
+        )
         hdr.total_len = len(buf)
-        buf[:prefix] = hdr.to_bytes()
+        buf[:prefix] = np.frombuffer(hdr.to_bytes(), np.uint8)
         self._record_stats("compress", nbytes, len(buf), time.perf_counter() - t0)
-        return buf
+        return codec.frame_bytes(buf)
 
     # ------------------------------------------------------------------
     # decompression
