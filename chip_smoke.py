@@ -56,7 +56,9 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
       6002 bytes, which must launch ``huf_shared_decode`` and not
       ``huf_pc_decode``;
    all N(0, 0.05) from ``--seed``, compressed by the golden encoder
-   (cached in ``zipnn_tpu_torch/_build/``);
+   (cached in ``zipnn_tpu_torch/_build/``); each path prints its plan,
+   stage (host copies into pinned memory) and upload seconds of the first
+   call (the staging pool may be cold) and of the second;
 5. a flipped bit inside a Huffman stream, per-chunk and shared-table, must
    raise ``CorruptChunkError`` naming the plane and chunk the golden
    decoder names, and the stream;
@@ -76,7 +78,20 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    and the default per-chunk encode at full width from a CUDA tensor,
    bf16 and fp32, each container byte-equal to phase 4's golden one: must
    launch ``hist_cells`` and ``huf_pc_encode`` and not ``const_scan_rows``
-   or ``huf_shared_encode``, and upload none of the input.
+   or ``huf_shared_encode``, and upload none of the input;
+7. a serving load at the published widths of Llama-3-8B
+   (``meta-llama/Meta-Llama-3-8B`` ``config.json``: hidden 4096,
+   intermediate 14336, 8 KV heads of 128), cut to 2 of its 32 decoder
+   layers: 18 bf16 tensors (q, k, v, o, gate, up, down projections and two
+   RMSNorm weights a layer, ~832 MiB), N(0, 0.05) from ``--seed`` made on
+   the card and written by ``ZipNN(engine="cuda")`` in the per-chunk
+   profile (k_proj's container byte-equal to the golden encoder's), decoded
+   by ``io.serving.ShardDecoder(to_device=True)`` through
+   ``decompress_iter``, ``decompress_all`` (first call, then staged
+   ``stack_groups`` replayed twice through ``decompress_groups``) and by
+   one ``ZipNN.decompress`` per container in a row; every output equal to
+   its original; each way's wall, GB/s and summed plan, stage and upload
+   seconds.
 
 Each encode path prints its phase times (split, histogram, plan, kernels,
 fetch, splice) and end-to-end GB/s beside the golden encoder's seconds.  It
@@ -204,7 +219,9 @@ def plan_of(container: bytes, dev):
     lo, hi = decode.plan_batches(plan.g.n_chunks, plan.g.chunk_size)[0]
     hi = min(hi, z.original_len // plan.g.chunk_size)  # full chunks only
     check(hi - lo >= 64, f"first batch has {hi - lo} full chunks, want >= 64")
-    return plan, decode.DeviceInputs(plan, dev), (lo, hi)
+    dv = decode.DeviceInputs(plan, dev)
+    torch.cuda.current_stream(dev).wait_event(dv.upload(0))
+    return plan, dv, (lo, hi)
 
 
 def hold_decode(label, module, wrapper, plain, args, table_bytes):
@@ -301,13 +318,18 @@ def drive(label, container, x_cpu, must_launch, must_not_launch, smi):
     y = ZipNN(input_format="torch", engine="cuda").decompress(container)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
+    t2 = dict(decode.last_timings)
     check(torch.equal(y.view(ints), x_dev.view(ints)), f"second {label} run mismatch")
     del y, x_dev
     ktxt = ", ".join(f"{k} {v:.3f} ms" for k, v in kms.items())
+
+    def phases(t):
+        return (f"plan {t['plan_s']:.4f} s, stage {t['stage_s']:.4f} s, "
+                f"upload {t['upload_s']:.4f} s")
+
     log(f"[{label}] {nbytes} bytes {x_cpu.dtype} -> CUDA tensor, bit-exact; "
-        f"plan {timings['plan_s']:.3f} s, upload {timings['upload_s']:.3f} s, "
-        f"{ktxt}, end to end {wall:.3f} s = {nbytes / wall / 1e9:.3f} GB/s "
-        f"(second run {wall2:.3f} s = {nbytes / wall2 / 1e9:.3f} GB/s); "
+        f"{phases(timings)}, {ktxt}, end to end {wall:.4f} s = {nbytes / wall / 1e9:.3f} GB/s "
+        f"(second run: {phases(t2)}, {wall2:.4f} s = {nbytes / wall2 / 1e9:.3f} GB/s); "
         f"launches {launches}; card: {smi}")
     return launches
 
@@ -509,7 +531,7 @@ def hold_native(batch: dict, x_cpu: torch.Tensor, container: bytes, dev) -> None
     bf16 per-chunk paths: ``native.build_ctables`` against
     ``encode.cell_table`` on every cell of the encode's first batch that
     passes the cheap checks (status, header bytes, packed entries); the
-    native weight-header parse (``huf_pc.cell_tables``) against the Python
+    native weight-header parse (``huf_pc.distinct_tables``) against the Python
     one on every Huffman cell of ``container``; the native splice against
     the Python one on the batches of a per-chunk encode of ``x_cpu`` from
     the card, whose container must equal ``container``.  Each timed on the
@@ -534,7 +556,7 @@ def hold_native(batch: dict, x_cpu: torch.Tensor, container: bytes, dev) -> None
         f"Huffman) in {nat_ms:.2f} ms, cell_table (Python) {plain_ms:.1f} ms: equal")
 
     seen = []
-    parse = huf_pc.cell_tables
+    parse = huf_pc.distinct_tables
 
     def spy(hdrs):
         seen.append(list(hdrs))
@@ -542,16 +564,16 @@ def hold_native(batch: dict, x_cpu: torch.Tensor, container: bytes, dev) -> None
 
     z = ZipNN(engine="cuda")
     after = z._retrieve_header(memoryview(container))
-    huf_pc.cell_tables = spy
+    huf_pc.distinct_tables = spy
     try:
         decode.build_plan(memoryview(container)[after:], 2, z._bit_reorder, z._byte_reorder,
                           z.compression_chunk, z.original_len)
     finally:
-        huf_pc.cell_tables = parse
+        huf_pc.distinct_tables = parse
     hdrs = seen[0]
-    (t_n, l_n, k_n), nat_ms = host_ms(lambda: huf_pc.cell_tables(hdrs))
-    (t_p, l_p, k_p), plain_ms = host_ms(lambda: huf_pc.cell_tables_plain(hdrs))
-    check(k_n == k_p and np.array_equal(t_n, t_p) and np.array_equal(l_n, l_p),
+    got, nat_ms = host_ms(lambda: huf_pc.distinct_tables(hdrs))
+    want, plain_ms = host_ms(lambda: huf_pc.distinct_tables_plain(hdrs))
+    check(got[3] == want[3] and all(np.array_equal(a, b) for a, b in zip(got[:3], want[:3])),
           "native header parse != Python")
     log(f"[native] header parse: {len(hdrs)} weight headers ({len(set(hdrs))} distinct) in "
         f"{nat_ms:.2f} ms, Python {plain_ms:.1f} ms: equal tables")
@@ -771,6 +793,126 @@ def pc_encode_path(label, x_cpu, want: bytes, golden_s, smi):
     return launches
 
 
+# Llama-3-8B (meta-llama/Meta-Llama-3-8B, config.json): hidden_size 4096,
+# intermediate_size 14336, 32 heads, 8 KV heads, head_dim 128; 2 of its 32
+# decoder layers
+LLAMA3_8B = {"hidden": 4096, "intermediate": 14336, "kv": 8 * 128, "layers": 2}
+
+
+def llama_tensors(cfg=LLAMA3_8B):
+    """(name, shape) of the bf16 weights of the first ``layers`` decoder
+    layers, as the checkpoint stores them (``nn.Linear`` weights are [out,
+    in]): 9 a layer, the two RMSNorm weights with no full 256 KB chunk."""
+    h, i, kv = cfg["hidden"], cfg["intermediate"], cfg["kv"]
+    out = []
+    for layer in range(cfg["layers"]):
+        p = f"model.layers.{layer}."
+        out += [(p + "self_attn.q_proj.weight", (h, h)), (p + "self_attn.k_proj.weight", (kv, h)),
+                (p + "self_attn.v_proj.weight", (kv, h)), (p + "self_attn.o_proj.weight", (h, h)),
+                (p + "mlp.gate_proj.weight", (i, h)), (p + "mlp.up_proj.weight", (i, h)),
+                (p + "mlp.down_proj.weight", (h, i)), (p + "input_layernorm.weight", (h,)),
+                (p + "post_attention_layernorm.weight", (h,))]
+    return out
+
+
+def llama_load(seed: int, dev):
+    """The load's tensors, N(0, 0.05) in bf16 from ``seed`` (made on the
+    card), and their containers in the default per-chunk profile, written
+    by ``ZipNN(engine="cuda")``."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    names, xs, blobs = [], [], []
+    for name, shape in llama_tensors():
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        names.append(name)
+        xs.append(x)
+        blobs.append(ZipNN(input_format="torch", engine="cuda", device=dev).compress(x))
+    return names, xs, blobs
+
+
+def serving_load(seed: int, dev, smi):
+    """Phase 7: the Llama-3-8B two-layer load decoded on the card by
+    ``ShardDecoder(to_device=True).decompress_iter``, by
+    ``decompress_all`` (first call, then staged ``stack_groups`` replayed
+    through ``decompress_groups``) and by one ``ZipNN.decompress`` per
+    container in a row; every output equal to its original, the launch
+    counts set to 0 before each way and read after.  Prints each way's wall
+    and GB/s and the summed plan, stage and upload seconds."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.io.serving import ShardDecoder  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, kernels, staging  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    names, xs, blobs = llama_load(seed, dev)
+    nbytes = sum(x.numel() * 2 for x in xs)
+    comp = sum(len(b) for b in blobs)
+    k = names.index("model.layers.0.self_attn.k_proj.weight")
+    golden = ZipNN(input_format="torch", engine="numpy").compress(xs[k].cpu())
+    check(golden == blobs[k], "k_proj container from the card != golden")
+    log(f"[serving] Llama-3-8B, {LLAMA3_8B['layers']} decoder layers: {len(xs)} bf16 tensors, "
+        f"{nbytes} bytes -> {comp} bytes (ratio {comp / nbytes:.4f}), made and encoded on "
+        f"the card in {time.perf_counter() - t0:.2f} s; k_proj's container == golden")
+
+    def held(outs, way):
+        check(len(outs) == len(xs), f"{way}: {len(outs)} outputs")
+        for name, x, y in zip(names, xs, outs):
+            y = y.view(torch.int16).reshape(-1) if y.dtype == torch.uint8 else y.view(torch.int16)
+            check(y.device == x.device
+                  and torch.equal(y.reshape(-1), x.view(torch.int16).reshape(-1)),
+                  f"{way}: {name} != original")
+
+    def summed(timings):
+        return "plan {:.4f} s, stage {:.4f} s, upload {:.4f} s".format(
+            *(sum(t[key] for t in timings) for key in ("plan_s", "stage_s", "upload_s")))
+
+    def run(way, fn):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, timings = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        held(outs, way)
+        for kname in ("huf_pc_decode", "combine_cells"):
+            check(launches[kname] > 0, f"{kname} not launched by {way}")
+        log(f"[serving] {way}: {wall:.4f} s = {nbytes / wall / 1e9:.3f} GB/s; "
+            f"{summed(timings)}; launches {launches}; card: {smi}")
+        return wall
+
+    def per_container():
+        outs, timings = [], []
+        for b in blobs:
+            outs.append(ZipNN(engine="cuda", device=dev).decompress(b))
+            timings.append(dict(decode.last_timings))
+        return outs, timings
+
+    dec = ShardDecoder(to_device=True, device=dev)
+    walls = {}
+    walls["iter"] = run("ShardDecoder.decompress_iter", lambda: (list(dec.decompress_iter(blobs)),
+                                                                 dec.timings))
+    walls["all"] = run("ShardDecoder.decompress_all (first call)",
+                       lambda: (dec.decompress_all(blobs), dec.timings))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    units = dec.stack_groups([dec.stage(b) for b in blobs])
+    torch.cuda.synchronize()
+    stage_wall = time.perf_counter() - t0
+    log(f"[serving] stage + stack_groups of {len(blobs)} containers: {stage_wall:.4f} s")
+    for rep in (1, 2):
+        walls[f"groups{rep}"] = run(f"ShardDecoder.decompress_groups (staged, replay {rep})",
+                                    lambda: (dec.decompress_groups(units), dec.timings))
+    del units
+    walls["zipnn"] = run("ZipNN.decompress per container", per_container)
+    walls["iter2"] = run("ShardDecoder.decompress_iter (again)",
+                         lambda: (list(dec.decompress_iter(blobs)), dec.timings))
+    pool = staging.pool(dev)
+    log(f"[serving] staging pool: {pool.held} pinned bytes held (bound {staging.POOL_BYTES}), "
+        f"{pool.allocated} pinned allocations")
+    return walls
+
+
 def cpu_model() -> str:
     """The host CPU's model (``lscpu``'s "Model name", else
     ``/proc/cpuinfo``'s "model name"), with its core count: the plan and
@@ -981,7 +1123,10 @@ def main() -> int:
                                 GOLDEN_S.get(("fp32", "per_chunk")), smi)
     del c_fp32
 
-    # ---- 7. summary -----------------------------------------------------
+    # ---- 7. the serving load --------------------------------------------
+    serving_load(args.seed + 20, dev, smi)
+
+    # ---- summary ---------------------------------------------------------
     def row(key, kname, source, replaces, path, launches):
         return {"name": kname, "path": path, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "bound_by": "bytes",

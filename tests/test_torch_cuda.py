@@ -63,7 +63,8 @@ def _k1_inputs(sizes, seed):
             cells.append(i)
             pos += ln
             o += seg
-    tables, tlogs, _ = huf_pc.cell_tables(headers)
+    tables, tlogs, inv, _ = huf_pc.distinct_tables(headers)
+    tables, tlogs = tables[inv], tlogs[inv]  # a row per cell
     t = torch.from_numpy
     return (
         t(np.frombuffer(b"".join(parts), np.uint8).copy()), t(np.asarray(starts, np.int64)),
@@ -210,7 +211,8 @@ def _hard_case(case, shared):
     args, n_out = _stream_args(streams, olens)
     if shared:
         return (*args, torch.from_numpy(huf_shared.expand_table8(header)), n_out)
-    tables, tlogs, _ = huf_pc.cell_tables(headers)
+    tables, tlogs, inv, _ = huf_pc.distinct_tables(headers)
+    tables, tlogs = tables[inv], tlogs[inv]  # a row per cell
     if case == "nb_zero":  # cell 1's most frequent symbol consumes 0 bits
         row = tables[1, : 1 << int(tlogs[1])]
         sym = np.bincount(row & 0xFF).argmax()
@@ -705,3 +707,149 @@ def test_encode_on_card_takes_native_plan_and_splice(card, dtype, profile, monke
     assert batches >= 2 and encode.last_timings["upload_bytes"] == 0
     assert calls["splice_cells"] == batches + 1  # and the tail
     assert calls["build_ctables"] == (batches if profile == "per_chunk" else 0)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined decode's staging, and io.serving.ShardDecoder
+# ---------------------------------------------------------------------------
+
+def _shard_blobs(k, nbytes, seed, **kw):
+    raws = [_raw(torch.bfloat16, nbytes + 2 * i, seed + i).tobytes() for i in range(k)]
+    return raws, [bytes(ZipNN(engine="numpy", compression_chunk=CHUNK, **kw).compress(r))
+                  for r in raws]
+
+
+class _H2DCopies(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records, for every host-to-card copy, whether its source is pinned."""
+
+    def __init__(self):
+        super().__init__()
+        self.pinned = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.copy_.default:
+            dst, src = args[0], args[1]
+            if dst.is_cuda and src.device.type == "cpu":
+                self.pinned.append(src.is_pinned())
+        elif func is torch.ops.aten._to_copy.default:
+            dev = kwargs.get("device")
+            if args[0].device.type == "cpu" and dev is not None and torch.device(dev).type == "cuda":
+                self.pinned.append(args[0].is_pinned())
+        return func(*args, **kwargs)
+
+
+def test_decode_uploads_only_from_pinned_staging(card, monkeypatch):
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+    from zipnn_tpu_torch.ops import staging
+
+    monkeypatch.setattr(decode, "BATCH_BYTES", 4 * CHUNK)
+    raws, blobs = _shard_blobs(2, 9 * CHUNK + 6002, seed=30)
+    dec = ShardDecoder(to_device=True)
+    with _H2DCopies() as seen:
+        assert bytes(ZipNN(engine="cuda").decompress(blobs[0])) == raws[0]
+        t = dict(decode.last_timings)
+        outs = dec.decompress_all(blobs)
+    assert [o.cpu().numpy().tobytes() for o in outs] == raws
+    assert len(seen.pinned) >= 2 * 3 and all(seen.pinned)
+    pool = staging.pool(card)
+    bufs = pool.free + [b for b, _ in pool.busy]
+    assert bufs and all(b.is_pinned() for b in bufs)
+    for t in (t, *dec.timings):
+        assert t["stage_s"] > 0 and t["upload_s"] > 0 and t["plan_s"] > 0
+
+
+def test_serving_iter_repeats_bit_exact_at_small_batches(card, monkeypatch):
+    """50 loads of 3 shards through many 64 KB batches, pieces of 16 KB
+    and a pool of 4 pieces: every event, wait and buffer reuse is
+    exercised many times over."""
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+    from zipnn_tpu_torch.ops import staging
+
+    monkeypatch.setattr(decode, "BATCH_BYTES", 64 << 10)
+    monkeypatch.setattr(staging, "PIECE_BYTES", 16 << 10)
+    monkeypatch.setattr(staging, "POOL_BYTES", 64 << 10)
+    monkeypatch.setattr(staging, "_pools", {})
+    raws, blobs = _shard_blobs(3, 40 * CHUNK + 6002, seed=40)
+    dec = ShardDecoder(to_device=True)
+    for _ in range(50):
+        got = list(dec.decompress_iter(blobs))
+        assert all(g.is_cuda for g in got)
+        assert [g.cpu().numpy().tobytes() for g in got] == raws
+    assert staging.pool(card).held <= 64 << 10
+
+
+def test_serving_deferred_corruption_on_card(card):
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+
+    raws, blobs = _shard_blobs(3, 4 * CHUNK, seed=50)
+    z = ZipNN(engine="numpy")
+    after = z._retrieve_header(memoryview(blobs[1]))
+    plan = decode.build_plan(memoryview(blobs[1])[after:], 2, 1, 10, CHUNK, len(raws[1]))
+    s0, ln = after + int(plan.starts[6]), int(plan.lens[6])
+    for bit in range(8 * (ln // 2), 8 * (ln - 1)):
+        bad = bytearray(blobs[1])
+        bad[s0 + bit // 8] ^= 1 << (bit % 8)
+        try:
+            ZipNN(engine="cuda").decompress(bytes(bad))
+        except CorruptChunkError as exc:
+            want = (exc.plane, exc.chunk, exc.stream, str(exc))
+            break
+    else:
+        pytest.fail("no rejected bit flip found")
+    for dec in (ShardDecoder(to_device=True), ShardDecoder(as_numpy=True)):
+        with pytest.raises(CorruptChunkError) as got:
+            dec.decompress_all([blobs[0], bytes(bad), blobs[2]])
+        e = got.value
+        assert (e.plane, e.chunk, e.stream, str(e)) == want
+    outs = ShardDecoder(to_device=True).decompress_all(blobs)
+    assert [o.cpu().numpy().tobytes() for o in outs] == raws
+
+
+def test_serving_outputs_on_card_and_pool_bounded(card):
+    """A 20-shard load (both profiles, one shard with no full chunk)
+    through decompress_iter, decompress_all and replayed staged groups:
+    outputs live on the card, and the pool's pinned bytes stay under its
+    bound."""
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+    from zipnn_tpu_torch.ops import staging
+
+    raws, blobs = _shard_blobs(18, 64 * CHUNK + 6, seed=60)
+    r2, b2 = _shard_blobs(1, 8 * CHUNK, seed=80, huffman_table="shared")
+    r3, b3 = _shard_blobs(1, 8192, seed=90)
+    raws, blobs = raws + r2 + r3, blobs + b2 + b3
+    dec = ShardDecoder(to_device=True)
+    got = list(dec.decompress_iter(blobs))
+    assert all(g.is_cuda and g.dtype == torch.uint8 for g in got)
+    assert [g.cpu().numpy().tobytes() for g in got] == raws
+    assert len(dec.timings) == 20 and all(t["upload_s"] >= 0 for t in dec.timings)
+    assert sum(t["upload_s"] for t in dec.timings) > 0
+    assert [g.cpu().numpy().tobytes() for g in dec.decompress_all(blobs)] == raws
+    units = dec.stack_groups([dec.stage(b) for b in blobs])
+    for _ in range(2):
+        kernels.reset_launches()
+        got = dec.decompress_groups(units)
+        assert [g.cpu().numpy().tobytes() for g in got] == raws
+        assert kernels.launches["huf_shared_decode"] > 0
+    pool = staging.pool(card)
+    assert pool.held <= staging.POOL_BYTES
+
+
+def test_standalone_device_inputs_order_later_kernels(card, monkeypatch):
+    """Inputs uploaded ahead (``stage``) and launched at once
+    (``start_staged``): each batch's kernels read the uploaded bytes, not
+    bytes still in flight on the copy stream."""
+    from zipnn_tpu_torch.ops import staging
+
+    monkeypatch.setattr(decode, "BATCH_BYTES", 16 * CHUNK)
+    monkeypatch.setattr(staging, "PIECE_BYTES", 16 << 10)
+    monkeypatch.setattr(staging, "_pools", {})
+    raws, blobs = _shard_blobs(1, 64 * CHUNK, seed=70)
+    z = ZipNN(engine="numpy")
+    after = z._retrieve_header(memoryview(blobs[0]))
+    payload = memoryview(blobs[0])[after:]
+    for _ in range(20):
+        st = decode.stage(payload, 2, 1, 10, CHUNK, len(raws[0]), device=card)
+        assert len(st.inputs.events) == 4
+        out = decode.finish(decode.start_staged(st))
+        assert out.cpu().numpy().tobytes() == raws[0]

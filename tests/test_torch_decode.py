@@ -91,6 +91,50 @@ def test_decode_across_batches(monkeypatch):
     assert bytes(_port(engine="cuda").decompress(comp)) == raw
 
 
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+def test_pipeline_batches_ranges_and_staging(monkeypatch, profile):
+    """A container in 4 batches (``BATCH_BYTES`` of 2 chunks): the batches'
+    payload ranges tile the data region and hold every cell of their
+    chunks; ``finish(start())``, ``stage`` + ``start_staged`` (twice) and a
+    deferred check all give the reference's bytes."""
+    raw = _raw("bfloat16", 7 * CHUNK + 100, seed=6)
+    comp = _ref_container(raw, "bfloat16", huffman_table=profile)
+    monkeypatch.setattr(decode, "BATCH_BYTES", 2 * CHUNK)
+    z = _port(engine="cuda")
+    after = z._retrieve_header(memoryview(comp))
+    args = (memoryview(comp)[after:], 2, z._bit_reorder, z._byte_reorder,
+            z.compression_chunk, z.original_len)
+    g = decode.build_plan(*args).g
+    batches = decode.plan_batches(g.n_chunks, g.chunk_size)
+    assert len(batches) == 4
+    covered = np.zeros(len(comp) - after, dtype=np.int64)
+    for lo, hi in batches:
+        ranges = decode.payload_ranges(g, lo, hi)
+        assert len(ranges) <= 2
+        mine = np.zeros_like(covered)
+        for off, n in ranges:
+            mine[off : off + n] += 1
+        covered += mine
+        for b in range(2):
+            for c in range(lo, hi):
+                s0, n = int(g.cell_start[b, c]), int(g.cell_size[b, c])
+                assert mine[s0 : s0 + n].all()
+    data_start = 2 * g.n_chunks * 9  # the chunk type and size tables
+    assert not covered[:data_start].any() and (covered[data_start:] == 1).all()
+    want = bytes(zipnn_tpu.ZipNN(engine="numpy").decompress(comp))
+    assert want == raw
+    assert decode.finish(decode.start(*args, device="cpu")).numpy().tobytes() == raw
+    st = decode.stage(*args, device="cpu")
+    for _ in range(2):
+        assert decode.finish(decode.start_staged(st)).numpy().tobytes() == raw
+    defer: list = []
+    out = decode.finish(decode.start(*args, device="cpu", defer=defer))
+    assert len(defer) == 1 and defer[0].bits.numel() == 4 * decode.build_plan(*args).n_huf
+    decode.validate_deferred(defer)
+    assert out.numpy().tobytes() == raw
+    assert set(defer[0].timings) >= {"plan_s", "stage_s", "upload_s", "decoder"}
+
+
 @pytest.mark.parametrize("name", ["bf16_gauss", "fp16_mixed", "fp8_gauss"])
 def test_fixtures_decode_bit_exact(name):
     comp = (FIXDIR / f"{name}.znn").read_bytes()
@@ -346,6 +390,8 @@ def test_import_and_roundtrip_leave_jax_unloaded():
         "raw = np.arange(70000, dtype=np.uint16).tobytes()\n"
         "z = zipnn_tpu_torch.ZipNN(engine='cuda', device='cpu', compression_chunk=16384)\n"
         "assert bytes(z.decompress(z.compress(raw))) == raw\n"
+        "from zipnn_tpu_torch.io.serving import ShardDecoder\n"
+        "assert list(ShardDecoder(device='cpu').decompress_iter([z.compress(raw)])) == [raw]\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zipnn_tpu'))))\n"
     )

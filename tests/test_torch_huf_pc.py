@@ -72,7 +72,8 @@ def _inputs(blobs, sizes, junk: int = 0, row: int = None):
             cells.append(i)
             pos += len(s)
             o += seg[k]
-    tables, tlogs, _ = huf_pc.cell_tables(headers)
+    tables, tlogs, inv, _ = huf_pc.distinct_tables(headers)
+    tables, tlogs = tables[inv], tlogs[inv]  # a row per cell
     payload = np.frombuffer(b"".join(parts), np.uint8).copy()
     t = torch.from_numpy
     args = (
@@ -87,7 +88,8 @@ def _inputs(blobs, sizes, junk: int = 0, row: int = None):
 def test_cell_tables_match_build_dtable():
     _, blobs = _cells([4096, 3000, 5000], [0, 1, 2])
     headers = [_split_cell(b)[0] for b in blobs]
-    tables, tlogs, tlog_k = huf_pc.cell_tables(headers + headers[:1])
+    tables, tlogs, inv, tlog_k = huf_pc.distinct_tables(headers + headers[:1])
+    tables, tlogs = tables[inv], tlogs[inv]
     assert tlog_k == int(tlogs.max()) and tables.shape == (4, 1 << tlog_k)
     for i, h in enumerate(headers):
         w, r, tlog, _, _ = huf.read_stats(h)

@@ -77,7 +77,8 @@ def _per_cell(sizes, seed, spread=(3, 12)):
         streams += st
         olens += huf.segment_sizes(n)
         cells += [i] * 4
-    tables, tlogs, _ = huf_pc.cell_tables(headers)
+    tables, tlogs, inv, _ = huf_pc.distinct_tables(headers)
+    tables, tlogs = tables[inv], tlogs[inv]  # a row per cell
     args, n_out = _args(streams, olens)
     return planes, args, T(np.asarray(cells, np.int32)), T(tlogs), T(tables), n_out
 

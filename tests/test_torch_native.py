@@ -7,8 +7,8 @@ it replaces on the card's paths and against the JAX package, tolerance 0:
 * ``native.build_ctables`` equals ``encode.cell_table`` (status, header
   bytes, packed K7 entries) on the cells of seeded bf16 and fp32 buffers
   and on edge histograms;
-* the native decode-table parse (``huf_pc.cell_tables``) equals the Python
-  one (``cell_tables_plain``) on the headers of ``tests/fixtures/*.znn``
+* the native decode-table parse (``huf_pc.distinct_tables``) equals the Python
+  one (``distinct_tables_plain``) on the headers of ``tests/fixtures/*.znn``
   and of a per-chunk bf16 container, and names the same first bad cell of
   a corrupt header;
 * the native splice equals the Python splice (``encode.splice_plain``) on
@@ -139,7 +139,7 @@ def test_build_ctables_matches_cell_table_on_edges(case):
 def _headers_of(container: bytes):
     """The weight headers a decode plan parses, in cell order."""
     seen = []
-    plain = huf_pc.cell_tables
+    plain = huf_pc.distinct_tables
 
     def spy(headers):
         seen.append(list(headers))
@@ -149,11 +149,11 @@ def _headers_of(container: bytes):
     after = z._retrieve_header(memoryview(container))
     geo = (dtypes.groups_for_decompress(z.dtype), z._bit_reorder, z._byte_reorder,
            z.compression_chunk, z.original_len)
-    decode.huf_pc.cell_tables = spy
+    decode.huf_pc.distinct_tables = spy
     try:
         decode.build_plan(memoryview(container)[after:], *geo)
     finally:
-        decode.huf_pc.cell_tables = plain
+        decode.huf_pc.distinct_tables = plain
     return seen[0]
 
 
@@ -172,16 +172,16 @@ def _container(name):
 def test_cell_tables_match_plain(name):
     headers = _headers_of(_container(name))
     assert len(headers) > 0
-    got = huf_pc.cell_tables(headers)
-    want = huf_pc.cell_tables_plain(headers)
-    assert got[2] == want[2]
-    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    got = huf_pc.distinct_tables(headers)
+    want = huf_pc.distinct_tables_plain(headers)
+    assert got[3] == want[3]
+    assert all(np.array_equal(a, b) for a, b in zip(got[:3], want[:3]))
     bad = list(headers)
     at = min(3, len(bad) - 1)
     bad[at] = b"\x81\xff"  # two weights of 15: past the 12-bit limit
     bad[-1] = b"\x05\x01"  # truncated FSE weights
     errs = []
-    for parse in (huf_pc.cell_tables, huf_pc.cell_tables_plain):
+    for parse in (huf_pc.distinct_tables, huf_pc.distinct_tables_plain):
         with pytest.raises(ValueError) as exc:
             parse(bad)
         errs.append(exc.value.index)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import subprocess
@@ -153,7 +154,9 @@ def _check_policy(handle) -> None:
             f"({codec.SHARED_SAMPLE_MIN_CHUNKS}, {codec.SHARED_SAMPLE_STRIDE})")
 
 
+@functools.lru_cache(maxsize=1)
 def _threads() -> int:
+    """The host's core count, read once (each read is a system call)."""
     return os.cpu_count() or 1
 
 
@@ -254,6 +257,9 @@ def build_ctables(counts: np.ndarray, n: int):
     return status, lengths, vals, headers, hlens
 
 
+HEADERS_PER_THREAD = 256
+
+
 def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
     """Decode tables of weight headers (header ``i`` at ``pool[offsets[i]]``,
     at most ``sizes[i]`` bytes): (tables int16 [n, 2^tlog_k], entries
@@ -265,11 +271,14 @@ def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
     off = _c(offsets, np.int64)
     szs = _c(sizes, np.int64)
     n = off.size
+    # a header parses in microseconds, and each call starts its threads
+    # afresh: a thread only for every HEADERS_PER_THREAD headers
+    threads = min(_threads(), 1 + n // HEADERS_PER_THREAD)
     weights = np.empty((n, 256), dtype=np.uint8)
     tlogs = np.empty(n, dtype=np.int32)
     args = (pool.ctypes.data, off.ctypes.data, szs.ctypes.data, n, weights.ctypes.data,
             tlogs.ctypes.data)
-    r = L.ztpu_parse_dweights(*args, _threads())
+    r = L.ztpu_parse_dweights(*args, threads)
     if r != 0:
         r = L.ztpu_parse_dweights(*args, 1)  # in order: the first bad cell
         exc = ValueError(f"corrupt HUF weight header (cell {-r - 1})")
@@ -278,7 +287,7 @@ def cell_tables(pool: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
     tlog_k = int(tlogs.max()) if n else 1
     tables = np.empty((n, 1 << tlog_k), dtype=np.int16)
     if n and L.ztpu_expand_dtables16(weights.ctypes.data, tlogs.ctypes.data, n, tlog_k,
-                                     tables.ctypes.data, _threads()):
+                                     tables.ctypes.data, threads):
         raise ValueError("expand_dtables16: tableLog out of range")
     return tables, tlogs, tlog_k
 

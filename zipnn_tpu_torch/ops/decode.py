@@ -3,47 +3,60 @@
 The counterpart of the JAX package's ``ops/jax_decode.py`` for both
 Huffman profiles (per-chunk tables, what the reference library writes,
 and the shared-table profile of ``huffman_table="shared"``) and every
-plane count (fp8: 1, bf16/fp16: 2, fp32: 4):
+plane count (fp8: 1, bf16/fp16: 2, fp32: 4), split as its ``_start_fast``
+is into :func:`start` and :func:`finish`:
 
 1. **Host plan** (:class:`Geometry`, :class:`Plan`): parse the chunk
    tables, classify every (plane, chunk) cell as stored, RLE or Huffman —
    the ragged tail chunk included — slice every Huffman cell's header and
-   jump table vectorised, and parse every weight header into its decode
-   table in one call to the native host core (``huf_pc.cell_tables``).
-2. **One upload** of the payload bytes, the per-stream arrays and the
-   tables.
-3. **Chunk-range batches**: per batch, a decode kernel writes the batch's
-   Huffman streams into symbol rows — K6 (``huf_shared.huf_shared_decode``)
-   when every Huffman cell carries one weight header with tableLog <= 8
-   (:func:`takes_shared_table`), else K1 (``huf_pc.huf_pc_decode``) — then
-   kernel K2 (``combine.combine_cells``) assembles the batch's chunks into
-   the output buffer in place.
-4. **End-of-stream check**: every stream must end with ``bits_left == 0``;
-   the first that does not raises ``CorruptChunkError(plane, chunk,
-   stream)``.
+   jump table vectorised, and parse every distinct weight header into its
+   decode table in one call to the native host core
+   (``huf_pc.distinct_tables``).
+2. **Pinned, pipelined uploads** (:class:`DeviceInputs`, through
+   ``staging``): the plan's arrays, then each chunk-range batch's payload
+   bytes (one range per plane: the payload is plane-major), copied into
+   reused page-locked pieces while earlier pieces go up on the staging
+   pool's copy stream; an event behind each batch's bytes.
+3. **Chunk-range batches**, launched as soon as their bytes are queued:
+   the compute stream waits on the batch's event, then a decode kernel
+   writes the batch's Huffman streams into symbol rows — K6
+   (``huf_shared.huf_shared_decode``) when every Huffman cell carries one
+   weight header with tableLog <= 8 (:func:`takes_shared_table`), else K1
+   (``huf_pc.huf_pc_decode``) — and kernel K2 (``combine.combine_cells``)
+   assembles the batch's chunks into the output buffer in place.  So
+   batch N+1's copies overlap batch N's kernels; device memory holds the
+   payload, the output and one batch's symbol rows.
+4. **End-of-stream check** (:func:`finish`): one fetch of every batch's
+   ``bits_left``; every stream must end with ``bits_left == 0``, and the
+   first that does not raises ``CorruptChunkError(plane, chunk, stream)``.
+   With ``defer``, the check waits for :func:`validate_deferred`, which
+   fetches the ``bits_left`` of many containers at once.
 
-On CPU tensors the kernels' plain versions run, so the same pipeline
-decodes on the host for the tests.
+:func:`stage` runs steps 1 and 2 only, for a later :func:`start_staged`
+that copies nothing to the card.  On CPU tensors there is no staging (the
+plan's arrays are the kernels' inputs) and the kernels' plain versions
+run, so the same pipeline decodes on the host for the tests.
 """
 from __future__ import annotations
 
 import time
-import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import codec
 from ..errors import CorruptChunkError
-from . import combine, huf_pc, huf_shared, kernels
+from . import combine, huf_pc, huf_shared, kernels, staging
 
 KIND_STORED, KIND_RLE, KIND_HUF = 0, 1, 2
 BATCH_BYTES = 512 << 20  # output bytes per device batch
 
-# what the last decompress_payload call spent, for callers that report it:
-# plan_s / upload_s (host clock), the decode kernel's name, and on CUDA
-# the events recorded around each kernel launch
+# what the last finished decode spent, for callers that report it:
+# plan_s (host), stage_s (host copies into pinned memory), upload_s (the
+# copy stream, from the end of the plan to the last batch's copy event),
+# the decode kernel's name, and on CUDA the events recorded around each
+# kernel launch
 last_timings: Dict = {}
 
 
@@ -101,7 +114,7 @@ class Geometry:
 
 
 class Plan:
-    """Per-stream arrays and per-cell tables of every Huffman cell.
+    """Per-stream arrays and decode tables of every Huffman cell.
 
     Huffman cells are numbered chunk-major (``huf_b``, ``huf_c``), so each
     chunk-range batch owns a contiguous run of cells and of streams (4
@@ -149,7 +162,7 @@ class Plan:
             )
         headers = [bytes(p[o : o + c]) for o, c in zip(hcs, consumed)]
         try:
-            tables, tlogs, self.tlog_k = huf_pc.cell_tables(headers)
+            tables, tlogs, inv, self.tlog_k = huf_pc.distinct_tables(headers)
         except ValueError as exc:
             i = exc.index
             raise CorruptChunkError(
@@ -174,7 +187,8 @@ class Plan:
         self.out_offs = (
             np.arange(n, dtype=np.int64)[:, None] * self.row + stream_off
         ).reshape(-1)
-        self.cells = np.repeat(np.arange(n, dtype=np.int32), 4)
+        # a table row per distinct header: K1 reads row ``cells[s]``
+        self.cells = np.repeat(inv.astype(np.int32), 4)
         # K2's cell descriptors, chunk-major [n_chunks * num_buf]
         kind = g.kind.T.reshape(-1).astype(np.int32)
         src = g.cell_start.T.reshape(-1).copy()
@@ -243,29 +257,102 @@ def build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
                          byte_reorder))
 
 
-class DeviceInputs:
-    """A plan's arrays on the device: the payload bytes, the per-stream
-    arrays, the decode kernel's tables and K2's cell descriptors, uploaded
-    once."""
-
-    def __init__(self, plan: Plan, device: torch.device):
-        def up(a):
-            with warnings.catch_warnings():
-                # the payload is a read-only view of the caller's buffer;
-                # the pipeline never writes to it
-                warnings.simplefilter("ignore", UserWarning)
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        self.plan = plan
-        self.payload = up(plan.g.payload_np)
-        self.starts, self.lens, self.bits0 = up(plan.starts), up(plan.lens), up(plan.bits0)
-        self.out_offs, self.out_lens = up(plan.out_offs), up(plan.out_lens)
-        if plan.shared:
-            self.table8 = up(plan.table8)
+def payload_ranges(g: Geometry, lo: int, hi: int):
+    """``(offset, length)`` of the payload bytes that the cells of chunks
+    [lo, hi) occupy: one range per plane (each plane's cells lie back to
+    back), adjacent ranges merged.  The batches' ranges tile the payload's
+    data region; the chunk tables in front of it never go to the card."""
+    ranges: List = []
+    ends = g.cell_start[:, hi - 1] + g.cell_size[:, hi - 1]
+    for s, e in zip(g.cell_start[:, lo].tolist(), ends.tolist()):
+        if e <= s:
+            continue
+        if ranges and sum(ranges[-1]) == s:
+            ranges[-1] = (ranges[-1][0], e - ranges[-1][0])
         else:
-            self.cells, self.tlogs, self.tables = (
-                up(plan.cells), up(plan.tlogs), up(plan.tables))
-        self.kinds, self.srcs = up(plan.kinds), up(plan.srcs)
+            ranges.append((s, e - s))
+    return ranges
+
+
+def _packed(arrays):
+    """The arrays' bytes back to back at 16-byte offsets, and each one's
+    (offset, dtype, shape)."""
+    layout, off = [], 0
+    for a in arrays:
+        layout.append((off, a.dtype, a.shape))
+        off += -(-a.nbytes // 16) * 16
+    buf = np.zeros(off, dtype=np.uint8)
+    for a, (o, _, _) in zip(arrays, layout):
+        buf[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return buf, layout
+
+
+_TORCH = {np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
+          np.dtype(np.int64): torch.int64}
+
+
+class DeviceInputs:
+    """A plan's arrays on ``device``: the payload bytes, the per-stream
+    arrays, the decode kernel's tables and K2's cell descriptors.
+
+    On a CUDA device they go up through the staging pool: the plan's
+    arrays, packed into one buffer, when the inputs are made; each batch's
+    payload ranges (:func:`payload_ranges`) at :meth:`upload`.  The device
+    buffers are allocated on the copy stream that writes them and marked
+    as used by the compute stream (``record_stream``), so the caching
+    allocator hands their memory to neither stream before both are done
+    with it.  On the CPU the plan's arrays are the inputs, and nothing is
+    copied.
+    """
+
+    def __init__(self, plan: Plan, device):
+        device = torch.device(device)
+        self.plan = plan
+        self.batches = plan_batches(plan.g.n_chunks, plan.g.chunk_size)
+        self.events: List = []
+        self.timings: Dict = {"stage_s": 0.0}
+        arrays = [plan.starts, plan.lens, plan.bits0, plan.out_offs, plan.out_lens,
+                  plan.kinds, plan.srcs]
+        arrays += [plan.table8] if plan.shared else [plan.cells, plan.tlogs, plan.tables]
+        packed, layout = _packed(arrays)
+        self.src = staging.as_tensor(plan.g.payload_np)
+        self.pool = None
+        if device.type == "cuda":
+            self.pool = staging.pool(device)
+            compute = torch.cuda.current_stream(device)
+            with torch.cuda.stream(self.pool.stream):
+                self.payload = torch.empty(self.src.numel(), dtype=torch.uint8,
+                                           device=device)
+                buf = torch.empty(packed.size, dtype=torch.uint8, device=device)
+                self.start_event = torch.cuda.Event(enable_timing=True)
+                self.start_event.record(self.pool.stream)
+            for t in (self.payload, buf):
+                t.record_stream(compute)
+            staging.upload(self.pool, staging.as_tensor(packed), buf, [(0, packed.size)],
+                           self.timings)
+        else:
+            self.payload, buf = self.src, torch.from_numpy(packed)
+        views = [buf[o : o + int(np.prod(shape)) * dt.itemsize].view(_TORCH[dt]).reshape(shape)
+                 for o, dt, shape in layout]
+        (self.starts, self.lens, self.bits0, self.out_offs, self.out_lens,
+         self.kinds, self.srcs) = views[:7]
+        if plan.shared:
+            (self.table8,) = views[7:]
+        else:
+            self.cells, self.tlogs, self.tables = views[7:]
+        self.ranges = [payload_ranges(plan.g, lo, hi) for lo, hi in self.batches]
+        self.nbytes = packed.size + sum(n for r in self.ranges for _, n in r)  # bytes to the card
+
+    def upload(self, i: int):
+        """Queue batch ``i``'s payload bytes on the copy stream (batches in
+        order) and return ``events[i]``, the event recorded there behind
+        them and so behind the plan's arrays too; None on the CPU."""
+        if self.pool is None:
+            return None
+        event = staging.upload(self.pool, self.src, self.payload, self.ranges[i],
+                               self.timings)
+        self.events.append(event)
+        return event
 
     def decoder(self):
         """(name, wrapper, arguments of chunks [lo, hi)) of the plan's
@@ -312,46 +399,168 @@ class DeviceInputs:
         )
 
 
+class Staged:
+    """A container planned and uploaded by :func:`stage`: ``plan`` (None
+    for an empty container), ``inputs`` (its :class:`DeviceInputs`) and
+    ``timings`` (``plan_s``, ``stage_s``)."""
+
+    def __init__(self, plan: Optional[Plan], inputs: Optional[DeviceInputs],
+                 orig_size: int, device: torch.device, timings: Dict):
+        self.plan, self.inputs, self.orig_size = plan, inputs, orig_size
+        self.device, self.timings = device, timings
+
+
+class Started:
+    """A decode in flight: every batch's kernels queued on the compute
+    stream; :func:`finish` checks the streams and returns the output."""
+
+    def __init__(self, plan: Optional[Plan], orig_size: int, device: torch.device,
+                 timings: Dict, defer):
+        self.plan, self.orig_size, self.timings, self.defer = plan, orig_size, timings, defer
+        self.out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
+        self.bits: List[torch.Tensor] = []
+        self.upload = None  # (first, last) copy-stream event of this call's uploads
+
+    def launch(self, dv: DeviceInputs, i: int) -> None:
+        """Batch ``i``: wait for its bytes, decode its Huffman streams,
+        assemble its chunks."""
+        lo, hi = dv.batches[i]
+        if dv.events:
+            torch.cuda.current_stream(self.out.device).wait_event(dv.events[i])
+        name, decode_fn, args_of = dv.decoder()
+        self.timings["decoder"] = name
+        hsym, bl = decode_fn(*args_of(lo, hi))
+        cs = self.plan.g.chunk_size
+        combine.combine_cells(*dv.k2_args(lo, hi, hsym), self.out[lo * cs :])
+        self.bits.append(bl)
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    return device
+
+
+def _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size):
+    t0 = time.perf_counter()
+    plan = build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size)
+    return plan, {"plan_s": time.perf_counter() - t0, "stage_s": 0.0}
+
+
+def start(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
+          device="cuda", defer: Optional[list] = None) -> Started:
+    """Plan a container, stage its uploads and queue every batch's kernels
+    behind its bytes; :func:`finish` completes it.  With ``defer`` (a
+    list), :func:`finish` appends the container's check there for
+    :func:`validate_deferred` instead of fetching ``bits_left`` itself."""
+    device = _device(device)
+    plan, timings = _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
+                          orig_size)
+    run = Started(plan, orig_size, device, timings, defer)
+    if plan is not None:
+        dv = DeviceInputs(plan, device)
+        with kernels.recording() as events:
+            for i in range(len(dv.batches)):
+                dv.upload(i)
+                run.launch(dv, i)
+        timings["events"] = events
+        timings["stage_s"] = dv.timings["stage_s"]
+        run.upload = (dv.start_event, dv.events[-1]) if dv.events else None
+    return run
+
+
+def stage(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
+          device="cuda") -> Staged:
+    """The plan and every upload of a container (the counterpart of the
+    JAX package's ``stage_dev_batches``), for :func:`start_staged`."""
+    device = _device(device)
+    plan, timings = _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
+                          orig_size)
+    dv = None
+    if plan is not None:
+        dv = DeviceInputs(plan, device)
+        for i in range(len(dv.batches)):
+            dv.upload(i)
+        timings["stage_s"] = dv.timings["stage_s"]
+    return Staged(plan, dv, orig_size, device, timings)
+
+
+def start_staged(st: Staged, defer: Optional[list] = None) -> Started:
+    """Queue the kernels of a :func:`stage`\\ d container; copies nothing
+    to the card, so its plan, stage and upload seconds are 0 (the staged
+    container's ``timings`` hold those of :func:`stage`).  A staged
+    container starts any number of times."""
+    run = Started(st.plan, st.orig_size, st.device, {"plan_s": 0.0, "stage_s": 0.0}, defer)
+    if st.plan is not None:
+        with kernels.recording() as events:
+            for i in range(len(st.inputs.batches)):
+                run.launch(st.inputs, i)
+        run.timings["events"] = events
+    return run
+
+
+class Deferred:
+    """One container's end-of-stream check, waiting for
+    :func:`validate_deferred`."""
+
+    def __init__(self, run: Started):
+        self.plan, self.timings = run.plan, run.timings
+        self.bits = torch.cat(run.bits) if len(run.bits) > 1 else run.bits[0]
+        self.upload = run.upload
+
+    def upload_s(self) -> float:
+        """Seconds on the copy stream from the end of the plan to the last
+        batch's copy event (0 on the CPU); synchronises on it."""
+        if self.upload is None:
+            return 0.0
+        self.upload[1].synchronize()
+        return self.upload[0].elapsed_time(self.upload[1]) / 1e3
+
+
+def finish(run: Started) -> torch.Tensor:
+    """Check the streams of a :func:`start`\\ ed decode (one fetch of every
+    batch's ``bits_left``, or deferred) and return its output: a uint8
+    tensor of ``orig_size`` bytes, a view of a buffer padded to whole words,
+    so ``tensor.view(dtype)`` retypes it in place."""
+    out = run.out[: run.orig_size]
+    last_timings.clear()
+    last_timings.update(run.timings)
+    if run.plan is None:
+        return out
+    entry = Deferred(run)
+    if run.defer is not None:
+        run.defer.append(entry)
+        return out
+    validate_deferred([entry])
+    last_timings.update(run.timings)
+    return out
+
+
+def validate_deferred(entries: List[Deferred]) -> None:
+    """Fetch the ``bits_left`` of every entry at once and check each
+    container in order: the first bad one raises the
+    ``CorruptChunkError(plane, chunk, stream)`` its own decode raises.
+    Fills each entry's ``upload_s``."""
+    if not entries:
+        return
+    flat = torch.cat([e.bits for e in entries]).cpu().numpy()
+    off = 0
+    for e in entries:
+        n = e.bits.numel()
+        e.timings["upload_s"] = e.upload_s()
+        check_streams(e.plan, flat[off : off + n])
+        off += n
+
+
 def decompress_payload(
     payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
     device="cuda",
 ) -> torch.Tensor:
     """Decompress the table+planes payload into a uint8 tensor of
-    ``orig_size`` bytes on ``device``.
-
-    The tensor is a view of a buffer padded to whole words, so
-    ``tensor.view(dtype)`` retypes it in place.
-    """
-    device = torch.device(device)
-    cuda = device.type == "cuda"
-    if cuda and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device is available")
-    last_timings.clear()
-    t0 = time.perf_counter()
-    plan = build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
-                      orig_size)
-    t1 = time.perf_counter()
-    last_timings["plan_s"] = t1 - t0
-    out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
-    if plan is None:
-        return out[:orig_size]
-    dv = DeviceInputs(plan, device)
-    if cuda:
-        torch.cuda.synchronize(device)
-    last_timings["upload_s"] = time.perf_counter() - t1
-
-    name, decode_fn, args_of = dv.decoder()
-    last_timings["decoder"] = name
-    bits_parts = []
-    with kernels.recording() as events:
-        for lo, hi in plan_batches(plan.g.n_chunks, chunk_size):
-            hsym, bl = decode_fn(*args_of(lo, hi))
-            combine.combine_cells(*dv.k2_args(lo, hi, hsym), out[lo * chunk_size :])
-            bits_parts.append(bl)
-    last_timings["events"] = events
-    bits_left = torch.cat(bits_parts).cpu().numpy()
-    check_streams(plan, bits_left)
-    return out[:orig_size]
+    ``orig_size`` bytes on ``device``: ``finish(start(...))``."""
+    return finish(start(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
+                        orig_size, device=device))
 
 
 def kernel_ms() -> Dict[str, float]:

@@ -52,13 +52,14 @@ last_sync_passes: Optional[torch.Tensor] = None
 # host: per-cell table preparation
 # ---------------------------------------------------------------------------
 
-def cell_tables(headers: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Parse per-cell weight headers into decode tables: the distinct
-    headers in one call to the native core (``native.cell_tables``), then
-    a row per cell.
+def distinct_tables(headers: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Parse the distinct weight headers of ``headers`` into decode tables
+    in one call to the native core (``native.cell_tables``).
 
-    Returns (tables int16 [n, 2^tlog_k], tlogs int32 [n], tlog_k).  Raises
-    ValueError (with ``.index``, the first bad cell) on a corrupt header.
+    Returns (tables int16 [d, 2^tlog_k], tlogs int32 [d], inv int64 [n],
+    tlog_k): header ``i`` is table row ``inv[i]``, rows in order of first
+    use.  Raises ValueError (with ``.index``, the first bad cell) on a
+    corrupt header.
     """
     first: dict = {}  # distinct header -> its index, in order of first use
     inv = np.fromiter((first.setdefault(h, len(first)) for h in headers), dtype=np.int64,
@@ -71,33 +72,32 @@ def cell_tables(headers: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, int]:
         # the first bad distinct header is first used by the first bad cell
         exc.index = int(np.argmax(inv == exc.index))
         raise
-    return tables[inv], tlogs[inv], tlog_k
+    return tables, tlogs, inv, tlog_k
 
 
-def cell_tables_plain(headers: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Plain Python version of :func:`cell_tables`; equal headers share
-    one parse."""
-    parsed = {}
-    rows = []
+def distinct_tables_plain(headers: Sequence[bytes]
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Plain Python version of :func:`distinct_tables`."""
+    first: dict = {}  # distinct header -> (row, table entries, tableLog)
+    inv = np.empty(len(headers), dtype=np.int64)
     for i, hdr in enumerate(headers):
-        got = parsed.get(hdr)
-        if got is None:
+        if hdr not in first:
             try:
                 weights, rank_stats, tlog, _, _ = huf.read_stats(hdr)
             except ValueError as exc:
                 exc.index = i
                 raise
             sym_t, nb_t = huf.build_dtable(weights, rank_stats, tlog)
-            got = (sym_t.astype(np.int16) | (nb_t.astype(np.int16) << 8), tlog)
-            parsed[hdr] = got
-        rows.append(got)
-    tlog_k = max([1] + [t for _, t in rows])
-    tables = np.zeros((len(rows), 1 << tlog_k), dtype=np.int16)
-    tlogs = np.empty(len(rows), dtype=np.int32)
-    for i, (ent, tlog) in enumerate(rows):
-        tables[i, : ent.size] = ent
-        tlogs[i] = tlog
-    return tables, tlogs, tlog_k
+            first[hdr] = (len(first), sym_t.astype(np.int16) | (nb_t.astype(np.int16) << 8),
+                          tlog)
+        inv[i] = first[hdr][0]
+    tlog_k = max([1] + [t for _, _, t in first.values()])
+    tables = np.zeros((len(first), 1 << tlog_k), dtype=np.int16)
+    tlogs = np.empty(len(first), dtype=np.int32)
+    for d, ent, tlog in first.values():
+        tables[d, : ent.size] = ent
+        tlogs[d] = tlog
+    return tables, tlogs, inv, tlog_k
 
 
 def sentinel_bits(last_bytes: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -131,7 +131,7 @@ def huf_pc_decode(
     ``out_offs[s]``.  Returns (out uint8 [n_out], bits_left int32 [S]); a
     stream decoded exactly ends with ``bits_left == 0``.  Bytes of ``out``
     that no stream covers are undefined.  Every ``tlogs`` entry lies in
-    [1, 12] and ``2^tlog <= tables.shape[1]`` (as :func:`cell_tables`
+    [1, 12] and ``2^tlog <= tables.shape[1]`` (as :func:`distinct_tables`
     gives them).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,

@@ -46,6 +46,21 @@ _TORCH_VIEW = {
 }
 
 
+def check_ported(hdr: Header) -> None:
+    """Raise NotImplementedError for a container this slice of the port
+    cannot decode: streaming, delta and lossy frames, and the whole-buffer
+    (vanilla) methods."""
+    if hdr.is_streaming or hdr.delta_mode or hdr.lossy_type != EnumLossy.NONE.value:
+        raise NotImplementedError(
+            "streaming, delta and lossy containers are not ported yet "
+            "(ROADMAP queue 1)"
+        )
+    if hdr.byte_reorder in _VANILLA_BYTE_REORDERS:
+        raise NotImplementedError(
+            "whole-buffer (vanilla zstd/lz4/snappy) containers are not ported yet"
+        )
+
+
 class ZipNN:
     def __init__(
         self,
@@ -169,15 +184,7 @@ class ZipNN:
     # ------------------------------------------------------------------
     def _retrieve_header(self, ba_compress) -> int:
         hdr, consumed = Header.from_bytes(ba_compress, formats_with_shape=_FORMATS_WITH_SHAPE)
-        if hdr.is_streaming or hdr.delta_mode or hdr.lossy_type != EnumLossy.NONE.value:
-            raise NotImplementedError(
-                "streaming, delta and lossy containers are not ported yet "
-                "(ROADMAP queue 1)"
-            )
-        if hdr.byte_reorder in _VANILLA_BYTE_REORDERS:
-            raise NotImplementedError(
-                "whole-buffer (vanilla zstd/lz4/snappy) containers are not ported yet"
-            )
+        check_ported(hdr)
         self._byte_reorder = hdr.byte_reorder
         self._bit_reorder = hdr.bit_reorder
         self.input_format = hdr.input_format
