@@ -24,8 +24,9 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    ``native.build_ctables`` against ``encode.cell_table`` on every
    Huffman cell of the bf16 per-chunk encode's first batch, the native
    weight-header parse against the Python one on the bf16 per-chunk
-   container, and the native splice against the Python one on the bf16
-   per-chunk encode's batches (each timed);
+   container (each timed); and ``splice_cells`` against its plain version
+   and against the native core's splice on the same cells, at the first
+   batch of the bf16 encode (both profiles: the cells phase 6 writes);
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
@@ -91,10 +92,19 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    ``stack_groups`` replayed twice through ``decompress_groups``) and by
    one ``ZipNN.decompress`` per container in a row; every output equal to
    its original; each way's wall, GB/s and summed plan, stage and upload
-   seconds.
+   seconds;
+8. a checkpoint save of the same 18 tensors, from the card, in each
+   profile (per-chunk, then shared): one ``ZipNN.compress`` per tensor,
+   then ``io.serving.ShardEncoder.compress_iter`` with ``pool_staging``
+   off and on (each container equal to the per-tensor one, k_proj's to
+   the golden encoder's), must launch ``splice_cells`` and the profile's
+   kernels; every container decoded back by ``ShardDecoder`` bit-exact;
+   each way's wall, GB/s and summed plan, kernels, assemble, download and
+   unstage seconds.
 
 Each encode path prints its phase times (split, histogram, plan, kernels,
-fetch, splice) and end-to-end GB/s beside the golden encoder's seconds.  It
+decide, assemble, splice, download, unstage) and end-to-end GB/s beside
+the golden encoder's seconds.  It
 prints a ``kernels`` JSON line, the card's name and power limit and the
 host CPU's model (the plan and splice are host timings), and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises, so
@@ -383,7 +393,10 @@ def encode_first_batch(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
     g = encode.Geometry(flat.size, gr.num_buf, chunk)
     src = encode.Source(flat, g, dev)
     tail = byte_group.split(src.tail, gr.num_buf, gr.byte_reorder, gr.bit_reorder)
-    counts = encode.sampled_counts(src, g, gr.byte_reorder, gr.bit_reorder, tail)
+    counts = src.get(encode.sampled_counts(src, g, gr.byte_reorder, gr.bit_reorder))
+    if g.full % g.stride == 0:  # the tail cell is on stride: sampled too
+        for b, plane in enumerate(tail):
+            counts[b] += np.bincount(plane, minlength=256)
     shared, live = codec.shared_tables_from_counts(counts, codec.DEFAULT_THRESHOLD, g.stride)
     lo, hi = g.batches[0]
     check(hi - lo >= 64, f"first encode batch has {hi - lo} chunks, want >= 64")
@@ -526,16 +539,15 @@ def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
                     "counts": h_k.cpu().numpy().reshape(k, nb, 256), "n": g.plane_bytes}
 
 
-def hold_native(batch: dict, x_cpu: torch.Tensor, container: bytes, dev) -> None:
+def hold_native(batch: dict, container: bytes) -> None:
     """The native host core against the plain Python it replaces, on the
     bf16 per-chunk paths: ``native.build_ctables`` against
     ``encode.cell_table`` on every cell of the encode's first batch that
     passes the cheap checks (status, header bytes, packed entries); the
     native weight-header parse (``huf_pc.distinct_tables``) against the Python
-    one on every Huffman cell of ``container``; the native splice against
-    the Python one on the batches of a per-chunk encode of ``x_cpu`` from
-    the card, whose container must equal ``container``.  Each timed on the
-    host."""
+    one on every Huffman cell of ``container``.  Each timed on the host.
+    (The native splice is held against ``splice_cells`` in
+    :func:`hold_splice`.)"""
     from zipnn_tpu_torch import ZipNN, native  # noqa: PLC0415
     from zipnn_tpu_torch.ops import decode, encode, huf_enc, huf_pc  # noqa: PLC0415
 
@@ -578,27 +590,64 @@ def hold_native(batch: dict, x_cpu: torch.Tensor, container: bytes, dev) -> None
     log(f"[native] header parse: {len(hdrs)} weight headers ({len(set(hdrs))} distinct) in "
         f"{nat_ms:.2f} ms, Python {plain_ms:.1f} ms: equal tables")
 
-    captured = []
-    splice = encode.splice
 
-    def keep(g, batches, tail, prefix_len=0):
-        captured.append((g, batches, tail, prefix_len))
-        return splice(g, batches, tail, prefix_len)
+def hold_splice(x_cpu: torch.Tensor, wants: dict, dev) -> dict:
+    """``splice_cells`` against its plain version on the card and against
+    the native core's splice on the host, on the cells of the first batch
+    of the encode of ``x_cpu`` from the card in each profile of ``wants``
+    (profile: golden container, which the encode must equal): bit-exact;
+    the kernel's time (CUDA events around its launch, median of 3 after
+    one warm-up) and byte bound (the stored bytes read and written, and
+    the cell descriptors)."""
+    from zipnn_tpu_torch import ZipNN, native  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import kernels, splice  # noqa: PLC0415
 
-    encode.splice = keep
-    try:
-        got = ZipNN(input_format="torch", engine="cuda").compress(x_cpu.to(dev))
-    finally:
-        encode.splice = splice
-    check(bytes(got) == container, "per-chunk encode with the captured splice != golden")
-    del got
-    args = captured[0]
-    out_n, nat_ms = host_ms(lambda: encode.splice(*args))
-    out_p, plain_ms = host_ms(lambda: encode.splice_plain(*args))
-    pre = args[3]
-    check(np.array_equal(out_n[pre:], out_p[pre:]), "native splice != Python splice")
-    log(f"[native] splice: {len(args[1])} batches, {out_n.size - pre} bytes in {nat_ms:.1f} ms, "
-        f"Python {plain_ms:.1f} ms: equal")
+    x_dev = x_cpu.to(dev)
+    out_rows = {}
+    for profile, want in wants.items():
+        captured = []
+        card = splice.splice_cells
+
+        def keep(out, cells, groups, hpool, _card=card):
+            _card(out, cells, groups, hpool)
+            captured.append((out, cells, groups, hpool))
+
+        splice.splice_cells = keep
+        try:
+            got = ZipNN(input_format="torch", engine="cuda", huffman_table=profile,
+                        device=dev).compress(x_dev)
+        finally:
+            splice.splice_cells = card
+        check(bytes(got) == want, f"{profile} encode with the captured splice != golden")
+        del got
+        out, cells, groups, hpool = captured[0]
+        del captured
+        plain = torch.empty_like(out)
+        _, plain_ms = host_ms(lambda: splice.splice_cells_plain(plain, cells, groups, hpool))
+        check(torch.equal(out, plain), f"splice_cells ({profile}) != plain")
+        del plain
+        host = splice.host_cells(cells, groups, hpool)
+        again = np.zeros(out.numel(), np.uint8)
+        _, nat_ms = host_ms(lambda: native.splice_cells(again, **host))
+        check(np.array_equal(again, out.cpu().numpy()), f"splice_cells ({profile}) != native")
+        del host, again
+        buf = torch.empty_like(out)
+        with kernels.recording() as events:
+            for _ in range(4):
+                splice.splice_cells(buf, cells, groups, hpool)
+        ms = float(np.median([kernels.elapsed_ms([e])["splice_cells"] for e in events[1:]]))
+        check(torch.equal(buf, out), f"splice_cells ({profile}) not repeatable")
+        kinds = np.bincount((cells[:, splice.INFO] >> 32) & 0xFF, minlength=3)
+        nbytes = 2 * out.numel() + cells.nbytes + 16 * len(groups)
+        log(f"[kernels] splice_cells ({profile}, {cells.shape[0]} cells: {kinds[0]} raw, "
+            f"{kinds[1]} RLE, {kinds[2]} Huffman; {out.numel()} bytes): {ms:.3f} ms (plain "
+            f"{plain_ms:.1f} ms), bit-exact; the native splice of the same cells {nat_ms:.1f} ms, "
+            f"equal")
+        out_rows[profile] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
+                             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        del out, cells, groups, hpool, buf
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 def encode_small(x: torch.Tensor, want: bytes, label: str, **kw) -> None:
@@ -706,6 +755,14 @@ def sub_word_case(seed: int) -> None:
             f"both profiles == golden")
 
 
+def host_phases(t: dict, kms: dict) -> str:
+    """The encode's phases after its kernels (``encode.last_timings``)."""
+    return (f"decide {t['decide_s']:.4f} s, assemble {t['assemble_s']:.4f} s (splice_cells "
+            f"{kms['splice_cells']:.3f} ms), splice {t['splice_s']:.4f} s, download "
+            f"{t['download_s']:.4f} s, unstage {t['unstage_s']:.4f} s ({t['d2h_bytes']} bytes "
+            f"down, {t['h2d_bytes']} bytes of tables, indices and cells up)")
+
+
 def encode_path(label, x_cpu, want: bytes, golden_s, smi):
     """One full-width shared encode from a CUDA tensor, with the launch
     counts set to 0 just before the call and read just after: byte-equal
@@ -731,7 +788,7 @@ def encode_path(label, x_cpu, want: bytes, golden_s, smi):
           f"{label}: {t['h2d_bytes']} bytes of tables and indices uploaded")
     check(t["d2h_bytes"] <= len(want) + (1 << 20),
           f"{label}: fetched {t['d2h_bytes']} bytes for a {len(want)}-byte container")
-    for k in ("const_scan_rows", "huf_shared_encode"):
+    for k in ("const_scan_rows", "huf_shared_encode", "splice_cells"):
         check(launches[k] > 0, f"kernel {k} not launched on the {label} path")
     _, ms2 = host_ms(lambda: z.compress(x_dev))
     gs = "cached" if golden_s is None else f"{golden_s:.1f} s"
@@ -739,8 +796,7 @@ def encode_path(label, x_cpu, want: bytes, golden_s, smi):
         f"{len(want)} bytes == golden; {t['batches']} batches; hist {t['hist_s']:.3f} s, "
         f"split {t['split_s']:.3f} s, const_scan_rows {kms['const_scan_rows']:.3f} ms, "
         f"huf_shared_encode {kms['huf_shared_encode']:.3f} ms, kernels {t['kernels_s']:.3f} s, "
-        f"fetch {t['fetch_s']:.3f} s ({t['d2h_bytes']} bytes down, {t['h2d_bytes']} "
-        f"bytes of tables and indices up), splice {t['splice_s']:.3f} s; "
+        f"{host_phases(t, kms)}; "
         f"end to end {ms / 1e3:.3f} s = {nbytes / ms / 1e6:.3f} GB/s (second run "
         f"{ms2 / 1e3:.3f} s = {nbytes / ms2 / 1e6:.3f} GB/s); golden encoder {gs}; "
         f"launches {launches}; card: {smi}")
@@ -775,7 +831,7 @@ def pc_encode_path(label, x_cpu, want: bytes, golden_s, smi):
     cells = 1024 * (nbytes // (256 * 1024)) * 4
     check(t["d2h_bytes"] <= len(want) + cells + (1 << 20),
           f"{label}: fetched {t['d2h_bytes']} bytes for a {len(want)}-byte container")
-    for k in ("hist_cells", "huf_pc_encode"):
+    for k in ("hist_cells", "huf_pc_encode", "splice_cells"):
         check(launches[k] > 0, f"kernel {k} not launched on the {label} path")
     for k in ("const_scan_rows", "huf_shared_encode"):
         check(launches[k] == 0, f"kernel {k} launched on the {label} path")
@@ -785,8 +841,7 @@ def pc_encode_path(label, x_cpu, want: bytes, golden_s, smi):
         f"{len(want)} bytes == golden; {t['batches']} batches; split {t['split_s']:.3f} s, "
         f"hist {t['hist_s']:.3f} s (hist_cells {kms['hist_cells']:.3f} ms), plan "
         f"{t['plan_s']:.3f} s, kernels {t['kernels_s']:.3f} s (huf_pc_encode "
-        f"{kms['huf_pc_encode']:.3f} ms), fetch {t['fetch_s']:.3f} s ({t['d2h_bytes']} bytes "
-        f"down, {t['h2d_bytes']} bytes of tables and indices up), splice {t['splice_s']:.3f} s; "
+        f"{kms['huf_pc_encode']:.3f} ms), {host_phases(t, kms)}; "
         f"end to end {ms / 1e3:.3f} s = {nbytes / ms / 1e6:.3f} GB/s (second run "
         f"{ms2 / 1e3:.3f} s = {nbytes / ms2 / 1e6:.3f} GB/s); golden encoder {gs}; "
         f"launches {launches}; card: {smi}")
@@ -815,20 +870,26 @@ def llama_tensors(cfg=LLAMA3_8B):
     return out
 
 
+def llama_tensors_on_card(seed: int, dev):
+    """(names, tensors): the load's tensors, N(0, 0.05) in bf16 from
+    ``seed``, made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    names, xs = [], []
+    for name, shape in llama_tensors():
+        names.append(name)
+        xs.append((torch.randn(shape, generator=gen, device=dev) * 0.05).to(torch.bfloat16))
+    return names, xs
+
+
 def llama_load(seed: int, dev):
-    """The load's tensors, N(0, 0.05) in bf16 from ``seed`` (made on the
-    card), and their containers in the default per-chunk profile, written
-    by ``ZipNN(engine="cuda")``."""
+    """The load's tensors (:func:`llama_tensors_on_card`) and their
+    containers in the default per-chunk profile, written by
+    ``ZipNN(engine="cuda")``."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    names, xs, blobs = [], [], []
-    for name, shape in llama_tensors():
-        x = (torch.randn(shape, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
-        names.append(name)
-        xs.append(x)
-        blobs.append(ZipNN(input_format="torch", engine="cuda", device=dev).compress(x))
-    return names, xs, blobs
+    names, xs = llama_tensors_on_card(seed, dev)
+    z = ZipNN(input_format="torch", engine="cuda", device=dev)
+    return names, xs, [z.compress(x) for x in xs]
 
 
 def serving_load(seed: int, dev, smi):
@@ -910,7 +971,83 @@ def serving_load(seed: int, dev, smi):
     pool = staging.pool(dev)
     log(f"[serving] staging pool: {pool.held} pinned bytes held (bound {staging.POOL_BYTES}), "
         f"{pool.allocated} pinned allocations")
-    return walls
+    return names, xs
+
+
+def checkpoint_save(names, xs, dev, smi) -> dict:
+    """Phase 8: the load's tensors saved from the card in each profile:
+    one ``ZipNN.compress`` per tensor, then ``ShardEncoder.compress_iter``
+    with ``pool_staging`` off, and on (twice, each container only
+    measured, then once more compared as it arrives); every container
+    equal to the per-tensor one, k_proj's to the golden encoder's, all
+    decoded back by ``ShardDecoder`` bit-exact; the launch counts set to 0
+    before each way and read after.  Prints each way's wall and GB/s and
+    the summed phase seconds; returns the launches of each profile's
+    ``compress_iter``."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.io import serving  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode, kernels  # noqa: PLC0415
+
+    nbytes = sum(x.numel() * 2 for x in xs)
+    k = names.index("model.layers.0.self_attn.k_proj.weight")
+    keys = ("plan_s", "kernels_s", "decide_s", "assemble_s", "splice_s", "download_s",
+            "unstage_s")
+    launches = {}
+
+    def summed(timings):
+        return ", ".join(f"{key[:-2]} {sum(t.get(key, 0.0) for t in timings):.4f} s"
+                         for key in keys)
+
+    for profile, kern in (("per_chunk", ("hist_cells", "huf_pc_encode")),
+                          ("shared", ("const_scan_rows", "huf_shared_encode"))):
+        z = ZipNN(input_format="torch", engine="cuda", huffman_table=profile, device=dev)
+
+        def run(way, fn):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, timings = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(kernels.launches)
+            for kname in (*kern, "splice_cells"):
+                check(got[kname] > 0, f"{kname} not launched by the {profile} {way}")
+            log(f"[save] {profile} {way}: {wall:.4f} s = {nbytes / wall / 1e9:.3f} GB/s; "
+                f"{summed(timings)}; launches {got}; card: {smi}")
+            return outs, got
+
+        def per_tensor():
+            outs, timings = [], []
+            for x in xs:
+                outs.append(z.compress(x))
+                timings.append(dict(encode.last_timings))
+            return outs, timings
+
+        want, _ = run("ZipNN.compress per tensor", per_tensor)
+        golden = ZipNN(input_format="torch", engine="numpy",
+                       huffman_table=profile).compress(xs[k].cpu())
+        check(want[k] == golden, f"{profile} k_proj container != golden")
+        enc = serving.ShardEncoder(z)
+        outs, launches[profile] = run("ShardEncoder.compress_iter",
+                                      lambda: (list(enc.compress_iter(xs)), enc.timings))
+        check(outs == want, f"{profile} ShardEncoder containers != per-tensor ones")
+        pooled = serving.ShardEncoder(z, pool_staging=True)
+        for rep in (1, 2):
+            run(f"ShardEncoder.compress_iter, pool_staging (run {rep})",
+                lambda: ([len(v) for v in pooled.compress_iter(xs)], pooled.timings))
+        for i, v in enumerate(pooled.compress_iter(xs)):
+            check(v == want[i], f"{profile} pooled container {i} != per-tensor one")
+        pinned = sum(b.numel() for b in serving._out_pool + pooled._held if b.is_pinned())
+        dec = serving.ShardDecoder(to_device=True, device=dev)
+        for name, x, y in zip(names, xs, dec.decompress_iter(outs)):
+            check(torch.equal(y.view(torch.int16), x.view(torch.int16).reshape(-1)),
+                  f"{profile} {name} does not decode back")
+        log(f"[save] {profile}: {len(outs)} containers, {sum(len(o) for o in outs)} bytes "
+            f"(ratio {sum(len(o) for o in outs) / nbytes:.4f}) == per tensor, k_proj == "
+            f"golden, decoded back bit-exact by ShardDecoder; pooled output buffers: {pinned} "
+            f"pinned bytes held")
+        del want, outs, enc, pooled, dec
+    return launches
 
 
 def cpu_model() -> str:
@@ -1019,8 +1156,10 @@ def main() -> int:
     del dv
     rows["k8"], rows["k7"] = hold_encode_kernels(x_bf16, dev)
     rows["hist"], rows["k7pc"], batch = hold_pc_encode_kernels(x_bf16, dev)
-    hold_native(batch, x_bf16, c_bf16, dev)
+    hold_native(batch, c_bf16)
     del batch
+    spl = hold_splice(x_bf16, {"per_chunk": c_bf16, "shared": c_shared}, dev)
+    rows["splice_pc"], rows["splice_shared"] = spl["per_chunk"], spl["shared"]
     torch.cuda.empty_cache()
     # K2 at one plane (fp8, 64 KB chunks) and into an out that is 4- but not
     # 16-byte aligned at 256 B chunks (every word by the per-word path)
@@ -1124,7 +1263,11 @@ def main() -> int:
     del c_fp32
 
     # ---- 7. the serving load --------------------------------------------
-    serving_load(args.seed + 20, dev, smi)
+    names, xs = serving_load(args.seed + 20, dev, smi)
+
+    # ---- 8. the checkpoint save -------------------------------------------
+    save = checkpoint_save(names, xs, dev, smi)
+    del names, xs
 
     # ---- summary ---------------------------------------------------------
     def row(key, kname, source, replaces, path, launches):
@@ -1161,6 +1304,12 @@ def main() -> int:
             "zipnn_tpu/ops/jax_entropy.py:89 encode_streams (XLA device code, not a "
             "pl.pallas_call site)", "bf16 per-chunk encode", pc["bf16"]["huf_pc_encode"]),
     ]
+    asm = ("zipnn_tpu/ops/jax_codec.py:1004-1280 _assemble (host code, no device kernel and "
+           "no pl.pallas_call site)")
+    for key, profile in (("splice_pc", "per_chunk"), ("splice_shared", "shared")):
+        out.append(row(key, "splice_cells", "zipnn_tpu_torch/csrc/splice.cu", asm,
+                       f"Llama-3-8B checkpoint save, {profile}",
+                       save[profile]["splice_cells"]))
     for r in out:
         log(f"[summary] {r['name']} ({r['path']}): {r['launches']} launches, "
             f"{r['ms']:.3f} ms vs bound {r['bound_ms']:.4f} ms, plain match; "

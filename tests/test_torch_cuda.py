@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-and the whole decode and both profiles' encode against the golden model.
+the whole decode and both profiles' encode against the golden model, the
+staging pool both ways, and the serving load and checkpoint save.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 This file imports neither ``jax`` nor ``zipnn_tpu``, so it runs where only
@@ -16,7 +17,7 @@ import torch
 from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec, native
 from zipnn_tpu_torch.ops import (
     combine, const_scan, decode, encode, hist, huf_enc, huf_pc, huf_shared, huf_sync, kernels,
-    transforms,
+    splice, staging, transforms,
 )
 from zipnn_tpu_torch.ops.byte_group import plane_lengths
 from zipnn_tpu_torch.ops.entropy import huf
@@ -686,8 +687,9 @@ def test_sub_word_chunks_on_card(card, chunk):
 def test_encode_on_card_takes_native_plan_and_splice(card, dtype, profile, monkeypatch):
     """Both profiles' encode from a CUDA tensor in several batches: the
     per-chunk tables come from ``native.build_ctables`` (one call a batch),
-    every batch is spliced by ``native.splice_cells``, and the container
-    equals the golden encoder's."""
+    every batch's cells are written on the card by ``splice_cells`` (one
+    launch a batch), the native core splices only the tail's, and the
+    container equals the golden encoder's."""
     calls = {"build_ctables": 0, "splice_cells": 0}
     for name in calls:
         fn = getattr(native, name)
@@ -701,11 +703,13 @@ def test_encode_on_card_takes_native_plan_and_splice(card, dtype, profile, monke
     raw = _raw(dtype, 30 * 4096 + 6, seed=21)
     x = torch.from_numpy(raw.copy()).view(dtype)
     kw = dict(input_format="torch", compression_chunk=4096, huffman_table=profile)
+    kernels.reset_launches()
     got = ZipNN(engine="cuda", **kw).compress(x.to(card))
     assert bytes(got) == bytes(ZipNN(engine="numpy", **kw).compress(x))
     batches = encode.last_timings["batches"]
     assert batches >= 2 and encode.last_timings["upload_bytes"] == 0
-    assert calls["splice_cells"] == batches + 1  # and the tail
+    assert kernels.launches["splice_cells"] == batches
+    assert calls["splice_cells"] == 1  # the tail
     assert calls["build_ctables"] == (batches if profile == "per_chunk" else 0)
 
 
@@ -853,3 +857,161 @@ def test_standalone_device_inputs_order_later_kernels(card, monkeypatch):
         assert len(st.inputs.events) == 4
         out = decode.finish(decode.start_staged(st))
         assert out.cpu().numpy().tobytes() == raws[0]
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint save: splice_cells, staging.download, io.serving.ShardEncoder
+# ---------------------------------------------------------------------------
+
+def _random_cells(rng, n, planes, rows, hpool_n):
+    """``n`` cells of every kind behind each other from byte 3 of the
+    output (so at every alignment), 1-byte raw cells and 1-byte streams
+    among them; the output buffer's size."""
+    pw, rw = planes.shape[1] * 4, rows.shape[1] * 4
+    kind = rng.integers(0, 3, n)
+    huf = kind == 2
+    size = np.where(kind == 1, 1, rng.integers(1, pw + 1, n))
+    size[::7] = 1
+    sb = rng.integers(1, rw + 1, (n, 4))
+    sb[::5, 1] = 1
+    hlen = np.where(huf, rng.integers(1, 40, n), 0)
+    size = np.where(huf, hlen + 6 + sb.sum(axis=1), size)
+    cells = np.zeros((n, splice.FIELDS), np.int64)
+    cells[:, splice.DST] = 3 + np.cumsum(size) - size
+    cells[:, splice.INFO] = splice.info(size, kind, huf.astype(int), hlen)
+    src = np.where(huf, rng.integers(0, rows.shape[0] - 3, n), rng.integers(0, planes.shape[0], n))
+    cells[:, splice.SRC] = splice.src(src, np.where(huf, rng.integers(0, hpool_n - 40, n), 0))
+    cells[:, splice.SB] = splice.pack_sb(np.where(huf[:, None], sb, 0))
+    return cells, int(size.sum()) + 3 + 13
+
+
+@pytest.mark.parametrize("pw,rw", [(4, 4), (260, 37), (32768, 8193)])
+def test_splice_cells_kernel_matches_plain(card, pw, rw):
+    """Random cells (every alignment of destination and source, 1-byte
+    cells and streams) against the plain version; bytes between and around
+    the cells keep the buffer's fill."""
+    rng = np.random.default_rng(pw)
+    n = 300 if pw < 32768 else 40
+    planes = torch.from_numpy(rng.integers(0, 256, (n, pw * 4), dtype=np.uint8)).view(torch.int32)
+    rows = torch.from_numpy(rng.integers(0, 256, (4 * n, rw * 4), dtype=np.uint8)).view(torch.int32)
+    hpool = torch.from_numpy(rng.integers(0, 256, 4096 + 13, dtype=np.uint8))
+    cells, total = _random_cells(rng, n, planes, rows, hpool.numel())
+    want = torch.full((total,), 0xAB, dtype=torch.uint8)
+    splice.splice_cells_plain(want, cells, [planes, rows], hpool)
+    got = torch.full((total,), 0xAB, dtype=torch.uint8, device=card)
+    kernels.reset_launches()
+    splice.splice_cells(got, cells, [planes.to(card), rows.to(card)], hpool.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["splice_cells"] == 1
+    assert torch.equal(got.cpu(), want)
+    bad = cells.copy()
+    bad[0, splice.DST] = total
+    with pytest.raises(ValueError, match="outside"):
+        splice.splice_cells(got, bad, [planes.to(card), rows.to(card)], hpool.to(card))
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["pageable", "pinned"])
+def test_download_through_small_pieces(card, monkeypatch, pinned):
+    """Ranges at odd offsets both sides through 16 KB pieces and a 64 KB
+    pool (pageable destination), or one DMA a range (page-locked); every
+    piece back in the pool, the pool within its bound."""
+    monkeypatch.setattr(staging, "PIECE_BYTES", 16 << 10)
+    monkeypatch.setattr(staging, "POOL_BYTES", 64 << 10)
+    monkeypatch.setattr(staging, "_pools", {})
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.integers(0, 256, 300_001, dtype=np.uint8)).to(card)
+    ranges = [(0, 7, 1), (5, 20, 100_003), (100_013, 100_100, 70_000), (170_013, 170_200, 129_988)]
+    for rep in range(20):
+        dst = torch.zeros(300_300, dtype=torch.uint8, pin_memory=pinned)
+        want = np.zeros(300_300, np.uint8)
+        host = src.cpu().numpy()
+        for s, d, n in ranges:
+            want[d : d + n] = host[s : s + n]
+        src.add_(1)  # queued before the download: the copy stream must wait for it
+        for s, d, n in ranges:
+            want[d : d + n] += 1
+        t = {}
+        staging.download(staging.pool(card), src, dst if pinned else dst.numpy(), ranges, t)
+        assert np.array_equal(dst.numpy(), want), rep
+        assert t["download_s"] > 0 and (t["unstage_s"] == 0) == pinned
+    p = staging.pool(card)
+    assert p.held <= 64 << 10 and not any(not e.query() for _, e in p.busy)
+
+
+def _save_inputs(k, nbytes, seed):
+    return [torch.from_numpy(_raw(torch.bfloat16, nbytes + 2 * 1024 * i, seed + i).copy())
+            .view(torch.bfloat16) for i in range(k)]
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+def test_multi_batch_encode_on_card(card, monkeypatch, profile):
+    monkeypatch.setattr(encode, "BATCH_BYTES", 5 * CHUNK)
+    x = _save_inputs(1, 41 * CHUNK + 6002, seed=31)[0]
+    kw = dict(input_format="torch", compression_chunk=CHUNK, huffman_table=profile)
+    kernels.reset_launches()
+    got = ZipNN(engine="cuda", **kw).compress(x.to(card))
+    t = dict(encode.last_timings)
+    assert t["batches"] == 9 and kernels.launches["splice_cells"] == 9
+    assert t["download_s"] > 0 and t["d2h_bytes"] >= len(got) - 8 * CHUNK
+    assert bytes(got) == bytes(ZipNN(engine="numpy", **kw).compress(x))
+
+
+def test_pipelined_saves_repeat_byte_identical(card, monkeypatch):
+    """50 saves of 3 tensors, both profiles, through 64 KB batches, 16 KB
+    pieces and a 64 KB pool, each container equal to its own
+    ``ZipNN.compress``."""
+    from zipnn_tpu_torch.io.serving import ShardEncoder
+
+    monkeypatch.setattr(encode, "BATCH_BYTES", 4 * CHUNK)
+    monkeypatch.setattr(staging, "PIECE_BYTES", 16 << 10)
+    monkeypatch.setattr(staging, "POOL_BYTES", 64 << 10)
+    monkeypatch.setattr(staging, "_pools", {})
+    xs = [x.to(card) for x in _save_inputs(3, 20 * CHUNK + 6002, seed=41)]
+    for profile in ("per_chunk", "shared"):
+        z = ZipNN(input_format="torch", engine="cuda", compression_chunk=CHUNK,
+                  huffman_table=profile)
+        want = [z.compress(x) for x in xs]
+        enc = ShardEncoder(z)
+        for rep in range(25):
+            assert enc.compress_all(xs) == want, (profile, rep)
+    assert staging.pool(card).held <= 64 << 10
+
+
+def test_pool_staging_views_hold_for_two_yields(card, monkeypatch):
+    """Page-locked pooled containers: container i is intact while
+    containers i + 1 and i + 2 are handed out, and the fetch went straight
+    into it (no host copies out of staging pieces)."""
+    from zipnn_tpu_torch.io import serving
+
+    monkeypatch.setattr(serving, "_out_pool", [])
+    xs = [x.to(card) for x in _save_inputs(6, 8 * CHUNK + 2, seed=51)]
+    z = ZipNN(input_format="torch", engine="cuda", compression_chunk=CHUNK)
+    want = [z.compress(x) for x in xs]
+    enc = serving.ShardEncoder(z, pool_staging=True)
+    views = []
+    for i, v in enumerate(enc.compress_iter(xs)):
+        views.append(v)
+        for j in range(max(0, i - 2), i + 1):
+            assert bytes(views[j]) == want[j], (i, j)
+    assert all(t["unstage_s"] == 0 and t["download_s"] > 0 for t in enc.timings)
+    assert all(b.is_pinned() for b in serving._out_pool + enc._held)
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+def test_embed_tokens_width_in_two_batches(card, monkeypatch, profile):
+    """Llama-3-8B's ``embed_tokens`` (128256 x 4096 bf16, 1 GiB): two 512
+    MiB batches, whose plane regions wait on the card until both are
+    decided; the container equals the one-batch encode's and decodes back
+    bit-exact."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = (torch.randn((128256, 4096), generator=gen, device=card) * 0.05).to(torch.bfloat16)
+    z = ZipNN(input_format="torch", engine="cuda", huffman_table=profile)
+    kernels.reset_launches()
+    two = z.compress(x)
+    assert encode.last_timings["batches"] == 2 and kernels.launches["splice_cells"] == 2
+    monkeypatch.setattr(encode, "BATCH_BYTES", 2 << 30)
+    one = z.compress(x)
+    assert encode.last_timings["batches"] == 1
+    assert two == one
+    y = ZipNN(input_format="torch", engine="cuda").decompress(two)
+    assert torch.equal(y.view(torch.int16), x.view(torch.int16))

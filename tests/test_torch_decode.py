@@ -392,6 +392,8 @@ def test_import_and_roundtrip_leave_jax_unloaded():
         "assert bytes(z.decompress(z.compress(raw))) == raw\n"
         "from zipnn_tpu_torch.io.serving import ShardDecoder\n"
         "assert list(ShardDecoder(device='cpu').decompress_iter([z.compress(raw)])) == [raw]\n"
+        "from zipnn_tpu_torch.io.serving import ShardEncoder\n"
+        "assert ShardEncoder(z).compress_all([raw]) == [z.compress(raw)]\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'zipnn_tpu'))))\n"
     )

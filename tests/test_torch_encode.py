@@ -12,7 +12,15 @@ against the JAX package with tolerance 0:
 * chunks whose planes are under one word take the device encoder's
   sub-word route, both profiles;
 * a container decodes back through the port's own ``engine="cuda"``
-  decode.
+  decode;
+* ``encode.finish(encode.start(...))`` equals the golden encoder in both
+  profiles, bf16 and fp32, over several batches, with no full chunk and at
+  sub-word chunks, and ``start`` calls its ``between`` hook once, after
+  the first launch and before the first fetch;
+* ``splice.splice_cells``' plain version writes the native core's splice
+  of the same cells: a batch of raw, RLE, Huffman and uncodeable cells,
+  and random cells at unaligned offsets, 1-byte ones among them; cells
+  that read or write outside their sources raise.
 
 The CUDA kernels run in ``test_torch_cuda.py``.
 """
@@ -28,8 +36,8 @@ import jax.numpy as jnp
 import zipnn_tpu
 from zipnn_tpu import codec as ref_codec
 from zipnn_tpu.ops import byte_group, jax_transforms
-from zipnn_tpu_torch import ZipNN, codec
-from zipnn_tpu_torch.ops import encode, transforms
+from zipnn_tpu_torch import ZipNN, codec, native
+from zipnn_tpu_torch.ops import encode, splice, transforms
 
 ROOT = Path(__file__).resolve().parent.parent
 CHUNK = 1024  # small chunks: >= 512 of them (stride 8) stay cheap
@@ -172,6 +180,95 @@ def test_multi_batch_matches_single_batch(monkeypatch, n_chunks, extra, per_batc
     assert many == one == want
 
 
+@pytest.mark.parametrize("case", ["batches", "no_full_chunk", "sub_word"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_chunk"])
+def test_start_finish_match_golden_and_call_between_once(monkeypatch, shared, dtype, case):
+    """``finish(start(...))`` against the JAX package's golden encoder; the
+    order of the first launch (the split), the ``between`` call and the
+    first fetch."""
+    nb = 2 if dtype == torch.bfloat16 else 4
+    br = 10 if nb == 2 else 220
+    chunk, nbytes = {"batches": (1024, 10 * 1024 + 300), "no_full_chunk": (1024, 700),
+                     "sub_word": (2 * nb, 40 * 2 * nb + 3)}[case]
+    data = _tensor(dtype, nbytes, seed=nb).view(torch.uint8).numpy()
+    monkeypatch.setattr(encode, "BATCH_BYTES", 3 * chunk)
+    order = []
+    for mod, name in ((transforms, "split_device"), (transforms, "split_bytes"),
+                      (encode.Source, "get")):
+        fn = getattr(mod, name)
+
+        def spy(*a, _fn=fn, _tag="get" if name == "get" else "launch", **kw):
+            order.append(_tag)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    run = encode.start(data, nb, 1, br, chunk, check_th_after_percent=10, shared_tables=shared,
+                       device="cpu", prefix_len=5, between=lambda: order.append("between"))
+    got = encode.finish(run)
+    want = ref_codec.compress_payload_numpy(data, nb, 1, br, chunk, check_th_after_percent=10,
+                                            shared_tables=shared)
+    assert bytes(got[5:]) == want
+    assert order.count("between") == 1
+    at = order.index("between")
+    assert "get" not in order[:at]
+    assert ("launch" in order[:at]) == (case != "no_full_chunk")
+    assert encode.last_timings["batches"] == {"batches": 4, "no_full_chunk": 0,
+                                              "sub_word": 1}[case]
+
+
+def _cells_against_native(out, cells, groups, hpool, card_splice=splice.splice_cells):
+    card_splice(out, cells, groups, hpool)
+    again = np.zeros(out.numel(), np.uint8)
+    native.splice_cells(again, **splice.host_cells(cells, groups, hpool))
+    assert np.array_equal(out.numpy(), again)
+    return np.bincount((cells[:, splice.INFO] >> 32) & 0xFF, minlength=3)
+
+
+def test_splice_cells_plain_matches_native_on_a_mixed_batch(monkeypatch):
+    """The uncodeable-cell input: its batch holds raw, RLE and Huffman cells
+    and a cell that K7 could not code (stored raw)."""
+    exp, man = _mk(520)
+    exp[9, 7] = 251
+    man[13] = 0x42
+    kinds = []
+    monkeypatch.setattr(splice, "splice_cells",
+                        lambda *a, _fn=splice.splice_cells: kinds.append(
+                            _cells_against_native(*a, card_splice=_fn)))
+    got, want = _codec_pair(_join(exp, man))
+    assert got == want
+    assert len(kinds) == 1 and kinds[0].all()
+
+
+def test_splice_cells_plain_matches_native_at_unaligned_offsets():
+    rng = np.random.default_rng(5)
+    planes = torch.from_numpy(rng.integers(0, 256, (12, 40), dtype=np.uint8)).view(torch.int32)
+    rows = torch.from_numpy(rng.integers(0, 256, (16, 36), dtype=np.uint8)).view(torch.int32)
+    hpool = torch.from_numpy(rng.integers(0, 256, 48, dtype=np.uint8))
+    kind = np.array([0, 1, 2, 0, 2, 1, 0, 2, 0, 0, 1, 2])
+    size = np.array([40, 1, 0, 17, 0, 1, 1, 0, 39, 5, 1, 0])
+    sb = np.zeros((12, 4), np.int64)
+    huf = kind == 2
+    sb[huf] = rng.integers(1, 37, (huf.sum(), 4))
+    sb[7] = [1, 1, 1, 36]
+    hlen = np.where(huf, rng.integers(1, 9, 12), 0)
+    size[huf] = hlen[huf] + 6 + sb[huf].sum(axis=1)
+    cells = np.zeros((12, splice.FIELDS), np.int64)
+    cells[:, splice.DST] = 3 + np.cumsum(size) - size
+    cells[:, splice.INFO] = splice.info(size, kind, huf.astype(int), hlen)
+    cells[:, splice.SRC] = splice.src(np.where(huf, 4 * np.arange(12) % 13, np.arange(12)),
+                                      np.where(huf, rng.integers(0, 40, 12), 0))
+    cells[:, splice.SB] = splice.pack_sb(sb)
+    out = torch.zeros(int(size.sum()) + 9, dtype=torch.uint8)
+    assert _cells_against_native(out, cells, [planes, rows], hpool).all()
+    for field, value in ((splice.DST, out.numel()), (splice.SRC, 13), (splice.SB, 0),
+                         (splice.INFO, splice.info(41, 0))):
+        bad = cells.copy()
+        bad[0 if field == splice.INFO else 2, field] = value
+        with pytest.raises(ValueError, match="outside"):
+            splice.splice_cells(out, bad, [planes, rows], hpool)
+
+
 def test_roundtrip_through_port_decode():
     x = _tensor(torch.bfloat16, 520 * CHUNK + 1234, seed=11)
     comp = _port(x)
@@ -284,7 +381,7 @@ def test_cuda_device_without_a_card_raises():
 
 def test_encode_modules_import_neither_jax_nor_reference():
     for name in ("ops/encode", "ops/huf_enc", "ops/const_scan", "ops/hist",
-                 "ops/transforms", "native"):
+                 "ops/transforms", "ops/splice", "ops/staging", "io/serving", "native"):
         tree = ast.parse((ROOT / "zipnn_tpu_torch" / f"{name}.py").read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

@@ -11,9 +11,9 @@ it replaces on the card's paths and against the JAX package, tolerance 0:
   one (``distinct_tables_plain``) on the headers of ``tests/fixtures/*.znn``
   and of a per-chunk bf16 container, and names the same first bad cell of
   a corrupt header;
-* the native splice equals the Python splice (``encode.splice_plain``) on
-  multi-batch encodes with an abandoned plane and a ragged tail, both
-  profiles;
+* the native splice equals the card's (``splice.splice_cells``, here its
+  plain version) on every batch of multi-batch encodes with an abandoned
+  plane and a ragged tail, both profiles;
 * engine ``"native"`` writes the containers of ``zipnn_tpu.native`` and of
   the golden encoder for four dtypes, both profiles,
   ``check_th_after_percent`` 0 and 10, and decodes them.
@@ -34,7 +34,7 @@ from zipnn_tpu import codec as ref_codec
 from zipnn_tpu import native as ref_native
 from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec, native
 from zipnn_tpu_torch.core import dtypes
-from zipnn_tpu_torch.ops import decode, encode, huf_enc, huf_pc
+from zipnn_tpu_torch.ops import decode, encode, huf_enc, huf_pc, splice
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXDIR = ROOT / "tests" / "fixtures"
@@ -203,18 +203,22 @@ def test_corrupt_header_names_cell_in_decode():
 
 
 def _spliced(monkeypatch, run):
-    """Every splice of ``run()``'s encode, native and plain, must agree."""
+    """Every batch that ``run()``'s encode writes through
+    ``splice.splice_cells`` is written again by the native core's splice
+    from the same cells: the bytes must agree.  Returns the number of
+    batches."""
     got = []
-    native_splice = encode.splice
+    card_splice = splice.splice_cells
 
-    def both(g, batches, tail, prefix_len=0):
-        out = native_splice(g, batches, tail, prefix_len)
-        plain = encode.splice_plain(g, batches, tail, prefix_len)
-        assert np.array_equal(out[prefix_len:], plain[prefix_len:])
-        got.append(len(batches))
-        return out
+    def both(out, cells, groups, hpool):
+        card_splice(out, cells, groups, hpool)
+        again = np.zeros(out.numel(), np.uint8)
+        native.splice_cells(again, **splice.host_cells(cells, groups, hpool))
+        assert np.array_equal(out.numpy(), again)
+        kinds = (cells[:, splice.INFO] >> 32) & 0xFF
+        got.append(np.bincount(kinds, minlength=3))
 
-    monkeypatch.setattr(encode, "splice", both)
+    monkeypatch.setattr(splice, "splice_cells", both)
     run()
     return got
 
@@ -243,7 +247,8 @@ def test_splice_matches_plain(monkeypatch, shared):
                                                 shared_tables=shared)
         assert bytes(got[7:]) == want
 
-    assert _spliced(monkeypatch, run) == [14]
+    kinds = _spliced(monkeypatch, run)
+    assert len(kinds) == 14 and np.sum(kinds, axis=0).all()  # raw, RLE and Huffman cells
 
 
 _GOOD_CELL = dict(kind=2, hid=0, hoff=0, hlen=3, boff=0, size=3 + 6 + 4)

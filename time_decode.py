@@ -1,10 +1,11 @@
-"""Time the port's decode end to end on one NVIDIA GPU, repeatedly, so
-that two trees are compared in one call.
+"""Time the port's decode, or with ``--encode`` its encode, end to end on
+one NVIDIA GPU, repeatedly, so that two trees are compared in one call.
 
 Run from the repository root:
 
     python3 time_decode.py [--pkg DIR] [--label NAME] [--seed 0] [--mib 512]
                            [--reps 3] [--batch-mib 32,64,128,512] [--staging]
+                           [--encode] [--fetch]
 
 Inputs are N(0, 0.05) from ``--seed``, made on the card with a seeded
 ``torch.Generator`` (the same bytes on every tree) and written by the
@@ -31,12 +32,31 @@ the golden encoder: ``chip_smoke.py`` phase 6 holds it).
   ``native.splice_cells``) and ``register`` (``cudaHostRegister`` of the
   caller's buffer, one copy from it, ``cudaHostUnregister``).
 
+``--encode`` times the encode instead, on the same inputs:
+
+* ``encode``: the four 512 MiB encodes from CUDA tensors (bf16 and fp32,
+  per-chunk and shared profiles), each by ``ZipNN(input_format="torch",
+  engine="cuda").compress`` once cold and ``--reps`` times more; every
+  container's SHA-1 is printed, so two trees' containers compare;
+* ``save``: the load's 18 tensors saved by one ``ZipNN.compress`` per
+  tensor and, where the package has ``io.serving.ShardEncoder``, by its
+  ``compress_iter`` with ``pool_staging`` off and on (page-locked pooled
+  buffers) and on with pageable pooled buffers (its ``_out_acquire``
+  asked for pageable ones), both profiles, ``--reps`` times each (the
+  first round finds the pools cold).
+
+``--fetch`` times what bounds the encode's fetch: ``--mib`` MiB of bytes
+on the card brought to the host by ``staging.download`` into a new
+``codec.frame`` (fresh pages), into one whose pages a single thread
+touched first (the touch timed apart) and into page-locked memory,
+``--reps`` times after one cold run.
+
 ``--pkg DIR`` puts the ``zipnn_tpu_torch`` of another checkout (for
 example an unpacked parent commit) first on the path; the helpers come
 from this script's ``chip_smoke.py``.  Prints the card's name and power
 limit, then one JSON line per measurement: ``label``, ``what``, ``rep``
 (0 = the first, cold call), ``wall_s``, ``GBps`` (original bytes over the
-wall) and the decode's phase seconds where the package reports them.
+wall) and the phase seconds where the package reports them.
 """
 from __future__ import annotations
 
@@ -74,6 +94,11 @@ def phases(t: dict) -> dict:
     return {k: t[k] for k in ("plan_s", "stage_s", "upload_s") if k in t}
 
 
+def enc_phases(t: dict) -> dict:
+    """Every phase second the tree's ``encode.last_timings`` holds."""
+    return {k: v for k, v in t.items() if k.endswith("_s")}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pkg", default=None)
@@ -83,6 +108,8 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--batch-mib", default="")
     ap.add_argument("--staging", action="store_true")
+    ap.add_argument("--encode", action="store_true")
+    ap.add_argument("--fetch", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_decode: no CUDA device")
@@ -108,6 +135,12 @@ def main(argv=None) -> None:
     n = args.mib << 20
     x_bf16 = (torch.randn(n // 2 + 3001, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
     x_fp32 = torch.randn(n // 4 + 1501, generator=gen, device=dev) * 0.05
+    if args.encode:
+        encode_mode(args, smoke, dev, emit, x_bf16, x_fp32)
+        return
+    if args.fetch:
+        fetch_ways(x_bf16.view(torch.uint8)[:n], args.reps, emit)
+        return
     paths = {
         "bf16 per-chunk": (x_bf16, ZipNN(input_format="torch", engine="cuda").compress(x_bf16)),
         "fp32 per-chunk": (x_fp32, ZipNN(input_format="torch", engine="cuda").compress(x_fp32)),
@@ -176,6 +209,118 @@ def main(argv=None) -> None:
 
     if args.staging:
         staging_ways(paths["bf16 per-chunk"][1], args.reps, emit)
+
+
+def encode_mode(args, smoke, dev, emit, x_bf16, x_fp32) -> None:
+    """The ``--encode`` measurements (see the module's docstring)."""
+    import hashlib  # noqa: PLC0415
+
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import encode  # noqa: PLC0415
+
+    try:
+        from zipnn_tpu_torch.io import serving  # noqa: PLC0415
+    except ModuleNotFoundError:
+        serving = None
+    shard_encoder = getattr(serving, "ShardEncoder", None)
+    for what, x in (("bf16", x_bf16), ("fp32", x_fp32)):
+        for profile in ("per_chunk", "shared"):
+            z = ZipNN(input_format="torch", engine="cuda", huffman_table=profile)
+            for rep in range(args.reps + 1):
+                comp, wall = timed(lambda: z.compress(x))
+                emit(f"encode: {what} {profile}", rep, wall, x.numel() * x.element_size(),
+                     sha1=hashlib.sha1(comp).hexdigest(), size=len(comp),
+                     **enc_phases(encode.last_timings))
+                del comp
+
+    names, xs = smoke.llama_tensors_on_card(args.seed + 20, dev)
+    load_bytes = sum(x.numel() * 2 for x in xs)
+
+    def summed(timings):
+        keys = sorted({k for t in timings for k in t if k.endswith("_s")})
+        return {k: sum(t.get(k, 0.0) for t in timings) for k in keys}
+
+    for profile in ("per_chunk", "shared"):
+        z = ZipNN(input_format="torch", engine="cuda", huffman_table=profile)
+
+        def per_tensor(consume):
+            timings = []
+            for x in xs:
+                consume(z.compress(x))
+                timings.append(dict(encode.last_timings))
+            return timings
+
+        def iterate(enc):
+            def way(consume):
+                for c in enc.compress_iter(xs):
+                    consume(c)
+                return enc.timings
+            return way
+
+        ways = {"ZipNN.compress per tensor": per_tensor}
+        if shard_encoder is not None:
+            ways["compress_iter"] = iterate(shard_encoder(z))
+            pooled = ways["compress_iter, pool_staging"] = iterate(
+                shard_encoder(z, pool_staging=True))
+            acquire = serving._out_acquire
+
+            def pageable(consume, pooled=pooled):
+                serving._out_pool.clear()
+                serving._out_acquire = lambda need, pinned: acquire(need, False)
+                try:
+                    return pooled(consume)
+                finally:
+                    serving._out_acquire = acquire
+                    serving._out_pool.clear()
+
+            ways["compress_iter, pool_staging, pageable"] = pageable
+        want = None
+        for rep in range(args.reps + 1):
+            for way, fn in ways.items():
+                # the first round finds the pools cold and hashes each container as
+                # it arrives (a pooled one is valid for two more); later ones only
+                # take its length, as a writer's cheapest consumer would
+                digests: list = []
+                consume = (lambda c: digests.append(hashlib.sha1(c).digest())) if rep == 0 else len
+                timings, wall = timed(lambda: fn(consume))
+                kw = {}
+                if rep == 0:
+                    kw["sha1"] = hashlib.sha1(b"".join(digests)).hexdigest()
+                    want = want or kw["sha1"]
+                    if kw["sha1"] != want:
+                        raise RuntimeError(f"save {profile} {way}: containers differ")
+                emit(f"save: {profile} {way}", rep, wall, load_bytes, **kw, **summed(timings))
+
+
+def fetch_ways(src: torch.Tensor, reps: int, emit) -> None:
+    """``src`` (bytes on the card) into host memory three ways (see the
+    module's docstring), each checked byte-equal once."""
+    from zipnn_tpu_torch import codec  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import staging  # noqa: PLC0415
+
+    n = src.numel()
+    pool = staging.pool(src.device)
+    want = src[:4096].cpu().numpy()
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+    def touched():
+        out = codec.frame(n)
+        t0 = time.perf_counter()
+        out[::4096] = 0
+        return out, time.perf_counter() - t0
+
+    ways = {"fresh": lambda: (codec.frame(n), 0.0), "touched": touched,
+            "page-locked": lambda: (pinned, 0.0)}
+    for rep in range(reps + 1):
+        for way, make in ways.items():
+            out, touch_s = make()
+            t = {}
+            _, wall = timed(lambda: staging.download(pool, src, out, [(0, 0, n)], t))
+            head = out[:4096].numpy() if isinstance(out, torch.Tensor) else out[:4096]
+            if not np.array_equal(head, want):
+                raise RuntimeError(f"fetch {way}: bytes differ")
+            emit(f"fetch: {way}", rep, wall, n, touch_s=touch_s, **t)
+            del out
 
 
 def staging_ways(comp: bytes, reps: int, emit) -> None:

@@ -274,7 +274,17 @@ def frame_bytes(a: np.ndarray) -> bytes:
     return a.frame
 
 
-def compress_payload(
+class _Payload:
+    """A payload that :func:`start_payload` computed whole (engines
+    ``numpy`` and ``native``)."""
+
+    __slots__ = ("buf",)
+
+    def __init__(self, buf):
+        self.buf = buf
+
+
+def start_payload(
     data,
     num_buf: int,
     bit_reorder: int,
@@ -286,31 +296,26 @@ def compress_payload(
     shared_tables: bool = False,
     device="cuda",
     prefix_len: int = 0,
+    between=None,
 ):
-    """Engine-dispatched payload compress.
-
-    ``cuda``: ``data`` is a host uint8 array or a uint8 tensor, read in
-    place on its CUDA device, and ``ops.encode`` encodes it on ``device``;
-    ``numpy`` and ``native``: ``data`` is a host uint8 array.  With
-    ``prefix_len`` 0 the result is the payload as ``bytes``; else a
-    :func:`frame` of ``prefix_len`` bytes left for the caller's container
-    header, then the payload (:func:`frame_bytes` gives the ``bytes``
-    once the header is in).  The ``cuda`` engine writes the payload into
-    the frame in place; the ``native`` engine copies it there from the
-    core's worst-case buffer, and the golden encoder's is copied in, so a
-    frame holds only its own bytes.
-    """
+    """The first half of :func:`compress_payload`, for a writer that
+    overlaps containers: on ``cuda``, ``ops.encode.start`` (kernels queued,
+    every cell decided and written on the card; ``between`` called once,
+    after the first launch and before the first host sync); the other
+    engines compute the whole payload here (``between`` called first).
+    :func:`finish_payload` gives the result."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "cuda":
         from .ops import encode  # noqa: PLC0415
 
-        out = encode.compress_payload(
+        return encode.start(
             data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-            check_th_after_percent=check_th_after_percent,
-            shared_tables=shared_tables, device=device, prefix_len=prefix_len,
+            check_th_after_percent=check_th_after_percent, shared_tables=shared_tables,
+            device=device, prefix_len=prefix_len, between=between,
         )
-        return out if prefix_len else frame_bytes(out)
+    if between is not None:
+        between()
     if engine == "native":
         from . import native  # noqa: PLC0415
 
@@ -328,10 +333,57 @@ def compress_payload(
             shared_tables=shared_tables,
         )
         if not prefix_len:
-            return payload
+            return _Payload(payload)
     buf = frame(prefix_len + len(payload))
     buf[prefix_len:] = np.frombuffer(payload, np.uint8)
-    return buf if prefix_len else frame_bytes(buf)
+    return _Payload(buf if prefix_len else frame_bytes(buf))
+
+
+def finish_payload(started, alloc=frame):
+    """The result of a :func:`start_payload`: on ``cuda``,
+    ``ops.encode.finish`` (the tail cells, the output from ``alloc``, the
+    tables and the payload fetched from the card into it); else the
+    payload computed at the start."""
+    if isinstance(started, _Payload):
+        return started.buf
+    from .ops import encode  # noqa: PLC0415
+
+    return encode.finish(started, alloc)
+
+
+def compress_payload(
+    data,
+    num_buf: int,
+    bit_reorder: int,
+    byte_reorder: int,
+    chunk_size: int,
+    threshold: float = DEFAULT_THRESHOLD,
+    engine: str = "cuda",
+    check_th_after_percent: int = 0,
+    shared_tables: bool = False,
+    device="cuda",
+    prefix_len: int = 0,
+):
+    """Engine-dispatched payload compress: ``finish_payload(start_payload(
+    ...))``.
+
+    ``cuda``: ``data`` is a host uint8 array or a uint8 tensor, read in
+    place on its CUDA device, and ``ops.encode`` encodes it on ``device``;
+    ``numpy`` and ``native``: ``data`` is a host uint8 array.  With
+    ``prefix_len`` 0 the result is the payload as ``bytes``; else a
+    :func:`frame` of ``prefix_len`` bytes left for the caller's container
+    header, then the payload (:func:`frame_bytes` gives the ``bytes``
+    once the header is in).  The ``cuda`` engine writes the payload into
+    the frame in place; the ``native`` engine copies it there from the
+    core's worst-case buffer, and the golden encoder's is copied in, so a
+    frame holds only its own bytes.
+    """
+    out = finish_payload(start_payload(
+        data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold, engine,
+        check_th_after_percent, shared_tables, device, prefix_len))
+    if engine == "cuda" and not prefix_len:
+        return frame_bytes(out)
+    return out
 
 
 # ---------------------------------------------------------------------------

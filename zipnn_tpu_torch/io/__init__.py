@@ -1,6 +1,6 @@
 """Serving-side I/O of the PyTorch/CUDA port: back-to-back container
-decode (``serving.ShardDecoder``)."""
+decode (``serving.ShardDecoder``) and encode (``serving.ShardEncoder``)."""
 
-from .serving import ShardDecoder, decompress_iter  # noqa: F401
+from .serving import ShardDecoder, ShardEncoder, decompress_iter  # noqa: F401
 
-__all__ = ["ShardDecoder", "decompress_iter"]
+__all__ = ["ShardDecoder", "ShardEncoder", "decompress_iter"]

@@ -1,10 +1,11 @@
-"""Back-to-back shard decode for serving loads.
+"""Back-to-back shard decode for serving loads, and encode for checkpoint
+saves.
 
-The decode half of the JAX package's ``io/serving.py``.  A model load
+The port of the JAX package's ``io/serving.py``.  A model load
 decompresses many containers in a row (one per tensor in the per-tensor
 safetensors schema); one ``ZipNN.decompress`` at a time pays each
-container's host plan, uploads and validation fetch in turn.  This module
-overlaps them on the card:
+container's host plan, uploads and validation fetch in turn.
+:class:`ShardDecoder` overlaps them on the card:
 
 * ``decode.start`` of container N+1 (its host plan, its copies into
   pinned memory and their DMA on the copy stream, its kernels queued
@@ -25,9 +26,21 @@ Usage::
 Containers may be byte-format frames or torch/numpy-format frames (with a
 shape after the header); the decoder always yields the flat decompressed
 bytes, and the caller reapplies dtype and shape.
+
+A checkpoint save compresses many tensors in a row: :class:`ShardEncoder`
+finishes container N (its tail cells, its tables and the fetch of its
+payload from the card) while container N+1's kernels run::
+
+    from zipnn_tpu_torch import ZipNN
+    from zipnn_tpu_torch.io.serving import ShardEncoder
+    enc = ShardEncoder(ZipNN(input_format="torch", engine="cuda"), pool_staging=True)
+    with open(path, "wb") as f:
+        for frame in enc.compress_iter(tensors):
+            f.write(frame)
 """
 from __future__ import annotations
 
+import threading
 from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -36,10 +49,10 @@ import torch
 from .. import codec
 from ..core import dtypes
 from ..core.header import HEADER_LEN, Header
-from ..ops import decode
-from ..zipnn import check_ported
+from ..ops import decode, encode
+from ..zipnn import ZipNN, check_ported
 
-__all__ = ["ShardDecoder", "decompress_iter"]
+__all__ = ["ShardDecoder", "ShardEncoder", "decompress_iter"]
 
 
 class _Started:
@@ -275,3 +288,196 @@ def decompress_iter(blobs: Iterable, to_device: bool = False, device="cuda") -> 
     """Module-level convenience: ``ShardDecoder(to_device, device=device)
     .decompress_iter``."""
     return ShardDecoder(to_device=to_device, device=device).decompress_iter(blobs)
+
+
+# ---------------------------------------------------------------------------
+# encode: the output pool of pool_staging, and ShardEncoder
+# ---------------------------------------------------------------------------
+
+OUT_POOL_BYTES = 2 << 30  # bytes of free output buffers the process keeps
+_OUT_ROUND = 1 << 20  # output buffers are whole MiB, so sizes near each other share them
+_out_pool: List[torch.Tensor] = []
+_out_lock = threading.Lock()
+
+
+def _out_acquire(need: int, pinned: bool) -> torch.Tensor:
+    """A uint8 host buffer of at least ``need`` bytes from the pool (the
+    smallest that fits, page-locked or not as asked), else a new one, its
+    pages touched once: the counterpart of the JAX package's
+    ``_stage_pool_acquire``."""
+    with _out_lock:
+        fits = [i for i, b in enumerate(_out_pool)
+                if b.numel() >= need and b.is_pinned() == pinned]
+        if fits:
+            return _out_pool.pop(min(fits, key=lambda i: _out_pool[i].numel()))
+    size = max(_OUT_ROUND, -(-need // _OUT_ROUND) * _OUT_ROUND)
+    buf = torch.empty(size, dtype=torch.uint8, pin_memory=pinned)
+    buf.numpy()[::4096] = 0
+    return buf
+
+
+def _out_release(bufs) -> None:
+    """Give buffers back to the pool, dropping the oldest beyond
+    ``OUT_POOL_BYTES``: the counterpart of ``_stage_pool_release``."""
+    with _out_lock:
+        _out_pool.extend(bufs)
+        while _out_pool and sum(b.numel() for b in _out_pool) > OUT_POOL_BYTES:
+            _out_pool.pop(0)
+
+
+class _PendingEnc:
+    """In-flight compress: its kernels queued and its cells decided and
+    written on the card; ``finish()`` returns its container."""
+
+    __slots__ = ("finish",)
+
+    def __init__(self, finish):
+        self.finish = finish
+
+
+class ShardEncoder:
+    """Pipelined multi-container compress: the encode twin of
+    :class:`ShardDecoder`.
+
+    One ``ZipNN.compress`` at a time runs each container's phases in turn:
+    the device encode (split, histograms, Huffman kernels, the cells
+    written on the card) and the host's share (the tail cells, the output
+    and its tables, the payload fetched through pinned memory).  Here
+    container N+1's start (``ZipNN._start_payload``: ``ops.encode.start``
+    on ``engine="cuda"``) queues its first kernels, then finishes container
+    N through its ``between`` hook before its first host sync, so the card
+    runs N+1's kernels while the host finishes N.  Both profiles take this
+    path; the containers are byte-identical to ``ZipNN.compress`` (the
+    same ``start`` / ``finish``).  A ``zipnn`` of another engine
+    (``numpy``, ``native``) computes each payload at its start.
+
+    ``zipnn`` defaults to ``ZipNN(engine="cuda", huffman_table="shared",
+    device=device)``, the reference's default profile; the card unless the
+    caller passes ``device="cpu"``, where the kernels' plain versions run.
+    Byte-format input takes bytes-like buffers; pass a
+    ``ZipNN(input_format="torch", ...)`` for tensors (a CUDA tensor is
+    read in place).
+
+    ``pool_staging=True`` writes each container into a host buffer from a
+    bounded per-process pool (``OUT_POOL_BYTES``; page-locked on a CUDA
+    device, so the payload's fetch is one DMA straight into it) instead of
+    a new ``bytes``.  The yielded containers are then memoryviews into
+    pooled buffers, each valid until two further containers have been
+    yielded: consume (write or copy) each as it arrives, which is what a
+    checkpoint writer does.  :meth:`compress_all` copies them into owned
+    ``bytes``.  With the default ``pool_staging=False`` every container is
+    a ``bytes`` of its own.  ``timings`` holds each container's
+    ``ops.encode.last_timings`` of the last call, in order.
+    """
+
+    def __init__(self, zipnn: Optional[ZipNN] = None, pool_staging: bool = False,
+                 device="cuda"):
+        if zipnn is None:
+            zipnn = ZipNN(engine="cuda", huffman_table="shared", device=device)
+        self._z = zipnn
+        self._pool = pool_staging
+        self._held: List[torch.Tensor] = []  # pooled buffers of yielded containers
+        self.timings: List[dict] = []
+
+    def _input(self, staged, arr):
+        """The bytes to encode: ``arr``, or ``staged``, a uint8 tensor on
+        the encoder's device holding the same bytes (engine ``cuda``)."""
+        if staged is None or self._z.engine != "cuda":
+            return arr
+        n = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
+        if (not isinstance(staged, torch.Tensor) or staged.dtype != torch.uint8
+                or staged.numel() != n):
+            raise ValueError(f"staged words must be a uint8 tensor of the buffer's {n} bytes")
+        return staged.reshape(-1)
+
+    def _submit(self, data, between=None, staged=None) -> _PendingEnc:
+        """Prepare one container and queue its device work.  ``between``
+        (optional) is called exactly once: after this container's first
+        launch, before its first host sync (at once on a container with no
+        launch, or when the preparation raises)."""
+        z = self._z
+        fire = encode.Between(between)
+        try:
+            hdr, arr, grouping, chunk, prefix = z._compress_prepare(data)
+            started = z._start_payload(self._input(staged, arr), grouping, chunk, prefix,
+                                       between=fire)
+        except BaseException:
+            fire()
+            raise
+        fire()
+
+        def fin():
+            owned: List[torch.Tensor] = []
+
+            def alloc(n: int) -> np.ndarray:
+                owned.append(_out_acquire(n, z.device.type == "cuda"))
+                return owned[-1][:n].numpy()
+
+            try:
+                payload = codec.finish_payload(started, alloc if self._pool else codec.frame)
+            except BaseException:
+                _out_release(owned)
+                raise
+            frame = z._compress_finish(hdr, payload, prefix, hdr.original_len)
+            self.timings.append(dict(encode.last_timings) if z.engine == "cuda" else {})
+            if not owned:
+                return codec.frame_bytes(frame)
+            self._track_pooled(owned[0])
+            return memoryview(frame)
+
+        return _PendingEnc(fin)
+
+    def _track_pooled(self, buf: torch.Tensor) -> None:
+        # a pooled buffer returns to the pool two yields after its
+        # container was produced (the documented validity window)
+        self._held.append(buf)
+        while len(self._held) > 2:
+            _out_release([self._held.pop(0)])
+
+    def _release_held(self) -> None:
+        _out_release(self._held)
+        self._held = []
+
+    # -- pipelined iteration ---------------------------------------------
+    def compress_iter(self, buffers: Iterable, staged_words=None) -> Iterator:
+        """Compress ``buffers`` in order, one container per buffer, each
+        container finished while the next one's kernels run.
+        ``staged_words`` optionally supplies, in parallel, each buffer's
+        bytes already on the card (uint8 tensors, read in place); a None
+        entry, or an iterable shorter than ``buffers``, leaves the buffer
+        to the encoder's own upload.  An early exit or an error returns
+        every pooled buffer this encoder holds to the pool."""
+        self.timings = []
+        done: list = []
+        prev: Optional[_PendingEnc] = None
+        words = iter(staged_words) if staged_words is not None else None
+        try:
+            for b in buffers:
+                staged = next(words, None) if words is not None else None
+                if prev is None:
+                    h = self._submit(b, staged=staged)
+                else:
+                    p = prev
+                    h = self._submit(b, between=lambda: done.append(p.finish()),
+                                     staged=staged)
+                prev = h
+                while done:
+                    yield done.pop(0)
+            if prev is not None:
+                last, prev = prev, None
+                yield last.finish()
+        except BaseException:
+            self._release_held()
+            raise
+
+    def compress_all(self, buffers: Iterable) -> list:
+        """Compress ``buffers``; returns the containers as a list of
+        ``bytes``, each owning its storage (with ``pool_staging`` too)."""
+        if not self._pool:
+            return list(self.compress_iter(buffers))
+        return [bytes(c) for c in self.compress_iter(buffers)]
+
+    def compress(self, data):
+        """Single-container convenience (no pipelining)."""
+        self.timings = []
+        return self._submit(data).finish()

@@ -5,8 +5,9 @@ profile of ``jax_codec.compress_payload`` (its split, ``_histogram``,
 ``_plan_cell``, ``_encode`` and the bounded threshold check's post-pass)
 and the shared-table profile of ``jax_codec.plan_fast_encode``,
 ``_assemble`` and ``fast_encode_payload_batched``, reduced to what the
-format needs.  The container it returns equals the golden encoder's
-(``codec.compress_payload_numpy``) byte for byte:
+format needs, split as its ``run(words, between=...)`` is into
+:func:`start` and :func:`finish`.  The container equals the golden
+encoder's (``codec.compress_payload_numpy``) byte for byte:
 
 1. **Geometry**: the full chunks, the ragged tail and chunk-range batches;
    in the shared profile each batch is a multiple of the sampling stride
@@ -15,9 +16,10 @@ format needs.  The container it returns equals the golden encoder's
    the sampled chunks (every ``stride``-th chunk from 0, and the tail cell
    when its index is on stride), split and counted on the device, summed
    in int64; then ``codec.shared_tables_from_counts``.
-3. **Per batch**: the batch's words (a view of the caller's CUDA tensor,
-   or uploaded) and the byte-plane split (``transforms.split_device``),
-   then the profile's kernels:
+3. **Per batch** (:func:`start`): the batch's words (a view of the
+   caller's CUDA tensor, or host bytes uploaded from pinned staging) and
+   the byte-plane split (``transforms.split_device``), then the profile's
+   kernels:
 
    * shared: K8 (``const_scan.const_scan_rows``) over every (chunk, plane)
      row and K7 (``huf_enc.huf_shared_encode``) over the 4 streams of
@@ -31,58 +33,72 @@ format needs.  The container it returns equals the golden encoder's
 
    One device-to-host copy brings the bit counts (and K8's flags); the
    host takes every cell's decision (:func:`decide`) and, per-chunk, the
-   bounded threshold check (:class:`Abandon`); a second copy brings the
-   bytes the container needs (:func:`fetch`): each Huffman stream's bytes
-   and the raw cells.
+   bounded threshold check (:class:`Abandon`); then ``splice.splice_cells``
+   writes the batch's cells on the device (:func:`assemble`: for each
+   plane, its cells in chunk order, a raw cell from the split planes, a
+   Huffman cell as its weight header, jump table and streams cut from the
+   encoder's rows), and the batch's planes and rows are let go.  The
+   plane-major layout puts plane ``b`` after every earlier plane's cells
+   of every batch, so the assembled regions wait on the device until the
+   last batch is decided.
 
    Chunks whose planes are not whole 4-byte words (planes under one word
    at the chunk sizes ``ZipNN`` takes) go by the sub-word route instead
    (:func:`encode_sub_word_batch`), either profile: a byte-wise split
    (``transforms.split_bytes``) and an RLE check on the device, the RLE
-   and raw decisions on the host (such cells are never Huffman), and one
-   fetch of the cells' stored bytes.
-4. **Tail and output**: the per-chunk tail cell goes through the native
-   core's block encoder (``native.huf_compress``), the shared one through
-   ``codec.compress_cell_shared`` with the plane's shared table; the chunk
-   tables and every cell are written at their global offsets into one
-   ``codec.frame`` behind ``prefix_len`` bytes left for the caller's
-   header (:func:`splice`, the native core's ``splice_cells``), so several
-   batches stitch into one container and the header joins it without a
-   copy.
+   and raw decisions on the host (such cells are never Huffman), one
+   fetch of the cells' stored bytes, and the native core's splice in
+   :func:`finish`.
+4. **Container** (:func:`finish`): the tail cells on the host (per-chunk:
+   the native core's block encoder, ``native.huf_compress``; shared:
+   ``codec.compress_cell_shared`` with the plane's shared table), the
+   output (a ``codec.frame``, or a caller's buffer) with ``prefix_len``
+   bytes left for the caller's header, the chunk tables, and each
+   assembled batch's plane regions fetched straight to their offsets
+   through pinned pieces (``staging.download``), the copy stream waiting
+   on an event behind the last assembly.
 
-On CPU tensors the kernels' plain versions run, so the same pipeline
-encodes on the host for the tests.
+:func:`start` calls its ``between`` hook once, after the first kernels are
+queued and before the first host sync (at once when nothing is launched):
+a pipelined writer (``io.serving.ShardEncoder``) finishes the previous
+container there while this one's kernels run.  On CPU tensors the
+kernels' plain versions run, so the same pipeline encodes on the host for
+the tests.
 """
 from __future__ import annotations
 
 import time
-import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from .. import codec, native
-from . import byte_group, const_scan, hist, huf_enc, kernels, transforms
+from . import byte_group, const_scan, hist, huf_enc, kernels, staging, transforms
+from . import splice as dsplice
 from .entropy import fse, huf
+from .splice import HUF, RAW, RLE
 
-RAW, RLE, HUF = 0, 1, 2
 BATCH_BYTES = 512 << 20  # input bytes per device batch
 
-# what the last compress spent, for callers that report it: the encoder
-# that ran ("huf_shared_encode", "huf_pc_encode", or "sub_word" for
-# planes that are not whole words), the
-# device kernels it launches ("kernels"), host-clock phase seconds
-# (split_s, hist_s, plan_s, kernels_s, fetch_s, splice_s, upload_s), the
-# input bytes uploaded (upload_bytes), every byte moved each way
-# (h2d_bytes: the input's uploads, the tables and the fetch indices;
-# d2h_bytes), the batch count and, on CUDA, the events recorded around
-# each kernel launch
+# what the last finished compress spent, for callers that report it: the
+# encoder that ran ("huf_shared_encode", "huf_pc_encode", or "sub_word"
+# for planes that are not whole words), the device kernels it launches
+# ("kernels"), host-clock phase seconds (split_s, hist_s, plan_s,
+# kernels_s, decide_s: the decisions' fetch and the host decisions,
+# assemble_s: the cells written on the device, splice_s: the tail cells,
+# the output and its tables and the host-spliced cells, upload_s: the
+# input's copies into pinned staging), the copy stream's span of the
+# payload's fetch (download_s) and the host copies out of pinned memory
+# (unstage_s), the input bytes uploaded (upload_bytes), every byte moved
+# each way (h2d_bytes: the input's uploads, the tables, stream offsets and
+# cell descriptors; d2h_bytes), the batch count and, on CUDA, the events
+# recorded around each kernel launch
 last_timings: Dict = {}
 
-SHARED_KERNELS = ("const_scan_rows", "huf_shared_encode")
-PC_KERNELS = ("hist_cells", "huf_pc_encode")
+SHARED_KERNELS = ("const_scan_rows", "huf_shared_encode", "splice_cells")
+PC_KERNELS = ("hist_cells", "huf_pc_encode", "splice_cells")
 SUB_WORD_CELL_BYTES = 64 << 20  # split bytes per batch of the sub-word route
 
 
@@ -124,11 +140,15 @@ class Source:
     """The full chunks as uint8 rows ``[full, chunk_size]`` on the device
     (int32 words ``[., chunk_size / 4]`` on the word route): a view of the
     caller's device tensor, or host bytes uploaded per batch (once, when
-    one batch holds them all).  Counts the bytes it and the encoder move
-    each way and the seconds the input's uploads take."""
+    one batch holds them all) through the staging pool's pinned pieces.
+    Moves every small array between host and card through pinned memory
+    (:meth:`put` without waiting, :meth:`get` waiting for the current
+    stream), and counts the bytes it and the encoder move each way and the
+    host seconds of the input's uploads."""
 
     def __init__(self, data, g: Geometry, device: torch.device):
         self.device = device
+        self.cuda = device.type == "cuda"
         self.sub_word = g.sub_word
         self.uploaded = self.h2d = self.d2h = 0
         self.upload_s = 0.0
@@ -140,41 +160,69 @@ class Source:
             if not g.sub_word and head.storage_offset() % 4:
                 head = head.clone()  # a copy on the device, to a word boundary
             self.rows = head.view(g.full, g.chunk_size)
-            self.tail = flat[nfull:].cpu().numpy()
-            self.d2h += self.tail.size
+            self._tail = self.get_later(flat[nfull:])
             return
         if isinstance(data, torch.Tensor):
             data = data.reshape(-1).numpy()
         flat = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
         self.host = flat[:nfull].reshape(g.full, g.chunk_size)
-        self.tail = flat[nfull:]
+        self._tail = (flat[nfull:], None)
         if len(g.batches) == 1:
             self.rows = self._up(self.host)
 
+    @property
+    def tail(self) -> np.ndarray:
+        """The ragged tail's bytes on the host (waits for their copy)."""
+        arr, done = self._tail
+        if done is not None:
+            done.synchronize()
+        return arr
+
     def _up(self, rows: np.ndarray) -> torch.Tensor:
         t0 = time.perf_counter()
-        with warnings.catch_warnings():
-            # a read-only view of the caller's buffer; never written to
-            warnings.simplefilter("ignore", UserWarning)
-            t = self.put(rows)
-        if self.device.type == "cuda":
-            self.uploaded += rows.nbytes
-            _sync(self.device)
+        src = staging.as_tensor(rows)
+        if not self.cuda:
+            return src.view(rows.shape)
+        p = staging.pool(self.device)
+        with torch.cuda.stream(p.stream):
+            t = torch.empty(rows.shape, dtype=torch.uint8, device=self.device)
+        t.record_stream(torch.cuda.current_stream(self.device))
+        done = staging.upload(p, src, t.view(-1), [(0, rows.size)], {})
+        torch.cuda.current_stream(self.device).wait_event(done)
+        self.uploaded += rows.nbytes
+        self.h2d += rows.nbytes
         self.upload_s += time.perf_counter() - t0
         return t
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the device, its bytes counted."""
-        if self.device.type == "cuda":
-            self.h2d += arr.nbytes
-        return torch.from_numpy(arr).to(self.device)
+        """A host array on the device (a pinned copy sent without waiting;
+        on the CPU the array itself), its bytes counted."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if not self.cuda:
+            return t
+        self.h2d += t.nbytes
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def get_later(self, t: torch.Tensor):
+        """(host array, event): ``t``'s copy into pinned memory, queued on
+        the current stream; the array holds it once the event has
+        completed (None on the CPU, where the array is ``t``'s)."""
+        if not self.cuda:
+            return t.numpy(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        self.d2h += host.nbytes
+        return host.numpy(), done
 
     def get(self, t: torch.Tensor) -> np.ndarray:
-        """A device tensor on the host, its bytes counted."""
-        out = t.cpu().numpy()
-        if self.device.type == "cuda":
-            self.d2h += out.nbytes
-        return out
+        """A device tensor on the host, through pinned memory, its bytes
+        counted (waits for the current stream)."""
+        arr, done = self.get_later(t)
+        if done is not None:
+            done.synchronize()
+        return arr
 
     def _route(self, rows: torch.Tensor) -> torch.Tensor:
         return rows if self.sub_word else rows.view(torch.int32)
@@ -196,18 +244,36 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _tick(clock: Dict, key: str, t0: float, device: torch.device) -> float:
-    """Add the seconds since ``t0`` (after a sync) to ``clock[key]``."""
-    _sync(device)
+class Between:
+    """The ``between`` hook of :func:`start`: calls ``fn`` (if any) the
+    first time it is called.  Until then the phase clock does not
+    synchronise the device, so the hook comes before the first host
+    sync."""
+
+    def __init__(self, fn: Optional[Callable[[], None]]):
+        self.fn, self.fired = fn, fn is None
+
+    def __call__(self) -> None:
+        if not self.fired:
+            self.fired = True
+            self.fn()
+
+
+def _tick(clock: Dict, key: str, t0: float, device: torch.device,
+          between: Optional[Between] = None) -> float:
+    """Add the seconds since ``t0`` to ``clock[key]``, after a sync unless
+    ``between`` has yet to fire."""
+    if between is None or between.fired:
+        _sync(device)
     t = time.perf_counter()
     clock[key] = clock.get(key, 0.0) + t - t0
     return t
 
 
-def sampled_counts(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int,
-                   tail_planes) -> np.ndarray:
-    """Shared profile, pass 1: [num_buf, 256] int64 byte counts of the
-    sampled cells."""
+def sampled_counts(src: Source, g: Geometry, byte_reorder: int,
+                   bit_reorder: int) -> torch.Tensor:
+    """Shared profile, pass 1 on the device: [num_buf, 256] int64 byte
+    counts of the sampled full chunks (the tail cell is the caller's)."""
     nb = g.num_buf
     counts = torch.zeros((nb, 256), dtype=torch.int64, device=src.device)
     for lo, hi in g.batches:
@@ -216,12 +282,7 @@ def sampled_counts(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int
         for b in range(nb):
             counts[b] += torch.bincount(
                 planes[:, b].contiguous().view(torch.uint8).reshape(-1), minlength=256)
-    out = src.get(counts)
-    if tail_planes is not None and g.full % g.stride == 0:
-        for b, plane in enumerate(tail_planes):  # the tail cell is on stride
-            if plane.size:
-                out[b] += np.bincount(plane, minlength=256)
-    return out
+    return counts
 
 
 def cell_table(count: np.ndarray, n: int):
@@ -362,12 +423,13 @@ class Abandon:
 
 @dataclass
 class Batch:
-    """One batch's decisions ([k, num_buf] ``kind``, stored ``size``, the
-    RLE bytes ``b0``; for Huffman cells the header index ``hid`` into the
-    pool (header ``h`` at ``hpool[hoff[h]]``, ``hlen[h]`` bytes) and the
-    jump table ``jump`` [k, num_buf, 3], both None in a batch without
-    Huffman cells) and the bytes fetched for its cells: cell (c, b)'s
-    Huffman streams or raw bytes from ``blob[boff[c, b]]``."""
+    """One sub-word batch's decisions ([k, num_buf] ``kind``, stored
+    ``size``, the RLE bytes ``b0``; for Huffman cells the header index
+    ``hid`` into the pool (header ``h`` at ``hpool[hoff[h]]``, ``hlen[h]``
+    bytes) and the jump table ``jump`` [k, num_buf, 3], both None in a
+    batch without Huffman cells) and its cells' bytes on the host: cell
+    (c, b)'s Huffman streams or raw bytes from ``blob[boff[c, b]]``, which
+    the native core's splice writes (:func:`_splice_host`)."""
 
     lo: int
     kind: np.ndarray
@@ -382,56 +444,71 @@ class Batch:
     blob: np.ndarray
 
 
-def fetch(src: Source, planes: torch.Tensor, kind: np.ndarray, cand: np.ndarray,
-          sb: np.ndarray, groups: List[torch.Tensor]):
-    """The bytes the container needs, in one device-to-host copy: the
-    Huffman cells' streams, then the raw cells.  ``groups`` hold K7's rows
-    of the ``cand`` cells in order (4 rows a cell).  Returns (blob, boff
-    [k, num_buf])."""
-    dev = src.device
-    k, nb = kind.shape
-    pb = planes.shape[-1] * 4
-    flat_kind = kind.reshape(-1)
-    boff = np.zeros(k * nb, dtype=np.int64)
-    parts, pos, start = [], 0, 0
-    for rows in groups:
-        m = rows.shape[0] // 4
-        sel = np.nonzero(flat_kind[cand[start : start + m]] == HUF)[0]
-        if sel.size:
-            s = sb[start + sel]
-            width = int(s.max())
-            pick = src.put((sel[:, None] * 4 + np.arange(4)).reshape(-1))
-            got = rows.view(torch.uint8)[:, :width].index_select(0, pick)
-            keep = torch.arange(width, device=dev) < src.put(s.reshape(-1))[:, None]
-            parts.append(got[keep])
-            tot = s.sum(axis=1)
-            boff[cand[start + sel]] = pos + np.cumsum(tot) - tot
-            pos += int(tot.sum())
-        start += m
-    raw = np.nonzero(flat_kind == RAW)[0]
-    if raw.size:
-        parts.append(planes.reshape(k * nb, -1)[src.put(raw)].reshape(-1).view(torch.uint8))
-        boff[raw] = pos + np.arange(raw.size) * pb
-    blob = src.get(torch.cat(parts)) if parts else np.zeros(0, np.uint8)
-    return blob, boff.reshape(k, nb)
+@dataclass
+class Assembled:
+    """One batch's decisions ([k, num_buf] ``kind`` and stored ``size``) and
+    its cells written on the device (:func:`assemble`): ``buf`` holds, for
+    each plane ``b``, the batch's cells in chunk order, ``plane_bytes[b]``
+    bytes from ``plane_off[b]``."""
+
+    lo: int
+    kind: np.ndarray
+    size: np.ndarray
+    buf: torch.Tensor
+    plane_off: np.ndarray
+    plane_bytes: np.ndarray
 
 
-def _batch(lo, kind, size, b0, cand, sb, hid, hpool, hoff, hlen, blob, boff) -> Batch:
+def _hpool(src: Source, headers: np.ndarray) -> torch.Tensor:
+    """Weight headers on the device, padded to whole 16 bytes (never
+    empty)."""
+    pad = np.zeros(-(-max(headers.size, 1) // 16) * 16, np.uint8)
+    pad[: headers.size] = headers
+    return src.put(pad)
+
+
+def assemble(src: Source, lo: int, kind: np.ndarray, size: np.ndarray, planes: torch.Tensor,
+             rows: List[torch.Tensor], cand: np.ndarray, grp: np.ndarray, first: np.ndarray,
+             sb: np.ndarray, hoff: np.ndarray, hlen: np.ndarray, hpool: torch.Tensor,
+             clock: Dict, between: Between) -> Assembled:
+    """Write a decided batch's cells on the device (``splice.splice_cells``)
+    into a buffer of their stored bytes, plane-major: a raw or RLE cell
+    from its row of ``planes`` ([k, num_buf, W] int32); Huffman candidate
+    ``i`` (cell ``cand[i]``, flat index ``c * num_buf + b``, if decided
+    Huffman) as its header (``hlen[i]`` bytes of ``hpool`` from
+    ``hoff[i]``), jump table and streams, stream ``s`` from row
+    ``first[i] + s`` of ``rows[grp[i]]``, cut to ``sb[i, s]`` bytes."""
+    t = time.perf_counter()
     k, nb = kind.shape
-    hidk = np.full(k * nb, -1, dtype=np.int64)
-    hidk[cand] = hid
-    jump = np.zeros((k * nb, 3), dtype=np.uint16)
-    jump[cand] = sb[:, :3]
-    return Batch(lo, kind, size, b0, hidk.reshape(k, nb), jump.reshape(k, nb, 3),
-                 hpool, np.asarray(hoff, np.int64), np.asarray(hlen, np.int64), boff, blob)
+    n = k * nb
+    sz = size.T
+    plane_bytes = sz.sum(axis=1)
+    plane_off = np.cumsum(plane_bytes) - plane_bytes
+    dst = (plane_off[:, None] + np.cumsum(sz, axis=1) - sz).T.reshape(-1)
+    cells = np.zeros((n, dsplice.FIELDS), np.int64)
+    cells[:, dsplice.DST] = dst
+    cells[:, dsplice.INFO] = dsplice.info(size.reshape(-1), kind.reshape(-1))
+    cells[:, dsplice.SRC] = np.arange(n)
+    h = kind.reshape(-1)[cand] == HUF
+    c = cand[h]
+    cells[c, dsplice.INFO] = dsplice.info(size.reshape(-1)[c], HUF, 1 + grp[h], hlen[h])
+    cells[c, dsplice.SRC] = dsplice.src(first[h], hoff[h])
+    cells[c, dsplice.SB] = dsplice.pack_sb(sb[h])
+    buf = torch.empty(int(plane_bytes.sum()), dtype=torch.uint8, device=src.device)
+    groups = [planes.view(n, -1), *rows]
+    dsplice.splice_cells(buf, cells, groups, hpool)
+    if src.cuda:
+        src.h2d += cells.nbytes + 16 * len(groups)
+    _tick(clock, "assemble_s", t, src.device, between)
+    return Assembled(lo, kind, size, buf, plane_off, plane_bytes)
 
 
 def _split(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
-           bit_reorder: int, clock: Dict):
+           bit_reorder: int, clock: Dict, between: Between):
     words = src.batch(lo, hi)
     t = time.perf_counter()
     planes = transforms.split_device(words, g.num_buf, byte_reorder, bit_reorder)
-    return planes, _tick(clock, "split_s", t, src.device)
+    return planes, _tick(clock, "split_s", t, src.device, between)
 
 
 def _streams(cells: torch.Tensor, pw: int) -> torch.Tensor:
@@ -442,14 +519,15 @@ def _streams(cells: torch.Tensor, pw: int) -> torch.Tensor:
 
 
 def encode_shared_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
-                        bit_reorder: int, tables: Dict[int, torch.Tensor], hpool, hoff, hlen,
-                        threshold, clock: Dict) -> Batch:
+                        bit_reorder: int, tables: Dict[int, torch.Tensor], hpool: torch.Tensor,
+                        hoff: np.ndarray, hlen: np.ndarray, threshold, clock: Dict,
+                        between: Between) -> Assembled:
     """Shared profile, pass 2 on chunks [lo, hi): split, K8, K7, the
-    decisions, and the fetch of the bytes the container needs.  Plane
-    ``b``'s header is ``b`` of the pool (``hpool``, ``hoff``, ``hlen``)."""
+    decisions and the cells on the device.  Plane ``b``'s header is ``b``
+    of the pool (``hpool``, ``hoff``, ``hlen``)."""
     nb, pw = g.num_buf, g.plane_bytes // 4
     k = hi - lo
-    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock)
+    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
     flags = const_scan.const_scan_rows(planes.view(k * nb, pw))
     chunks = np.arange(k, dtype=np.int64) * nb
     cand = np.concatenate([chunks + b for b in tables] or [np.zeros(0, np.int64)])
@@ -459,51 +537,55 @@ def encode_shared_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder
                                           _streams(src.put(chunks + b), pw))
         rows.append(r)
         bits.append(tb)
-    t = _tick(clock, "kernels_s", t, src.device)
+    between()
     dec = src.get(torch.cat([flags] + bits))
+    t = _tick(clock, "kernels_s", t, src.device, between)
     flags_h = dec[: k * nb].reshape(k, nb)
     hid = np.repeat(np.asarray(list(tables), dtype=np.int64), k)
     kind, size, sb = decide((flags_h >> 8).astype(bool), cand, dec[k * nb :], hlen[hid],
                             g.plane_bytes, threshold)
-    blob, boff = fetch(src, planes, kind, cand, sb, rows)
-    _tick(clock, "fetch_s", t, src.device)
-    return _batch(lo, kind, size, (flags_h & 0xFF).astype(np.uint8), cand, sb, hid,
-                  hpool, hoff, hlen, blob, boff)
+    _tick(clock, "decide_s", t, src.device, between)
+    return assemble(src, lo, kind, size, planes, rows, cand,
+                    np.repeat(np.arange(len(tables)), k), np.tile(4 * np.arange(k), len(tables)),
+                    sb, hoff[hid], hlen[hid], hpool, clock, between)
 
 
 def encode_pc_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
-                    bit_reorder: int, threshold, abandon: Abandon, clock: Dict) -> Batch:
+                    bit_reorder: int, threshold, abandon: Abandon, clock: Dict,
+                    between: Between) -> Assembled:
     """Per-chunk profile on chunks [lo, hi): split, the cell histograms
     and their fetch, the plan (native tables), K7 over the Huffman cells'
-    streams, the decisions and the threshold check, and the fetch of the
-    bytes the container needs."""
+    streams, the decisions and the threshold check, and the cells on the
+    device."""
     nb, pw = g.num_buf, g.plane_bytes // 4
     k = hi - lo
-    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock)
-    counts = src.get(hist.hist_cells(planes.view(k * nb, pw)))
-    t = _tick(clock, "hist_s", t, src.device)
+    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
+    counts = hist.hist_cells(planes.view(k * nb, pw))
+    between()
+    counts = src.get(counts)
+    t = _tick(clock, "hist_s", t, src.device, between)
     plan = plan_cells(counts.reshape(k, nb, 256), g.plane_bytes, abandon.planes)
-    t = _tick(clock, "plan_s", t, src.device)
+    t = _tick(clock, "plan_s", t, src.device, between)
+    m = plan.cand.size
     rows, bits = [], np.zeros((0, 4), np.int32)
-    if plan.cand.size:
+    if m:
         r, tb = huf_enc.huf_pc_encode(planes, src.put(plan.tables), g.seg,
                                       _streams(src.put(plan.cand), pw))
         rows = [r]
         bits = src.get(tb)
-    t = _tick(clock, "kernels_s", t, src.device)
+    t = _tick(clock, "kernels_s", t, src.device, between)
     kind, size, sb = decide(plan.rle, plan.cand, bits, plan.hlen, g.plane_bytes, threshold)
     abandon.apply(lo, kind, size, np.full(nb, g.plane_bytes, np.int64), threshold)
-    blob, boff = fetch(src, planes, kind, plan.cand, sb, rows)
-    _tick(clock, "fetch_s", t, src.device)
-    m = plan.cand.size
-    return _batch(lo, kind, size, plan.b0, plan.cand, sb, np.arange(m, dtype=np.int64),
-                  plan.headers.reshape(-1), np.arange(m, dtype=np.int64) * native.HDR_STRIDE,
-                  plan.hlen, blob, boff)
+    _tick(clock, "decide_s", t, src.device, between)
+    idx = np.arange(m, dtype=np.int64)
+    return assemble(src, lo, kind, size, planes, rows, plan.cand, np.zeros(m, np.int64), 4 * idx,
+                    sb, idx * native.HDR_STRIDE, plan.hlen, _hpool(src, plan.headers.reshape(-1)),
+                    clock, between)
 
 
 def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
                           bit_reorder: int, threshold, abandon: Optional[Abandon],
-                          clock: Dict) -> Batch:
+                          clock: Dict, between: Between) -> Batch:
     """Either profile on chunks [lo, hi) whose planes are not whole words
     (``g.lens`` bytes, under 12: never Huffman).  On the device: the
     byte-wise split and each cell's RLE check (one repeated byte), one
@@ -517,12 +599,13 @@ def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reord
     rows = src.batch(lo, hi)
     t = time.perf_counter()
     planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder, g.lens.tolist())
-    t = _tick(clock, "split_s", t, dev)
+    t = _tick(clock, "split_s", t, dev, between)
     lens = src.put(g.lens)
     inside = torch.arange(planes.shape[2], device=dev) < lens[:, None]  # [nb, pmax]
     flags = ((planes == planes[:, :, :1]) | ~inside).all(dim=2) & (lens > 0)
+    between()
     flags_h = src.get(flags)
-    t = _tick(clock, "kernels_s", t, dev)
+    t = _tick(clock, "kernels_s", t, dev, between)
     before = np.zeros(nb, bool) if abandon is None else abandon.planes.copy()
     rle_ok = (1 < g.lens * threshold) & ~before
     kind = np.where(flags_h & rle_ok, RLE, RAW).astype(np.uint8)
@@ -542,16 +625,17 @@ def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reord
     r = kind == RLE
     b0 = np.zeros((k, nb), dtype=np.uint8)
     b0[r] = blob[boff[r]]
-    _tick(clock, "fetch_s", t, dev)
+    _tick(clock, "decide_s", t, dev, between)
     none = np.zeros(0, np.int64)
     return Batch(lo, kind, size, b0, None, None, np.zeros(0, np.uint8), none, none,
                  np.ascontiguousarray(boff), blob)
 
 
-def _layout(g: Geometry, batches: List[Batch], tail, prefix_len: int):
-    """The output frame with the chunk-type and cumulative-size tables
-    written behind ``prefix_len`` bytes, and the absolute start of plane
-    ``b``'s cell of chunk ``c`` (``base[b] + starts[b, c]``)."""
+def _layout(g: Geometry, batches, tail, prefix_len: int,
+            alloc: Callable[[int], np.ndarray] = codec.frame):
+    """The output, ``alloc(n)``, with the chunk-type and cumulative-size
+    tables written behind ``prefix_len`` bytes, and the absolute start of
+    plane ``b``'s cell of chunk ``c`` (``base[b] + starts[b, c]``)."""
     nb = g.num_buf
     types = np.zeros((nb, g.n_chunks), dtype=np.uint8)
     sizes = np.zeros((nb, g.n_chunks), dtype=np.int64)
@@ -567,7 +651,7 @@ def _layout(g: Geometry, batches: List[Batch], tail, prefix_len: int):
     starts[:, 1:] = cumulative
     tbl_len = types.nbytes + cumulative.nbytes
     base = prefix_len + tbl_len + np.concatenate([[0], np.cumsum(starts[:, -1])[:-1]])
-    out = codec.frame(prefix_len + tbl_len + int(starts[:, -1].sum()))
+    out = alloc(prefix_len + tbl_len + int(starts[:, -1].sum()))
     out[prefix_len : prefix_len + types.nbytes] = types.reshape(-1)
     out[prefix_len + types.nbytes : prefix_len + tbl_len] = cumulative.view(np.uint8).reshape(-1)
     return out, base.astype(np.int64), starts
@@ -580,14 +664,12 @@ def _tail_cells(tail):
     return sizes, np.cumsum(sizes) - sizes, np.concatenate(tail[2])
 
 
-def splice(g: Geometry, batches: List[Batch], tail, prefix_len: int = 0) -> np.ndarray:
-    """The container payload behind ``prefix_len`` bytes left for the
-    caller's header, in one ``codec.frame``: chunk-type and cumulative-size
-    tables, then each plane's cells in chunk order, every batch's cells
-    written at their global offsets by one call to the native core
-    (``native.splice_cells``), the tail's as one more.  ``tail`` is None or
-    (types [num_buf], sizes [num_buf], stored blocks)."""
-    out, base, starts = _layout(g, batches, tail, prefix_len)
+def _splice_host(out: np.ndarray, base, starts, g: Geometry, batches: List[Batch],
+                 tail) -> None:
+    """Host-side batches' cells and the tail's, by the native core
+    (``native.splice_cells``), at the output's offsets (:func:`_layout`).
+    ``tail`` is None or (types [num_buf], sizes [num_buf], stored
+    blocks)."""
     dummy16, dummy64 = np.zeros(3, np.uint16), np.zeros(1, np.int64)
     for bt in batches:
         k = bt.kind.shape[0]
@@ -602,35 +684,157 @@ def splice(g: Geometry, batches: List[Batch], tail, prefix_len: int = 0) -> np.n
         native.splice_cells(out, base + starts[:, -2], np.zeros(nb, np.uint8), sizes,
                             np.zeros(nb, np.uint8), dummy64, np.zeros(0, np.uint8), dummy64,
                             dummy64, dummy16, offs, blob)
-    return out
 
 
-def splice_plain(g: Geometry, batches: List[Batch], tail, prefix_len: int = 0) -> np.ndarray:
-    """Plain Python version of :func:`splice`: the same buffer, cell by
-    cell."""
-    out, base, starts = _layout(g, batches, tail, prefix_len)
-    for bt in batches:
-        for b in range(g.num_buf):
-            o = int(base[b] + starts[b, bt.lo])
-            for c in range(bt.kind.shape[0]):
-                kd, n, r = bt.kind[c, b], int(bt.size[c, b]), int(bt.boff[c, b])
-                if kd == RLE:
-                    out[o] = bt.b0[c, b]
-                elif kd == RAW:
-                    out[o : o + n] = bt.blob[r : r + n]
-                else:
-                    h = bt.hid[c, b]
-                    hl = int(bt.hlen[h])
-                    hdr = bt.hpool[bt.hoff[h] : bt.hoff[h] + hl]
-                    out[o : o + hl] = hdr
-                    out[o + hl : o + hl + 6] = bt.jump[c, b].astype("<u2").view(np.uint8)
-                    out[o + hl + 6 : o + n] = bt.blob[r : r + n - hl - 6]
-                o += n
-    if tail is not None:
-        sizes, offs, blob = _tail_cells(tail)
-        for b in range(g.num_buf):
-            o = int(base[b] + starts[b, -2])
-            out[o : o + sizes[b]] = blob[offs[b] : offs[b] + sizes[b]]
+class Started:
+    """An encode in flight (:func:`start`): every batch decided and, on the
+    word route, its cells written on the device, where they wait for
+    :func:`finish`; ``ready`` is a CUDA event behind the last of them (None
+    on the CPU) and ``timings`` the phase seconds so far."""
+
+    def __init__(self, g: Geometry, src: Source, batches: List[Union[Assembled, Batch]],
+                 shared, abandon: Optional[Abandon], threshold: float, prefix_len: int,
+                 reorder, timings: Dict):
+        self.g, self.src, self.batches, self.shared, self.abandon = g, src, batches, shared, abandon
+        self.threshold, self.prefix_len, self.reorder = threshold, prefix_len, reorder
+        self.timings = timings
+        self.ready = None
+        if src.cuda:
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(src.device))
+
+
+def _tail_planes(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int):
+    tail = src.tail
+    return byte_group.split(tail, g.num_buf, byte_reorder, bit_reorder) if tail.size else None
+
+
+def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: int,
+          threshold: float = codec.DEFAULT_THRESHOLD, check_th_after_percent: int = 0,
+          shared_tables: bool = False, device="cuda", prefix_len: int = 0,
+          between: Optional[Callable[[], None]] = None) -> Started:
+    """Route, upload, split, histograms, plan, kernels, every cell's
+    decision and every batch's cells on the device, for :func:`finish`.
+    ``data`` is a host uint8 array or a uint8 tensor, read in place on its
+    CUDA device.  ``between`` is called exactly once: after the first
+    kernels are queued and before the first host sync (at once when
+    nothing is launched)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    if isinstance(data, torch.Tensor):
+        n = int(data.numel())
+    else:
+        data = np.frombuffer(memoryview(data), dtype=np.uint8)
+        n = data.size
+    g = Geometry(n, num_buf, chunk_size, shared_tables, byte_reorder)
+    timings: Dict = {}
+    if g.sub_word:
+        timings.update(encoder="sub_word", kernels=())
+    elif shared_tables:
+        timings.update(encoder="huf_shared_encode", kernels=SHARED_KERNELS)
+    else:
+        timings.update(encoder="huf_pc_encode", kernels=PC_KERNELS)
+    hook = Between(between)
+    src = Source(data, g, device)
+    abandon = None if shared_tables else Abandon(g.n_chunks, check_th_after_percent, num_buf)
+    shared = [None] * num_buf
+    args = (src, g)
+    reorder = (byte_reorder, bit_reorder)
+    with kernels.recording() as events:
+        if g.sub_word:
+            batches = [encode_sub_word_batch(*args, lo, hi, *reorder, threshold, abandon,
+                                             timings, hook) for lo, hi in g.batches]
+        elif shared_tables:
+            t0, up0 = time.perf_counter(), src.upload_s
+            counts = sampled_counts(src, g, *reorder)
+            hook()
+            counts = src.get(counts)
+            tail_planes = _tail_planes(src, g, *reorder)
+            if tail_planes is not None and g.full % g.stride == 0:
+                for b, plane in enumerate(tail_planes):  # the tail cell is on stride
+                    if plane.size:
+                        counts[b] += np.bincount(plane, minlength=256)
+            shared, live = codec.shared_tables_from_counts(counts, threshold, g.stride)
+            # the sampled chunks' uploads (several batches of host input) count as upload
+            timings["hist_s"] = time.perf_counter() - t0 - (src.upload_s - up0)
+            hdrs = [b"" if t is None else t[2] for t in shared]
+            hpool = _hpool(src, np.frombuffer(b"".join(hdrs), np.uint8))
+            hlen = np.asarray([len(h) for h in hdrs], dtype=np.int64)
+            hoff = np.cumsum(hlen) - hlen
+            tables = {}
+            if 12 <= g.plane_bytes <= huf.HUF_BLOCKSIZE_MAX:  # else every cell is raw or RLE
+                for b in range(num_buf):
+                    if live[b]:
+                        lengths, vals, _, _ = shared[b]
+                        tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
+            shared = [t if alive else None for t, alive in zip(shared, live)]
+            batches = [encode_shared_batch(*args, lo, hi, *reorder, tables, hpool, hoff, hlen,
+                                           threshold, timings, hook) for lo, hi in g.batches]
+        else:
+            batches = [encode_pc_batch(*args, lo, hi, *reorder, threshold, abandon, timings,
+                                       hook) for lo, hi in g.batches]
+    hook()
+    timings["events"] = events
+    return Started(g, src, batches, shared, abandon, threshold, prefix_len, reorder, timings)
+
+
+def _tail(run: Started):
+    """(types, sizes, stored blocks) of the tail chunk's cells, or None."""
+    planes = _tail_planes(run.src, run.g, *run.reorder)
+    if planes is None:
+        return None
+    nb = run.g.num_buf
+    types = np.zeros(nb, dtype=np.uint8)
+    sizes = np.zeros(nb, dtype=np.int64)
+    blobs = []
+    for b, plane in enumerate(planes):
+        if run.abandon is None:
+            comp = codec.compress_cell_shared(plane, run.shared[b])
+        else:
+            comp = None if run.abandon.planes[b] else native.huf_compress(plane)
+        if comp is not None and len(comp) < plane.size * run.threshold:
+            types[b] = 1
+            blob = np.frombuffer(comp, np.uint8)
+        else:
+            blob = plane
+        sizes[b] = blob.size
+        blobs.append(blob)
+    return types, sizes, blobs
+
+
+def finish(run: Started, alloc: Callable[[int], np.ndarray] = codec.frame) -> np.ndarray:
+    """The container of an encode that :func:`start` began, in ``alloc(n)`` (a
+    writable uint8 array of ``n`` bytes; a new ``codec.frame`` by default):
+    ``prefix_len`` bytes left for the caller's header, the chunk tables,
+    the tail's and the sub-word batches' cells spliced on the host, and
+    each assembled batch's plane regions fetched straight to their offsets
+    (``staging.download`` on the card, the copy stream waiting on the
+    event behind the last assembly).  Sets ``last_timings``."""
+    g, src, timings = run.g, run.src, run.timings
+    t0 = time.perf_counter()
+    tail = _tail(run)
+    out, base, starts = _layout(g, run.batches, tail, run.prefix_len, alloc)
+    _splice_host(out, base, starts, g, [bt for bt in run.batches if isinstance(bt, Batch)], tail)
+    timings["splice_s"] = time.perf_counter() - t0
+    timings.update(download_s=0.0, unstage_s=0.0)
+    for bt in run.batches:
+        if not isinstance(bt, Assembled):
+            continue
+        ranges = [(int(bt.plane_off[b]), int(base[b] + starts[b, bt.lo]), int(bt.plane_bytes[b]))
+                  for b in range(g.num_buf) if bt.plane_bytes[b]]
+        if src.cuda:
+            staging.download(staging.pool(src.device), bt.buf, out, ranges, timings,
+                             after=run.ready)
+            src.d2h += sum(r[2] for r in ranges)
+        else:
+            host = bt.buf.numpy()
+            for s, d, m in ranges:
+                out[d : d + m] = host[s : s + m]
+    timings.update(upload_s=src.upload_s, upload_bytes=src.uploaded, h2d_bytes=src.h2d,
+                   d2h_bytes=src.d2h, batches=len(run.batches))
+    last_timings.clear()
+    last_timings.update(timings)
     return out
 
 
@@ -640,91 +844,13 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
                      device="cuda", prefix_len: int = 0) -> np.ndarray:
     """Compress ``data`` (a host uint8 array, or a uint8 tensor, read in
     place on its CUDA device) into the payload of either profile on
-    ``device``; its bytes equal ``codec.compress_payload_numpy(...)``'s
-    for the same arguments (``check_th_after_percent`` applies to the
-    per-chunk profile only, as there).  Returns a ``codec.frame`` that
-    holds ``prefix_len`` bytes for the caller's header, then the
-    payload."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device is available")
-    last_timings.clear()
-    if isinstance(data, torch.Tensor):
-        n = int(data.numel())
-    else:
-        data = np.frombuffer(memoryview(data), dtype=np.uint8)
-        n = data.size
-    g = Geometry(n, num_buf, chunk_size, shared_tables, byte_reorder)
-    if g.sub_word:
-        last_timings.update(encoder="sub_word", kernels=())
-    elif shared_tables:
-        last_timings.update(encoder="huf_shared_encode", kernels=SHARED_KERNELS)
-    else:
-        last_timings.update(encoder="huf_pc_encode", kernels=PC_KERNELS)
-    src = Source(data, g, device)
-    tail_planes = None
-    if src.tail.size:
-        tail_planes = byte_group.split(src.tail, num_buf, byte_reorder, bit_reorder)
-
-    def run(one):
-        with kernels.recording() as events:
-            batches = [one(lo, hi) for lo, hi in g.batches]
-        last_timings["events"] = events
-        return batches
-
-    abandon = None if shared_tables else Abandon(g.n_chunks, check_th_after_percent, num_buf)
-    shared = [None] * num_buf
-    if g.sub_word:
-        batches = run(lambda lo, hi: encode_sub_word_batch(
-            src, g, lo, hi, byte_reorder, bit_reorder, threshold, abandon, last_timings))
-    elif shared_tables:
-        t0, up0 = time.perf_counter(), src.upload_s
-        counts = sampled_counts(src, g, byte_reorder, bit_reorder, tail_planes)
-        shared, live = codec.shared_tables_from_counts(counts, threshold, g.stride)
-        # the sampled chunks' uploads (several batches of host input) count as upload
-        last_timings["hist_s"] = time.perf_counter() - t0 - (src.upload_s - up0)
-        hdrs = [b"" if t is None else t[2] for t in shared]
-        hpool = np.frombuffer(b"".join(hdrs), np.uint8)
-        hlen = np.asarray([len(h) for h in hdrs], dtype=np.int64)
-        hoff = np.cumsum(hlen) - hlen
-        tables = {}
-        if 12 <= g.plane_bytes <= huf.HUF_BLOCKSIZE_MAX:  # else every cell is raw or RLE
-            for b in range(num_buf):
-                if live[b]:
-                    lengths, vals, _, _ = shared[b]
-                    tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
-        shared = [t if alive else None for t, alive in zip(shared, live)]
-        batches = run(lambda lo, hi: encode_shared_batch(
-            src, g, lo, hi, byte_reorder, bit_reorder, tables, hpool, hoff, hlen, threshold,
-            last_timings))
-    else:
-        batches = run(lambda lo, hi: encode_pc_batch(
-            src, g, lo, hi, byte_reorder, bit_reorder, threshold, abandon, last_timings))
-
-    t2 = time.perf_counter()
-    tail = None
-    if tail_planes is not None:
-        tail_types = np.zeros(num_buf, dtype=np.uint8)
-        tail_sizes = np.zeros(num_buf, dtype=np.int64)
-        tail_blobs = []
-        for b, plane in enumerate(tail_planes):
-            if shared_tables:
-                comp = codec.compress_cell_shared(plane, shared[b])
-            else:
-                comp = None if abandon.planes[b] else native.huf_compress(plane)
-            if comp is not None and len(comp) < plane.size * threshold:
-                tail_types[b] = 1
-                blob = np.frombuffer(comp, np.uint8)
-            else:
-                blob = plane
-            tail_sizes[b] = blob.size
-            tail_blobs.append(blob)
-        tail = (tail_types, tail_sizes, tail_blobs)
-    out = splice(g, batches, tail, prefix_len)
-    last_timings["splice_s"] = time.perf_counter() - t2
-    last_timings.update(upload_s=src.upload_s, upload_bytes=src.uploaded,
-                        h2d_bytes=src.h2d, d2h_bytes=src.d2h, batches=len(batches))
-    return out
+    ``device``: ``finish(start(...))``.  Its bytes equal
+    ``codec.compress_payload_numpy(...)``'s for the same arguments
+    (``check_th_after_percent`` applies to the per-chunk profile only, as
+    there).  Returns a ``codec.frame`` that holds ``prefix_len`` bytes for
+    the caller's header, then the payload."""
+    return finish(start(data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+                        check_th_after_percent, shared_tables, device, prefix_len))
 
 
 def kernel_ms() -> Dict[str, float]:

@@ -36,6 +36,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 launches: Dict[str, int] = {
     "huf_pc_decode": 0, "huf_shared_decode": 0, "combine_cells": 0,
     "huf_shared_encode": 0, "const_scan_rows": 0, "hist_cells": 0, "huf_pc_encode": 0,
+    "splice_cells": 0,
 }
 
 # the event list of the innermost ``recording()`` block of this thread
@@ -68,6 +69,8 @@ _SIGNATURES = {
     "const_scan_rows": [_P, _L, _L, _P, _P],
     # rows, n_rows, width, out, stream
     "hist_cells": [_P, _L, _L, _P, _P],
+    # out, desc, n_groups, n_cells, hpool, stream
+    "splice_cells": [_P, _P, _I, _L, _P, _P],
 }
 
 

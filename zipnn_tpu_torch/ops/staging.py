@@ -1,13 +1,15 @@
-"""Pinned, reused host staging for host-to-card copies, and the copy stream.
+"""Pinned, reused host staging for copies between host and card, and the
+copy stream.
 
 The counterpart of the JAX package's staging pool
 (``ops/jax_codec.py`` ``_stage_pool_acquire`` / ``_stage_pool_release``).
-A copy from pageable memory is one blocking transfer through the
-CUDA runtime's own bounce buffer; a copy from page-locked memory runs as an
-asynchronous DMA on a stream.  So :func:`upload` cuts its bytes into
-pieces of at most ``PIECE_BYTES``: the host copies piece k+1 into a
+A copy from or to pageable memory is one blocking transfer through the
+CUDA runtime's own bounce buffer; a copy from or to page-locked memory
+runs as an asynchronous DMA on a stream.  So :func:`upload` cuts its bytes
+into pieces of at most ``PIECE_BYTES``: the host copies piece k+1 into a
 pinned buffer while piece k goes up with ``non_blocking=True`` on the
-pool's copy stream.
+pool's copy stream; and :func:`download`, the other direction, brings
+piece k+1 down while the host copies piece k out to its final place.
 
 :class:`Pool` holds the page-locked buffers (``torch.empty(...,
 pin_memory=True)``, whose first allocation costs tens of milliseconds
@@ -23,13 +25,15 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Sequence, Tuple
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 PIECE_BYTES = 8 << 20  # bytes per pinned buffer and per DMA
 POOL_BYTES = 128 << 20  # page-locked bytes a pool holds, free and busy together
+DOWNLOAD_DEPTH = 3  # pieces a download keeps in flight while the host empties the oldest
 
 
 class Pool:
@@ -132,3 +136,69 @@ def upload(p: Pool, src: torch.Tensor, dst: torch.Tensor,
         event.record(p.stream)
     timings["stage_s"] = timings.get("stage_s", 0.0) + stage_s
     return event
+
+
+def download(p: Pool, src: torch.Tensor, dst, ranges: Sequence[Tuple[int, int, int]],
+             timings: dict, after: Optional[torch.cuda.Event] = None) -> None:
+    """Copy ``src[s : s + n]`` (a uint8 device tensor) to ``dst[d : d + n]``
+    (host memory: a writable uint8 numpy array or CPU tensor) for each
+    ``(s, d, n)`` of ``ranges``; returns once every byte is in ``dst``.
+
+    The pool's copy stream first waits on ``after``, an event recorded
+    behind the work that wrote ``src`` (recorded on the current stream now
+    when None), and ``src`` is marked as in use there.  Page-locked ``dst``
+    takes one DMA a range, straight in.  Else each range comes down in
+    pinned pieces of at most ``PIECE_BYTES``, up to ``DOWNLOAD_DEPTH`` in
+    flight: the host copies the oldest into ``dst`` while later ones' DMAs
+    run, and a piece goes back to the pool once its host copy is done (or
+    once its DMA is, when the download fails).  Adds the host seconds of
+    the copies out of pinned memory to ``timings["unstage_s"]`` and the
+    copy stream's span, first DMA to last, to ``timings["download_s"]``."""
+    dst = dst if isinstance(dst, torch.Tensor) else torch.from_numpy(dst)
+    if after is None:
+        after = torch.cuda.Event()
+        after.record(torch.cuda.current_stream(src.device))
+    src.record_stream(p.stream)
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    depth = max(1, min(DOWNLOAD_DEPTH, POOL_BYTES // PIECE_BYTES))
+    pending: deque = deque()
+    unstage_s = 0.0
+
+    def empty_oldest() -> float:
+        buf, d, m, done = pending.popleft()
+        done.synchronize()
+        t0 = time.perf_counter()
+        dst[d : d + m].copy_(buf[:m])
+        took = time.perf_counter() - t0
+        p.release(buf, done)
+        return took
+
+    with torch.cuda.stream(p.stream):
+        p.stream.wait_event(after)
+        first.record(p.stream)
+        if dst.is_pinned():
+            for s, d, n in ranges:
+                dst[d : d + n].copy_(src[s : s + n], non_blocking=True)
+            last.record(p.stream)
+        else:
+            try:
+                for s, d, n in ranges:
+                    for o in range(0, n, PIECE_BYTES):
+                        m = min(PIECE_BYTES, n - o)
+                        buf = p.acquire(m)
+                        buf[:m].copy_(src[s + o : s + o + m], non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(p.stream)
+                        pending.append((buf, d + o, m, done))
+                        if len(pending) > depth:
+                            unstage_s += empty_oldest()
+                last.record(p.stream)
+                while pending:
+                    unstage_s += empty_oldest()
+            finally:
+                for buf, _, _, done in pending:
+                    p.release(buf, done)
+    last.synchronize()
+    timings["unstage_s"] = timings.get("unstage_s", 0.0) + unstage_s
+    timings["download_s"] = (timings.get("download_s", 0.0)
+                             + first.elapsed_time(last) / 1e3)

@@ -142,14 +142,13 @@ class ZipNN:
         arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
         return info.code, data.shape, arr
 
-    def compress(self, data):
-        """Compress ``data`` (bytes / torch.Tensor / np.ndarray) into one
-        ``.znn`` frame (``bytes``), byte-identical to the JAX package's
-        numpy engine: the header is written into the room the encoder
-        leaves in front of the payload (no join copy)."""
-        t0 = time.perf_counter()
+    def _compress_prepare(self, data):
+        """Everything in :meth:`compress` before the payload encode:
+        (header, flat bytes, grouping, chunk size, header prefix length),
+        for ``codec.start_payload`` and :meth:`_compress_finish`.  Split out
+        so a pipelined writer (``io.serving.ShardEncoder``) can finish
+        container N while container N+1's kernels run."""
         code, shape, arr = self._resolve_dtype_and_bytes(data)
-        nbytes = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
         if not dtypes.from_code(code).is_float:
             raise ValueError("Support only torch.dtype float32/bfloat16/float16/fp8")
         grouping = dtypes.grouping_for_code(code)
@@ -161,22 +160,42 @@ class ZipNN:
             byte_reorder=grouping.byte_reorder,
             bit_reorder=grouping.bit_reorder,
             dtype_code=code,
-            original_len=nbytes,
+            original_len=arr.numel() if isinstance(arr, torch.Tensor) else arr.size,
         )
         if self.input_format in _FORMATS_WITH_SHAPE:
             hdr.shape = shape
         chunk = codec.effective_chunk(self.compression_chunk, grouping.num_buf)
-        prefix = HEADER_LEN + hdr.ext_len()
-        buf = codec.compress_payload(
+        return hdr, arr, grouping, chunk, HEADER_LEN + hdr.ext_len()
+
+    def _start_payload(self, arr, grouping, chunk, prefix, between=None):
+        """``codec.start_payload`` with this codec's settings."""
+        return codec.start_payload(
             arr, grouping.num_buf, grouping.bit_reorder, grouping.byte_reorder,
             chunk, self.compression_threshold, self.engine,
             check_th_after_percent=self.check_th_after_percent,
             shared_tables=self.huffman_table == "shared", device=self.device,
-            prefix_len=prefix,
+            prefix_len=prefix, between=between,
         )
-        hdr.total_len = len(buf)
-        buf[:prefix] = np.frombuffer(hdr.to_bytes(), np.uint8)
-        self._record_stats("compress", nbytes, len(buf), time.perf_counter() - t0)
+
+    def _compress_finish(self, hdr, payload, prefix: int, orig_size: int):
+        """Write the header into the ``prefix`` bytes in front of
+        ``payload`` (a writable uint8 array holding the whole container);
+        returns it."""
+        hdr.original_len = orig_size
+        hdr.total_len = len(payload)
+        payload[:prefix] = np.frombuffer(hdr.to_bytes(), np.uint8)
+        return payload
+
+    def compress(self, data):
+        """Compress ``data`` (bytes / torch.Tensor / np.ndarray) into one
+        ``.znn`` frame (``bytes``), byte-identical to the JAX package's
+        numpy engine: the header is written into the room the encoder
+        leaves in front of the payload (no join copy)."""
+        t0 = time.perf_counter()
+        hdr, arr, grouping, chunk, prefix = self._compress_prepare(data)
+        buf = codec.finish_payload(self._start_payload(arr, grouping, chunk, prefix))
+        buf = self._compress_finish(hdr, buf, prefix, hdr.original_len)
+        self._record_stats("compress", hdr.original_len, len(buf), time.perf_counter() - t0)
         return codec.frame_bytes(buf)
 
     # ------------------------------------------------------------------
