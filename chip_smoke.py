@@ -27,6 +27,9 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    container (each timed); and ``splice_cells`` against its plain version
    and against the native core's splice on the same cells, at the first
    batch of the bf16 encode (both profiles: the cells phase 6 writes);
+   and ``combine_cells`` at 4 planes with no sign rotation (``bit_reorder``
+   0) at the first batch of phase 12's fp32 lossy INTEGER container (int32
+   planes);
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
@@ -100,7 +103,34 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    the golden encoder's), must launch ``splice_cells`` and the profile's
    kernels; every container decoded back by ``ShardDecoder`` bit-exact;
    each way's wall, GB/s and summed plan, kernels, assemble, download and
-   unstage seconds.
+   unstage seconds;
+9. the whole-file streaming path: the load's 18 tensors laid out as one
+   safetensors file in memory (the layout written here: no
+   ``safetensors`` import), compressed by ``ZipNN(is_streaming=True,
+   engine="cuda")`` in 1 MiB frames (~833, the last with no full chunk),
+   byte-equal to engine ``"native"``'s, and decompressed on the card by
+   ``ZipNN(is_streaming=True, engine="cuda")``: the bytes equal the file,
+   parsing them gives the 18 tensors back, and ``huf_pc_decode`` launches
+   fewer times than there are frames; the decode's wall, GB/s and frame
+   walk, plan (its chunk tables' part and its CPU seconds), stage, upload
+   and fetch seconds, and the full garbage collections inside it (and
+   what one full collection of the process costs), beside the same bytes
+   as one non-streaming container, and the encode's wall;
+10. the per-tensor ``.znn.safetensors`` load: phase 7's containers written
+    as one file under ``zipnn_tpu_torch/_build/`` with
+    ``znn_compressed_vectors`` metadata, read back onto the card by
+    ``io.streaming.SafetensorsStreamReader.load_shard`` (``ShardDecoder``
+    inside, its launches counted), every tensor equal to its original;
+    wall and GB/s beside phase 7's ``decompress_iter``;
+11. delta: layer 0's ``q_proj`` as the base and the base plus N(0, 1e-3)
+    from ``--seed`` in bf16 as the fine-tuned tensor; the byte-format delta
+    container, plain and streaming, byte-equal between engines ``"cuda"``
+    and ``"native"`` and decoded on the card back to the fine-tuned bytes;
+12. lossy INTEGER: fp32 (64 MiB, N(0, 0.05), factor 27: the int32 path),
+    bf16 (32 MiB, factor 8: the int16 path) and fp32 out of range (stored
+    as floats), each encoded on the card from a CUDA tensor byte-equal to
+    engine ``"native"``'s container, and decoded on the card (the
+    int-to-float step too) to the tensor that engine ``"numpy"`` decodes.
 
 Each encode path prints its phase times (split, histogram, plan, kernels,
 decide, assemble, splice, download, unstage) and end-to-end GB/s beside
@@ -113,8 +143,10 @@ the exit code is not 0 and no result line is printed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -971,7 +1003,7 @@ def serving_load(seed: int, dev, smi):
     pool = staging.pool(dev)
     log(f"[serving] staging pool: {pool.held} pinned bytes held (bound {staging.POOL_BYTES}), "
         f"{pool.allocated} pinned allocations")
-    return names, xs
+    return names, xs, blobs, walls
 
 
 def checkpoint_save(names, xs, dev, smi) -> dict:
@@ -1050,6 +1082,250 @@ def checkpoint_save(names, xs, dev, smi) -> dict:
     return launches
 
 
+ST_DTYPES = {torch.bfloat16: "BF16", torch.uint8: "U8"}
+
+
+def safetensors_bytes(tensors: dict, metadata: dict) -> bytearray:
+    """The safetensors layout of ``tensors`` ({name: CPU tensor}, in
+    order), written here: an 8-byte little-endian header length, the JSON
+    header (each tensor's dtype, shape and ``data_offsets``, and
+    ``__metadata__``) padded with spaces to a multiple of 8 bytes, then the
+    tensors' bytes back to back."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = metadata
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    out = bytearray(struct.pack("<Q", len(text)) + text)
+    for t in tensors.values():
+        out += t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    return out
+
+
+def safetensors_tensors(buf) -> dict:
+    """{name: CPU tensor} parsed from the safetensors layout ``buf`` (bf16
+    tensors only)."""
+    mv = memoryview(buf)
+    (hlen,) = struct.unpack("<Q", mv[:8])
+    header = json.loads(bytes(mv[8 : 8 + hlen]))
+    header.pop("__metadata__", None)
+    out = {}
+    for name, info in header.items():
+        check(info["dtype"] == "BF16", f"{name}: dtype {info['dtype']}")
+        lo, hi = info["data_offsets"]
+        raw = np.frombuffer(mv[8 + hlen + lo : 8 + hlen + hi], dtype=np.uint16).copy()
+        out[name] = torch.from_numpy(raw).view(torch.bfloat16).reshape(info["shape"])
+    return out
+
+
+def whole_file_streaming(names, xs, dev, smi):
+    """Phase 9: the load's tensors as one safetensors file in memory,
+    compressed in 1 MiB streaming frames on the card (byte-equal to engine
+    ``"native"``) and decompressed on the card, the frames decoded together;
+    the launch counts set to 0 just before the decode and read just after.
+    Returns those launches."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, kernels  # noqa: PLC0415
+
+    host = {n: x.cpu() for n, x in zip(names, xs)}
+    file = bytes(safetensors_bytes(host, {"format": "pt"}))
+    frame = 1 << 20
+    frames = -(-len(file) // frame)
+    check(0 < len(file) % frame < 256 * 1024, "the last frame holds a full chunk")
+    comp, enc_ms = host_ms(lambda: ZipNN(is_streaming=True, engine="cuda", device=dev)
+                           .compress(file))
+    nat, nat_ms = host_ms(lambda: ZipNN(is_streaming=True, engine="native").compress(file))
+    check(comp == nat, "streaming container from the card != engine native's")
+    del nat
+
+    gen2 = {"n": 0, "s": 0.0}  # full garbage collections, and their seconds
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                gen2["t0"] = time.perf_counter()
+            else:
+                gen2["n"] += 1
+                gen2["s"] += time.perf_counter() - gen2["t0"]
+
+    def dec():
+        return ZipNN(is_streaming=True, engine="cuda", device=dev).decompress(comp)
+
+    def timed_dec():
+        n0, s0 = gen2["n"], gen2["s"]
+        gc.callbacks.append(on_gc)
+        try:
+            out, ms = host_ms(dec)
+        finally:
+            gc.callbacks.remove(on_gc)
+        t = dict(decode.last_timings, gen2=gen2["n"] - n0, gen2_s=gen2["s"] - s0)
+        return out, ms, t
+
+    kernels.reset_launches()
+    out, ms, t = timed_dec()
+    launches = dict(kernels.launches)
+    check(out == file, "streaming decode != the file")
+    check(t["frames"] == frames and t["runs"] == 1, f"{t['frames']} frames in {t['runs']} runs")
+    check(0 < launches["huf_pc_decode"] < frames,
+          f"huf_pc_decode launched {launches['huf_pc_decode']} times for {frames} frames")
+    check(launches["combine_cells"] > 0, "combine_cells not launched by the streaming decode")
+    got = safetensors_tensors(out)
+    check(list(got) == names, "the decoded file's tensors")
+    for name, x in host.items():
+        check(torch.equal(got[name].view(torch.int16), x.view(torch.int16)), f"{name} != original")
+    del out, got
+    out, ms2, t2 = timed_dec()
+    check(out == file, "second streaming decode != the file")
+    del out
+    # what one full collection of this process costs, whichever code it lands in
+    full_s = time.perf_counter()
+    gc.collect()
+    full_s = time.perf_counter() - full_s
+    tracked = len(gc.get_objects())
+    one = bytes(ZipNN(engine="cuda", device=dev).compress(file))
+    one_ms = []
+    for _ in range(2):
+        back, m = host_ms(lambda: ZipNN(engine="cuda", device=dev).decompress(one))
+        check(back.nbytes == len(file), "one-container decode size")
+        one_ms.append(m)
+        del back
+    n = len(file)
+
+    def phases(tt):
+        return (", ".join(f"{k[:-2]} {tt[k]:.4f} s" for k in (
+            "runs_s", "plan_s", "geometry_s", "plan_cpu_s", "stage_s", "upload_s", "fetch_s"))
+            + f", {tt['gen2']} full gc in {tt['gen2_s']:.4f} s")
+
+    log(f"[stream] whole file: {len(names)} bf16 tensors as safetensors, {n} bytes -> "
+        f"{frames} frames of 1 MiB ({len(comp)} bytes, ratio {len(comp) / n:.4f}); encode on "
+        f"the card {enc_ms / 1e3:.3f} s = {n / enc_ms / 1e6:.3f} GB/s, == engine native "
+        f"({nat_ms / 1e3:.3f} s); decode on the card {ms / 1e3:.4f} s = {n / ms / 1e6:.3f} GB/s "
+        f"({phases(t)}), second {ms2 / 1e3:.4f} s = {n / ms2 / 1e6:.3f} GB/s ({phases(t2)}); "
+        f"the same bytes as one container ({len(one)} bytes) decoded in "
+        f"{one_ms[0] / 1e3:.4f} s, second {one_ms[1] / 1e3:.4f} s = "
+        f"{n / one_ms[1] / 1e6:.3f} GB/s; a full gc of this process {full_s:.4f} s over "
+        f"{tracked} tracked objects; launches {launches}; tensors parsed back bit-exact; "
+        f"card: {smi}")
+    return launches
+
+
+def per_tensor_file(names, xs, blobs, iter_wall, dev, smi) -> None:
+    """Phase 10: phase 7's containers as a ``.znn.safetensors`` file
+    (``znn_compressed_vectors`` metadata, written here) read back onto the
+    card by ``SafetensorsStreamReader.load_shard``; the launch counts set to
+    0 just before each load and read just after."""
+    from zipnn_tpu_torch.io.streaming import METADATA_KEY, SafetensorsStreamReader  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
+
+    stored = {n: torch.from_numpy(np.frombuffer(b, dtype=np.uint8).copy())
+              for n, b in zip(names, blobs)}
+    infos = {n: {"dtype": "bfloat16", "shape": str(list(x.shape))} for n, x in zip(names, xs)}
+    path = kernels.BUILD_DIR / "smoke_llama.znn.safetensors"
+    path.write_bytes(safetensors_bytes(stored, {"format": "pt",
+                                                METADATA_KEY: json.dumps(infos)}))
+    del stored
+    nbytes = sum(x.numel() * 2 for x in xs)
+    try:
+        reader = SafetensorsStreamReader(str(path), decode_device=dev)
+        check(set(reader.compressed) == set(names), "compressed tensors of the file")
+        for rep in (1, 2):
+            kernels.reset_launches()
+            got, ms = host_ms(lambda: reader.load_shard(device=dev))
+            launches = dict(kernels.launches)
+            for name, x in zip(names, xs):
+                y = got[name]
+                check(y.device == x.device and y.dtype == x.dtype and torch.equal(
+                    y.view(torch.int16), x.view(torch.int16)), f"{name} != original")
+            for k in ("huf_pc_decode", "combine_cells"):
+                check(launches[k] > 0, f"{k} not launched by load_shard")
+            del got
+            log(f"[file] SafetensorsStreamReader.load_shard onto the card (run {rep}): "
+                f"{path.stat().st_size} bytes of file, {len(names)} tensors bit-exact, "
+                f"{ms / 1e3:.4f} s = {nbytes / ms / 1e6:.3f} GB/s (phase 7's "
+                f"ShardDecoder.decompress_iter of the same containers: {iter_wall:.4f} s = "
+                f"{nbytes / iter_wall / 1e9:.3f} GB/s); launches {launches}; card: {smi}")
+    finally:
+        path.unlink()
+
+
+def delta_case(names, xs, seed, dev, smi) -> None:
+    """Phase 11: layer 0's q_proj as the base, the base plus N(0, 1e-3)
+    (``seed``) in bf16 as the fine-tuned tensor; the byte-format delta
+    container, plain and streaming, byte-equal between engines ``"cuda"``
+    and ``"native"``, decoded on the card back to the fine-tuned bytes."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
+
+    b = xs[names.index("model.layers.0.self_attn.q_proj.weight")]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tuned = (b.float() + torch.randn(b.shape, generator=gen, device=dev) * 1e-3).to(b.dtype)
+    base = b.cpu().view(torch.int16).numpy().tobytes()
+    tuned = tuned.cpu().view(torch.int16).numpy().tobytes()
+    check(base != tuned, "the fine-tuned tensor equals the base")
+    for streaming in (False, True):
+        kw = {"delta_compressed_type": "byte", "is_streaming": streaming}
+        c, enc_ms = host_ms(lambda: ZipNN(engine="cuda", device=dev, **kw)
+                            .compress(tuned, delta_second_data=base))
+        nat, nat_ms = host_ms(lambda: ZipNN(engine="native", **kw)
+                              .compress(tuned, delta_second_data=base))
+        check(c == nat, f"delta container (streaming {streaming}) != engine native's")
+        kernels.reset_launches()
+        back, dec_ms = host_ms(lambda: ZipNN(engine="cuda", device=dev, **kw)
+                               .decompress(c, delta_second_data=base))
+        launches = dict(kernels.launches)
+        check(bytes(back) == tuned, f"delta decode (streaming {streaming}) != fine-tuned bytes")
+        check(launches["combine_cells"] > 0, "combine_cells not launched by the delta decode")
+        log(f"[delta] q_proj {len(base)} bytes, streaming {streaming}: container {len(c)} bytes "
+            f"(ratio {len(c) / len(base):.4f}) == engine native; encode on the card "
+            f"{enc_ms / 1e3:.4f} s (native {nat_ms / 1e3:.4f} s), decode on the card "
+            f"{dec_ms / 1e3:.4f} s = {len(base) / dec_ms / 1e6:.3f} GB/s, == fine-tuned bytes; "
+            f"launches {launches}; card: {smi}")
+
+
+def lossy_input(seed: int) -> torch.Tensor:
+    """Phase 12's fp32 input: 64 MiB of N(0, 0.05)."""
+    return synth(torch.float32, 64 << 20, seed)
+
+
+def lossy_case(label, x_cpu, factor, is_int, dev, smi) -> dict:
+    """Phase 12, one input: encoded on the card from a CUDA tensor,
+    byte-equal to engine ``"native"``'s container (``lossy_is_int`` as
+    ``is_int``), decoded on the card to the tensor engine ``"numpy"``
+    decodes; the launch counts set to 0 just before the decode and read
+    just after, and returned."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
+
+    kw = {"input_format": "torch", "lossy_compressed_type": "integer",
+          "lossy_compressed_factor": factor}
+    x = x_cpu.to(dev)
+    c, enc_ms = host_ms(lambda: ZipNN(engine="cuda", device=dev, **kw).compress(x))
+    check(c == ZipNN(engine="native", **kw).compress(x_cpu), f"{label}: container != native's")
+    check(c[12] == int(is_int), f"{label}: lossy_is_int {c[12]}")
+    want, numpy_ms = host_ms(lambda: ZipNN(input_format="torch", engine="numpy").decompress(c))
+    kernels.reset_launches()
+    y, dec_ms = host_ms(lambda: ZipNN(input_format="torch", engine="cuda", device=dev)
+                        .decompress(c))
+    launches = dict(kernels.launches)
+    ints = {4: torch.int32, 2: torch.int16}[x_cpu.element_size()]
+    check(y.device == x.device and y.dtype == x_cpu.dtype and y.shape == x_cpu.shape,
+          f"{label}: output")
+    check(torch.equal(y.cpu().view(ints), want.view(ints)), f"{label}: card != engine numpy")
+    check(launches["combine_cells"] > 0, f"{label}: combine_cells not launched")
+    err = float((y.float() - x.float()).abs().max())
+    n = x_cpu.numel() * x_cpu.element_size()
+    log(f"[lossy] {label}: {n} bytes, factor {factor}, lossy_is_int {c[12]}, container "
+        f"{len(c)} bytes (ratio {len(c) / n:.4f}) == engine native; encode on the card "
+        f"{enc_ms / 1e3:.4f} s, decode on the card {dec_ms / 1e3:.4f} s = "
+        f"{n / dec_ms / 1e6:.3f} GB/s == engine numpy ({numpy_ms / 1e3:.1f} s); max |error| "
+        f"{err:.3g}; launches {launches}; card: {smi}")
+    return launches
+
+
 def cpu_model() -> str:
     """The host CPU's model (``lscpu``'s "Model name", else
     ``/proc/cpuinfo``'s "model name"), with its core count: the plan and
@@ -1115,6 +1391,11 @@ def main() -> int:
     c_fp32 = compressed(kernels.BUILD_DIR, "fp32", x_fp32, "per_chunk")
     c_shared = compressed(kernels.BUILD_DIR, "bf16", x_bf16, "shared")
     c_fp32_shared = compressed(kernels.BUILD_DIR, "fp32", x_fp32, "shared")
+    x_lossy = lossy_input(args.seed + 30)
+    c_lossy = ZipNN(input_format="torch", engine="native",
+                    lossy_compressed_type="integer").compress(x_lossy)
+    check((c_lossy[5], c_lossy[6], c_lossy[12]) == (220, 0, 1),
+          "the fp32 lossy container is not int32 planes without rotation")
 
     # ---- 2. kernels against their plain versions ------------------------
     rows = {}
@@ -1172,6 +1453,11 @@ def main() -> int:
         input_format="torch", engine="numpy", compression_chunk=256).compress(xs),
         xs, dev, offset=4)
     del x8, xs
+    # K2 at 4 planes with no sign rotation: the lossy int32 planes
+    rows["k2_4_norot"] = hold_combine_of(
+        "combine_cells (4 planes, bit_reorder 0: fp32 lossy INTEGER)", c_lossy,
+        (x_lossy * float(2**27)).to(torch.int32), dev)
+    del c_lossy
     torch.cuda.empty_cache()
 
     # ---- 3. fixtures ----------------------------------------------------
@@ -1263,11 +1549,29 @@ def main() -> int:
     del c_fp32
 
     # ---- 7. the serving load --------------------------------------------
-    names, xs = serving_load(args.seed + 20, dev, smi)
+    names, xs, blobs, walls = serving_load(args.seed + 20, dev, smi)
 
     # ---- 8. the checkpoint save -------------------------------------------
     save = checkpoint_save(names, xs, dev, smi)
-    del names, xs
+
+    # ---- 9. whole-file streaming -----------------------------------------
+    whole_file_streaming(names, xs, dev, smi)
+
+    # ---- 10. the per-tensor .znn.safetensors load ------------------------
+    per_tensor_file(names, xs, blobs, walls["iter2"], dev, smi)
+
+    # ---- 11. delta -------------------------------------------------------
+    delta_case(names, xs, args.seed + 40, dev, smi)
+    del names, xs, blobs
+    torch.cuda.empty_cache()
+
+    # ---- 12. lossy INTEGER -----------------------------------------------
+    lossy = lossy_case("fp32, int32 path", x_lossy, 27, True, dev, smi)
+    lossy_case("bf16, int16 path", synth(torch.bfloat16, 32 << 20, args.seed + 31), 8, True,
+               dev, smi)
+    lossy_case("fp32 out of range", synth(torch.float32, 8 << 20, args.seed + 32) * 1e30, 27,
+               False, dev, smi)
+    del x_lossy
 
     # ---- summary ---------------------------------------------------------
     def row(key, kname, source, replaces, path, launches):
@@ -1291,6 +1595,8 @@ def main() -> int:
         row("k2_4", "combine_cells", "zipnn_tpu_torch/csrc/combine.cu",
             k2 + "; zipnn_tpu/ops/pallas_gather.py:172 (K5)",
             "fp32 per-chunk (4 planes)", paths["fp32"]["combine_cells"]),
+        row("k2_4_norot", "combine_cells", "zipnn_tpu_torch/csrc/combine.cu", k2,
+            "fp32 lossy INTEGER (4 planes, no sign rotation)", lossy["combine_cells"]),
         row("k8", "const_scan_rows", "zipnn_tpu_torch/csrc/const_scan.cu",
             "zipnn_tpu/ops/pallas_gather.py:238 (K8)", "bf16 shared encode",
             enc["const_scan_rows"]),

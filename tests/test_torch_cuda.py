@@ -1015,3 +1015,113 @@ def test_embed_tokens_width_in_two_batches(card, monkeypatch, profile):
     assert two == one
     y = ZipNN(input_format="torch", engine="cuda").decompress(two)
     assert torch.equal(y.view(torch.int16), x.view(torch.int16))
+
+
+def _lossy_fp32(shape, seed):
+    """An fp32 tensor of N(0, 0.05) and its lossy INTEGER container (int32
+    planes, no sign rotation), from the golden encoder."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(np.float32))
+    c = bytes(ZipNN(input_format="torch", engine="numpy", lossy_compressed_type="integer",
+                    compression_chunk=CHUNK).compress(x))
+    assert (c[5], c[6], c[12]) == (220, 0, 1)
+    return x, c
+
+
+def test_combine_4_planes_without_rotation_matches_plain(card):
+    """K2 at 4 planes with ``bit_reorder`` 0 (the lossy int32 container)
+    against its plain version, on every batch of a multi-chunk container."""
+    x, c = _lossy_fp32((40, 1000), seed=60)
+    z = ZipNN(engine="cuda")
+    after = z._retrieve_header(memoryview(c))
+    assert (z._bit_reorder, z._byte_reorder) == (0, 220)
+    plan = decode.build_plan(memoryview(c)[after:], 4, 0, 220, CHUNK, z.original_len)
+    dv = decode.DeviceInputs(plan, card)
+    ints = (x * float(2**27)).to(torch.int32).view(torch.uint8).reshape(-1)
+    for i, (lo, hi) in enumerate(dv.batches):
+        torch.cuda.current_stream(card).wait_event(dv.upload(i))
+        _, fn, args_of = dv.decoder()
+        sym, _ = fn(*args_of(lo, hi))
+        k2a = dv.k2_args(lo, hi, sym)
+        n = -(-k2a[6] // 4) * 4
+        out_k = torch.empty(n, dtype=torch.uint8, device=card)
+        out_p = torch.empty(n, dtype=torch.uint8, device=card)
+        combine.combine_cells(*k2a, out_k)
+        combine.combine_cells_plain(*k2a, out_p)
+        assert torch.equal(out_k, out_p)
+        assert torch.equal(out_k[: k2a[6]].cpu(), ints[lo * CHUNK : lo * CHUNK + k2a[6]])
+
+
+def test_lossy_round_trip_on_card(card):
+    x, c = _lossy_fp32((64, 1000), seed=61)
+    kw = {"input_format": "torch", "lossy_compressed_type": "integer",
+          "compression_chunk": CHUNK}
+    assert bytes(ZipNN(engine="cuda", **kw).compress(x.to(card))) == c
+    kernels.reset_launches()
+    y = ZipNN(input_format="torch", engine="cuda").decompress(c)
+    assert kernels.launches["combine_cells"] > 0
+    want = ZipNN(input_format="torch", engine="numpy").decompress(c)
+    assert y.is_cuda and y.dtype == torch.float32 and torch.equal(y.cpu(), want)
+    # one step (2**-27) of truncation, and up to two more from float32's
+    # rounding of integers below 2**26 (|x| < 0.5)
+    assert float((y.cpu() - x).abs().max()) <= 2.0 ** -25
+
+
+def test_streaming_frames_decode_together_on_card(card):
+    """300 frames of 4 KB at 2 KB chunks: one container's decode on the
+    card, equal to the host engines', with fewer K1 launches than frames."""
+    rng = np.random.default_rng(62)
+    vals = (rng.standard_normal(300 * 2048 - 700) * 0.05).astype(np.float32)
+    data = ((vals.view(np.uint32) >> 16).astype("<u2")).tobytes()
+    kw = {"is_streaming": True, "streaming_chunk": 4096, "compression_chunk": 2048}
+    c = bytes(ZipNN(engine="numpy", **kw).compress(data))
+    assert bytes(ZipNN(engine="cuda", **kw).compress(data)) == c
+    kernels.reset_launches()
+    got = ZipNN(engine="cuda", is_streaming=True).decompress(c)
+    assert decode.last_timings["frames"] == 300
+    assert 0 < kernels.launches["huf_pc_decode"] < 300
+    assert got == data == bytes(ZipNN(engine="native", is_streaming=True).decompress(c))
+
+
+def _safetensors_file(path, tensors, metadata):
+    """The safetensors layout (8-byte header length, JSON header padded to
+    8 bytes, data), written here: this file does not import safetensors."""
+    import json
+    import struct
+
+    header, off = {}, 0
+    for name, (dtype, t) in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": dtype, "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = metadata
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)) + text)
+        for _, t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def test_stream_reader_get_tensor_onto_card(card, tmp_path):
+    import json
+
+    from zipnn_tpu_torch.io.streaming import METADATA_KEY, SafetensorsStreamReader
+
+    g = torch.Generator().manual_seed(63)
+    w = (torch.randn(300, 257, generator=g) * 0.05).to(torch.bfloat16)
+    blob = ZipNN(input_format="torch", engine="numpy").compress(w)
+    tensors = {"w": ("U8", torch.from_numpy(np.frombuffer(blob, np.uint8).copy())),
+               "ids": ("I64", torch.arange(10))}
+    path = str(tmp_path / "m.znn.safetensors")
+    _safetensors_file(path, tensors, {"format": "pt", METADATA_KEY: json.dumps(
+        {"w": {"dtype": "bfloat16", "shape": "[300, 257]"}})})
+    r = SafetensorsStreamReader(path)
+    kernels.reset_launches()
+    got = r.get_tensor("w", device=card)
+    assert kernels.launches["combine_cells"] > 0
+    assert got.is_cuda and got.dtype == torch.bfloat16 and torch.equal(
+        got.cpu().view(torch.int16), w.view(torch.int16))
+    host = r.get_tensor("w")
+    assert host.device.type == "cpu" and torch.equal(host.view(torch.int16), w.view(torch.int16))
+    assert torch.equal(r.load_shard(device=card)["ids"].cpu(), torch.arange(10))

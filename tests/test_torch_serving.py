@@ -11,8 +11,8 @@
   one; torch- and numpy-format frames decode flat;
 * ``as_numpy`` yields owned, writable arrays; ``to_device`` yields uint8
   tensors on the device;
-* errors: bad magic and delta raise ``ValueError``, a streaming container
-  ``NotImplementedError``; ``decompress_all`` / ``decompress_groups``
+* errors: bad magic and delta raise ``ValueError`` (a streaming container
+  decodes, as the reference's does); ``decompress_all`` / ``decompress_groups``
   refuse without ``to_device`` / ``as_numpy``; a flipped bit in shard 2 of
   3 under ``decompress_all`` raises the ``CorruptChunkError`` that shard's
   own ``ZipNN.decompress`` raises.
@@ -149,10 +149,10 @@ def test_errors_match_reference():
     for dec in (_dec(), RefShardDecoder()):
         with pytest.raises(ValueError, match="delta"):
             dec.decompress(blob)
+    data = _bf16(200_001, seed=7)
     stream = bytes(zipnn_tpu.ZipNN(engine="numpy", is_streaming=True,
-                                   streaming_chunk=65536).compress(_bf16(200_001, seed=7)))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        _dec().decompress(stream)
+                                   streaming_chunk=65536).compress(data))
+    assert _dec().decompress(stream) == RefShardDecoder().decompress(stream) == data
     for call in ("decompress_all", "decompress_groups", "decompress_stacked"):
         with pytest.raises(ValueError, match="to_device"):
             getattr(_dec(), call)([("n", 0)] if call == "decompress_groups" else [])

@@ -16,8 +16,12 @@ for byte against the port's ``ZipNN.compress`` and the JAX package's
   buffer to the pool;
 * a ``staged_words`` iterable shorter than the buffers, or with None
   entries, leaves those buffers to the encoder's own upload;
-* the port's ``ZipNN`` has no delta knob yet, so ``ShardEncoder`` has no
-  delta path to get wrong.
+* a lossy ``ZipNN`` given staged words encodes the scaled integers, not
+  the staged float bytes: its containers equal ``ZipNN.compress``'s, on
+  both the integer paths and the out-of-range float fallback;
+* a delta ``ZipNN`` is refused up front, in the constructor, with a
+  clear ``NotImplementedError`` (the reference's ``ShardEncoder`` promises
+  a delta fallback that fails later, inside ``finish``).
 """
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ import torch
 import zipnn_tpu
 from zipnn_tpu.io.serving import ShardEncoder as RefShardEncoder
 from zipnn_tpu_torch import ZipNN
+from zipnn_tpu_torch.core.header import Header
 from zipnn_tpu_torch.io import serving
 from zipnn_tpu_torch.io.serving import ShardDecoder, ShardEncoder
 
@@ -155,10 +160,27 @@ def test_short_staged_words_upload_inline():
         list(ShardEncoder(zipnn=_z()).compress_iter(bufs, staged_words=[staged[0][:-1]]))
 
 
-def test_no_delta_knob_to_fall_back_on():
-    """The reference's ``ShardEncoder`` claims a delta fallback that fails
-    inside ``finish``.  The port's ``ZipNN`` takes no delta knob (ROADMAP
-    M7a); when it does, ``ShardEncoder`` must refuse delta up front."""
-    with pytest.raises(TypeError):
-        ZipNN(delta_compressed_type="byte")
-    assert not hasattr(_z(), "delta_compressed_type")
+@pytest.mark.parametrize("dtype,factor,scale", [
+    (torch.float32, 27, 0.05),  # int32 planes, no sign rotation
+    (torch.bfloat16, 8, 0.05),  # int16 planes
+    (torch.float32, 27, 100.0),  # out of range: stored as floats
+])
+def test_lossy_ignores_staged_words(dtype, factor, scale):
+    g = torch.Generator().manual_seed(11)
+    ts = [(torch.randn(n, generator=g) * scale).to(dtype) for n in (20_000, 9_001)]
+    z = _z(input_format="torch", lossy_compressed_type="integer",
+           lossy_compressed_factor=factor)
+    want = [z.compress(t) for t in ts]
+    assert all(Header.from_bytes(w)[0].lossy_is_int == (scale < 1)
+               for w in want)
+    words = [t.reshape(-1).view(torch.uint8) for t in ts]
+    assert list(ShardEncoder(zipnn=z).compress_iter(ts, staged_words=words)) == want
+
+
+@pytest.mark.parametrize("delta", ["byte", "file"])
+def test_delta_zipnn_refused_up_front(delta):
+    """``compress_iter`` has no second buffer to XOR with: a delta
+    ``ZipNN`` raises in the constructor, before any buffer is read."""
+    with pytest.raises(NotImplementedError, match="delta"):
+        ShardEncoder(zipnn=_z(delta_compressed_type=delta))
+    assert ShardEncoder(zipnn=_z(delta_compressed_type=0))._z.delta_compressed_type == 0

@@ -23,6 +23,9 @@ Engines:
 * ``native`` — the native C++ host codec (``native``, the port's copy of
   the JAX package's core): compress and decompress on the host, both
   profiles, byte-identical to the golden encoder.
+* ``auto``  — ``native`` (:func:`resolve_engine`, as the JAX package's
+  resolves it: a host engine, never the card); a failed build of the
+  native core raises ``native.NativeBuildError``.
 
 The golden encoder here is a copy of the JAX package's
 ``codec.compress_payload_numpy`` (both the per-chunk table profile and the
@@ -41,7 +44,7 @@ from .ops.entropy import huf
 
 DEFAULT_THRESHOLD = 0.95
 HUF_CAP = 128 * 1024  # HUF block limit; planes larger than this store raw
-ENGINES = ("numpy", "cuda", "native")
+ENGINES = ("numpy", "cuda", "native", "auto")
 
 # Shared-table profile: table-build sampling (format policy).  At >= 512
 # chunks a plane's Huffman table is built from every 8th chunk's plane
@@ -96,6 +99,13 @@ def check_abandon_planes(
         [float(int(s)) > float(int(u)) * threshold for s, u in zip(stored, uncomp)],
         dtype=bool,
     )
+
+
+def resolve_engine(engine: str) -> str:
+    """The engine that runs: ``"auto"`` is ``"native"``."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return "native" if engine == "auto" else engine
 
 
 def effective_chunk(compression_chunk: int, num_buf: int) -> int:
@@ -304,8 +314,7 @@ def start_payload(
     after the first launch and before the first host sync); the other
     engines compute the whole payload here (``between`` called first).
     :func:`finish_payload` gives the result."""
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
+    engine = resolve_engine(engine)
     if engine == "cuda":
         from .ops import encode  # noqa: PLC0415
 
@@ -381,7 +390,7 @@ def compress_payload(
     out = finish_payload(start_payload(
         data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold, engine,
         check_th_after_percent, shared_tables, device, prefix_len))
-    if engine == "cuda" and not prefix_len:
+    if resolve_engine(engine) == "cuda" and not prefix_len:
         return frame_bytes(out)
     return out
 
@@ -513,6 +522,7 @@ def decompress_payload(
     card unless the caller passes ``device="cpu"``, where the kernels'
     plain versions run).
     """
+    engine = resolve_engine(engine)
     if engine == "numpy":
         return decompress_payload_numpy(
             payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size
@@ -528,11 +538,9 @@ def decompress_payload(
             decompress_payload_numpy(
                 payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size)
             raise
-    if engine == "cuda":
-        from .ops import decode  # noqa: PLC0415
+    from .ops import decode  # noqa: PLC0415
 
-        return decode.decompress_payload(
-            payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
-            device=device,
-        )
-    raise ValueError(f"unknown engine {engine!r}")
+    return decode.decompress_payload(
+        payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
+        device=device,
+    )

@@ -23,9 +23,11 @@ Usage::
     for out in dec.decompress_iter(blobs):
         ...
 
-Containers may be byte-format frames or torch/numpy-format frames (with a
-shape after the header); the decoder always yields the flat decompressed
-bytes, and the caller reapplies dtype and shape.
+Containers may be byte-format frames, byte-format streaming containers
+(their frames decoded on the card together, ``decode.frame_runs``) or
+torch/numpy-format frames (with a shape after the header); the decoder
+always yields the flat decompressed bytes (a lossy container's after its
+int-to-float step), and the caller reapplies dtype and shape.
 
 A checkpoint save compresses many tensors in a row: :class:`ShardEncoder`
 finishes container N (its tail cells, its tables and the fetch of its
@@ -48,9 +50,10 @@ import torch
 
 from .. import codec
 from ..core import dtypes
+from ..core.enums import EnumFormat, EnumLossy
 from ..core.header import HEADER_LEN, Header
 from ..ops import decode, encode
-from ..zipnn import ZipNN, check_ported
+from ..zipnn import VANILLA_BYTE_REORDERS, ZipNN, lossy_to_float
 
 __all__ = ["ShardDecoder", "ShardEncoder", "decompress_iter"]
 
@@ -96,13 +99,16 @@ class ShardDecoder:
     ``as_numpy``, decoded on ``device`` and fetched.
 
     Every container decodes on ``device``, including those with no full
-    chunk (a norm weight); there is no host route.  Delta containers raise
-    ``ValueError`` as the reference's do.  Streaming, lossy and
-    whole-buffer (vanilla method) containers raise the
-    ``NotImplementedError`` of the port's ``ZipNN`` until those modes are
-    ported.  ``timings`` holds the phase seconds (``plan_s``, ``stage_s``,
-    ``upload_s``; see ``decode.last_timings``) of each container of the
-    last call, in order.
+    chunk (a norm weight) and a streaming container's frames (one run of
+    them: every frame that ``ZipNN.compress`` writes); there is no host
+    route.  A lossy container yields its float bytes, turned from integers
+    on ``device``.  Delta containers, and streaming containers with a
+    tensor input format, raise the reference's ``ValueError``; so do
+    whole-buffer method (zstd/lz4/snappy) containers, which decode on the
+    host, and streaming containers whose frames lie on more than one chunk
+    grid: ``ZipNN.decompress`` decodes both.  ``timings`` holds the phase
+    seconds (``plan_s``, ``stage_s``, ``upload_s``; see
+    ``decode.last_timings``) of each container of the last call, in order.
     """
 
     def __init__(self, to_device: bool = False, as_numpy: bool = False, device="cuda"):
@@ -118,7 +124,8 @@ class ShardDecoder:
     # -- per-container phases ------------------------------------------
     def _plan_container(self, data):
         """Parse one container's header; returns (header, the arguments of
-        ``decode.start`` / ``decode.stage`` but ``device``)."""
+        ``decode.start`` / ``decode.stage`` but ``device``, and their
+        ``frames``: a streaming container's run, else None)."""
         mv = memoryview(data)
         if len(mv) < HEADER_LEN or bytes(mv[0:2]) != b"ZN":
             raise ValueError("Header should start with ZN")
@@ -129,37 +136,54 @@ class ShardDecoder:
             raise ValueError(
                 "delta containers need delta_second_data; use ZipNN.decompress"
             )
-        check_ported(hdr)
+        vanilla = hdr.byte_reorder in VANILLA_BYTE_REORDERS
+        if (hdr.is_streaming or vanilla) and hdr.input_format != EnumFormat.BYTE.value:
+            raise ValueError(
+                "streaming/vanilla containers with a tensor input format "
+                "need their frontend marshalling; use ZipNN.decompress"
+            )
+        if hdr.is_streaming:
+            runs = decode.frame_runs(mv, VANILLA_BYTE_REORDERS)
+            if len(runs) == 1 and runs[0].frames is not None:
+                return hdr, (mv, *runs[0].key, runs[0].orig_size), runs[0].frames
+        if vanilla or hdr.is_streaming:
+            raise ValueError(
+                "whole-buffer method frames, and streaming frames on more than "
+                "one chunk grid, decode through ZipNN.decompress"
+            )
         total = hdr.total_len if 0 < hdr.total_len <= len(mv) else len(mv)
         num_buf = dtypes.groups_for_decompress(hdr.dtype_code)
         chunk = codec.effective_chunk(hdr.compression_chunk, num_buf)
         return hdr, (mv[consumed:total], num_buf, hdr.bit_reorder, hdr.byte_reorder,
-                     chunk, hdr.original_len)
+                     chunk, hdr.original_len), None
 
-    def _finisher(self, run):
+    def _finisher(self, run, hdr):
         self.timings.append(run.timings)
+        if hdr.lossy_type == EnumLossy.INTEGER.value and hdr.lossy_is_int:
+            return lambda: self._marshal(lossy_to_float(
+                decode.finish(run), hdr.dtype_code, hdr.lossy_factor).view(torch.uint8))
         return lambda: self._marshal(decode.finish(run))
 
     def start(self, data, defer=None) -> _Started:
         """Host plan, uploads and kernel launches of one container; the
         handle's ``finish()`` yields its output.  ``defer`` (a list) skips
         the container's validation fetch: see :meth:`decompress_all`."""
-        hdr, args = self._plan_container(data)
-        run = decode.start(*args, device=self.device, defer=defer)
-        return _Started(self._finisher(run), run.out, hdr)
+        hdr, args, frames = self._plan_container(data)
+        run = decode.start(*args, device=self.device, defer=defer, frames=frames)
+        return _Started(self._finisher(run, hdr), run.out, hdr)
 
     def stage(self, data) -> _StagedShard:
         """Parse, plan and upload every device input of one container, for
         :meth:`start_staged`, which copies nothing to the card."""
-        hdr, args = self._plan_container(data)
-        st = decode.stage(*args, device=self.device)
+        hdr, args, frames = self._plan_container(data)
+        st = decode.stage(*args, device=self.device, frames=frames)
         return _StagedShard(hdr, st, st.inputs.nbytes if st.inputs else 0)
 
     def start_staged(self, st: _StagedShard, defer=None) -> _Started:
         """Queue the kernels of a :meth:`stage`\\ d container (any number of
         times)."""
         run = decode.start_staged(st.staged, defer=defer)
-        return _Started(self._finisher(run), run.out, st.hdr)
+        return _Started(self._finisher(run, st.hdr), run.out, st.hdr)
 
     def _marshal(self, flat: torch.Tensor):
         if self.to_device:
@@ -356,7 +380,10 @@ class ShardEncoder:
     caller passes ``device="cpu"``, where the kernels' plain versions run.
     Byte-format input takes bytes-like buffers; pass a
     ``ZipNN(input_format="torch", ...)`` for tensors (a CUDA tensor is
-    read in place).
+    read in place).  A lossy ``zipnn`` takes the same path; a streaming one
+    compresses each buffer through ``ZipNN.compress`` (frame by frame), as
+    does a whole-buffer method; a delta ``zipnn`` is refused here, since
+    ``compress_iter`` has no second buffer to XOR with.
 
     ``pool_staging=True`` writes each container into a host buffer from a
     bounded per-process pool (``OUT_POOL_BYTES``; page-locked on a CUDA
@@ -374,15 +401,22 @@ class ShardEncoder:
                  device="cuda"):
         if zipnn is None:
             zipnn = ZipNN(engine="cuda", huffman_table="shared", device=device)
+        if zipnn.delta_compressed_type not in (None, 0, "0"):
+            raise NotImplementedError(
+                "ShardEncoder takes no delta ZipNN: compress_iter has no "
+                "delta_second_data; use ZipNN.compress(data, delta_second_data=...)"
+            )
         self._z = zipnn
         self._pool = pool_staging
         self._held: List[torch.Tensor] = []  # pooled buffers of yielded containers
         self.timings: List[dict] = []
 
-    def _input(self, staged, arr):
+    def _input(self, staged, arr, hdr):
         """The bytes to encode: ``arr``, or ``staged``, a uint8 tensor on
-        the encoder's device holding the same bytes (engine ``cuda``)."""
-        if staged is None or self._z.engine != "cuda":
+        the encoder's device holding the same bytes (engine ``cuda``).  A
+        lossy container that stores integers encodes ``arr``, the scaled
+        integers, never the buffer's own (float) bytes in ``staged``."""
+        if staged is None or self._z.engine != "cuda" or hdr.lossy_is_int:
             return arr
         n = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
         if (not isinstance(staged, torch.Tensor) or staged.dtype != torch.uint8
@@ -397,9 +431,16 @@ class ShardEncoder:
         launch, or when the preparation raises)."""
         z = self._z
         fire = encode.Between(between)
+        if z.is_streaming and z.input_format == EnumFormat.BYTE.value:
+            fire()
+            return _PendingEnc(lambda: self._untimed(z.compress(data)))
         try:
-            hdr, arr, grouping, chunk, prefix = z._compress_prepare(data)
-            started = z._start_payload(self._input(staged, arr), grouping, chunk, prefix,
+            prep = z._compress_prepare(data)
+            if prep[0] == "vanilla":
+                fire()
+                return _PendingEnc(lambda: self._untimed(prep[1]))
+            _, hdr, arr, grouping, chunk, prefix = prep
+            started = z._start_payload(self._input(staged, arr, hdr), grouping, chunk, prefix,
                                        between=fire)
         except BaseException:
             fire()
@@ -427,6 +468,11 @@ class ShardEncoder:
 
         return _PendingEnc(fin)
 
+    def _untimed(self, container: bytes) -> bytes:
+        """A container that no device encode made: no timings of its own."""
+        self.timings.append({})
+        return container
+
     def _track_pooled(self, buf: torch.Tensor) -> None:
         # a pooled buffer returns to the pool two yields after its
         # container was produced (the documented validity window)
@@ -445,7 +491,8 @@ class ShardEncoder:
         ``staged_words`` optionally supplies, in parallel, each buffer's
         bytes already on the card (uint8 tensors, read in place); a None
         entry, or an iterable shorter than ``buffers``, leaves the buffer
-        to the encoder's own upload.  An early exit or an error returns
+        to the encoder's own upload, and a lossy ``zipnn`` that scales the
+        buffer to integers encodes those, not its staged words.  An early exit or an error returns
         every pooled buffer this encoder holds to the pool."""
         self.timings = []
         done: list = []

@@ -32,6 +32,15 @@ is into :func:`start` and :func:`finish`:
    With ``defer``, the check waits for :func:`validate_deferred`, which
    fetches the ``bits_left`` of many containers at once.
 
+A streaming container is a row of frames, each a container of its own
+(``streaming_chunk`` bytes of output, the last one shorter).  The frames
+of one geometry whose chunks lie on one grid in the output
+(:func:`frame_runs`: every frame that ``ZipNN.compress`` writes) decode
+together as one container: the ``frames`` of :class:`Geometry` put their
+cells side by side in chunk order, so one host plan and one K1/K6 + K2
+launch set per batch of chunks cover many frames (:func:`decompress_run`),
+and ``CorruptChunkError`` counts chunks across the run.
+
 :func:`stage` runs steps 1 and 2 only, for a later :func:`start_staged`
 that copies nothing to the card.  On CPU tensors there is no staging (the
 plan's arrays are the kernels' inputs) and the kernels' plain versions
@@ -46,6 +55,8 @@ import numpy as np
 import torch
 
 from .. import codec
+from ..core import dtypes
+from ..core.header import Header, walk_frames
 from ..errors import CorruptChunkError
 from . import combine, huf_pc, huf_shared, kernels, staging
 
@@ -53,42 +64,64 @@ KIND_STORED, KIND_RLE, KIND_HUF = 0, 1, 2
 BATCH_BYTES = 512 << 20  # output bytes per device batch
 
 # what the last finished decode spent, for callers that report it:
-# plan_s (host), stage_s (host copies into pinned memory), upload_s (the
-# copy stream, from the end of the plan to the last batch's copy event),
-# the decode kernel's name, and on CUDA the events recorded around each
-# kernel launch
+# plan_s (host; of it geometry_s, the chunk tables' parse and checks, and
+# plan_cpu_s, the planning thread's CPU seconds), stage_s (host copies
+# into pinned memory), upload_s (the copy stream, from the end of the plan
+# to the last batch's copy event), the decode kernel's name, and on CUDA
+# the events recorded around each kernel launch
 last_timings: Dict = {}
 
 
 class Geometry:
-    """Chunk tables and the per-cell classification of one container."""
+    """Chunk tables and the per-cell classification of one container, or
+    of a run of frames decoded as one.
+
+    ``frames`` is None for one container's ``payload``; else the
+    ``(offset, length, orig_size)`` of each frame's payload inside
+    ``payload`` (a streaming container's bytes), each frame chunked by
+    ``chunk_size`` and their outputs back to back (``orig_size`` is their
+    sum): their cells line up in chunk order on a grid of ``min(chunk_size,
+    the first frame's size)`` bytes, which :func:`frame_runs` checks.
+    """
 
     def __init__(self, payload, num_buf, chunk_size, orig_size, bit_reorder,
-                 byte_reorder):
+                 byte_reorder, frames=None):
         self.payload_np = np.frombuffer(memoryview(payload), dtype=np.uint8)
         self.num_buf = num_buf
-        self.chunk_size = chunk_size
         self.orig_size = orig_size
         self.bit_reorder = bit_reorder
         self.byte_reorder = byte_reorder
-        self.n_chunks = codec.num_chunks_for(orig_size, chunk_size)
-        types, starts, data_start = codec.parse_tables(
-            payload, num_buf, self.n_chunks
-        )
-        plane_base = np.zeros(num_buf, dtype=np.int64)
-        for b in range(1, num_buf):
-            plane_base[b] = plane_base[b - 1] + starts[b - 1, self.n_chunks]
-        self.types = types
-        self.cell_start = data_start + plane_base[:, None] + starts[:, :-1]
-        self.cell_size = starts[:, 1:] - starts[:, :-1]
-        self.want = codec.plane_chunk_lengths(
-            orig_size, chunk_size, num_buf, byte_reorder
-        )
+        self.chunk_size = chunk_size
+        if frames is None:
+            frames = [(0, self.payload_np.size, orig_size)]
+        else:
+            self.chunk_size = min(chunk_size, frames[0][2])
+        parts = [self._frame_cells(off, n, size, chunk_size) for off, n, size in frames]
+        (self.types, self.cell_start, self.cell_size, self.want,
+         self.cell_limit) = (np.concatenate(a, axis=1) for a in zip(*parts))
+        self.n_chunks = self.types.shape[1]
+        if self.n_chunks != codec.num_chunks_for(orig_size, self.chunk_size):
+            raise ValueError("the frames' chunks do not lie on one grid")
         self._check()
         t, sz, want = self.types, self.cell_size, self.want
         stored = (t == 0) | (sz == want)
         rle = ~stored & (sz == 1)
         self.kind = np.where(stored, KIND_STORED, np.where(rle, KIND_RLE, KIND_HUF))
+
+    def _frame_cells(self, off: int, n: int, size: int, chunk: int):
+        """(types, cell starts in ``payload``, sizes, decoded sizes, end of
+        the frame's payload) of the cells of one frame, [num_buf, chunks]
+        each."""
+        n_chunks = codec.num_chunks_for(size, chunk)
+        types, starts, data_start = codec.parse_tables(
+            memoryview(self.payload_np)[off : off + n], self.num_buf, n_chunks
+        )
+        plane_base = np.zeros(self.num_buf, dtype=np.int64)
+        for b in range(1, self.num_buf):
+            plane_base[b] = plane_base[b - 1] + starts[b - 1, n_chunks]
+        want = codec.plane_chunk_lengths(size, chunk, self.num_buf, self.byte_reorder)
+        return (types, off + data_start + plane_base[:, None] + starts[:, :-1],
+                starts[:, 1:] - starts[:, :-1], want, np.full_like(want, off + n))
 
     def _raise_first(self, bad, detail):
         b, c = np.argwhere(bad.T)[0][::-1]
@@ -101,7 +134,7 @@ class Geometry:
         t, sz, want = self.types, self.cell_size, self.want
         checks = (
             (t > 1, "unknown chunk type"),
-            ((sz < 0) | (self.cell_start + sz > self.payload_np.size),
+            ((sz < 0) | (self.cell_start + sz > self.cell_limit),
              "cell outside the payload"),
             ((t == 0) & (sz != want), "raw size mismatch"),
             ((t == 1) & (sz > want), "corrupt HUF block (larger than destination)"),
@@ -247,31 +280,94 @@ def check_streams(plan: Plan, bits_left: np.ndarray) -> None:
 
 
 def build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
-               orig_size) -> Optional[Plan]:
-    """Host plan of a container, or None when it holds no bytes."""
+               orig_size, frames=None, timings: Optional[Dict] = None) -> Optional[Plan]:
+    """Host plan of a container (or of a run of ``frames``, see
+    :class:`Geometry`), or None when it holds no bytes.  ``timings``
+    (optional) gets ``geometry_s``."""
     if num_buf not in (1, 2, 4):
         raise ValueError(f"unsupported plane count {num_buf}")
     if orig_size == 0:
         return None
-    return Plan(Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder,
-                         byte_reorder))
+    t0 = time.perf_counter()
+    g = Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder, byte_reorder, frames)
+    if timings is not None:
+        timings["geometry_s"] = time.perf_counter() - t0
+    return Plan(g)
 
 
 def payload_ranges(g: Geometry, lo: int, hi: int):
     """``(offset, length)`` of the payload bytes that the cells of chunks
-    [lo, hi) occupy: one range per plane (each plane's cells lie back to
-    back), adjacent ranges merged.  The batches' ranges tile the payload's
-    data region; the chunk tables in front of it never go to the card."""
-    ranges: List = []
+    [lo, hi) occupy: a span per plane, from its first cell to its last,
+    overlapping and adjacent spans merged.  In one container each plane's
+    cells lie back to back, so the batches' ranges tile the payload's data
+    region and the chunk tables in front of it never go to the card; in a
+    run of frames the spans merge into one, which holds the headers and
+    tables of the frames within it too."""
     ends = g.cell_start[:, hi - 1] + g.cell_size[:, hi - 1]
-    for s, e in zip(g.cell_start[:, lo].tolist(), ends.tolist()):
+    ranges: List = []
+    for s, e in sorted(zip(g.cell_start[:, lo].tolist(), ends.tolist())):
         if e <= s:
             continue
-        if ranges and sum(ranges[-1]) == s:
-            ranges[-1] = (ranges[-1][0], e - ranges[-1][0])
+        if ranges and s <= ranges[-1][1]:
+            ranges[-1][1] = max(ranges[-1][1], e)
         else:
-            ranges.append((s, e - s))
-    return ranges
+            ranges.append([s, e])
+    return [(s, e - s) for s, e in ranges]
+
+
+class FrameRun:
+    """Consecutive frames of a streaming container that decode as one
+    container: the bytes [``start``, ``end``) of the container, their
+    ``orig_size`` output bytes, the decode geometry ``key`` (planes, bit
+    and byte reorder, chunk size) and the ``frames`` of :class:`Geometry`;
+    ``frames`` is None for a whole-buffer method frame, which decodes on
+    its own."""
+
+    __slots__ = ("start", "end", "orig_size", "key", "frames", "_open")
+
+    def __init__(self, start, end, orig_size, key, frames):
+        self.start, self.end, self.orig_size = start, end, orig_size
+        self.key, self.frames, self._open = key, frames, False
+
+    @property
+    def n_frames(self) -> int:
+        return len(self.frames) if self.frames is not None else 1
+
+    def add(self, end, payload, size) -> None:
+        """Append a frame; the run stays open to the next while every
+        frame has the first's size, a whole number of chunks or at most
+        one (the output grid of :class:`Geometry`)."""
+        first = self.frames[0][2] if self.frames else size
+        self.frames.append((*payload, size))
+        self.end, self.orig_size = end, self.orig_size + size
+        self._open = size == first and size > 0 and size % min(self.key[3], size) == 0
+
+    def takes(self, key) -> bool:
+        return self._open and key == self.key
+
+
+def frame_runs(buf, whole_buffer_reorders=()) -> List[FrameRun]:
+    """Split a streaming container (frames back to back, as
+    ``walk_frames`` finds them) into :class:`FrameRun` objects: each run the
+    longest row of frames of one geometry that :class:`Geometry` can lay on
+    one chunk grid -- every frame of a container that ``ZipNN.compress``
+    wrote makes one run -- and each frame whose ``byte_reorder`` is one of
+    ``whole_buffer_reorders`` a run of its own."""
+    mv = memoryview(buf)
+    runs: List[FrameRun] = []
+    for off, total in walk_frames(mv):
+        end = min(off + total, len(mv))
+        hdr, consumed = Header.from_bytes(mv[off:end])
+        if hdr.byte_reorder in whole_buffer_reorders:
+            runs.append(FrameRun(off, end, hdr.original_len, None, None))
+            continue
+        num_buf = dtypes.groups_for_decompress(hdr.dtype_code)
+        key = (num_buf, hdr.bit_reorder, hdr.byte_reorder,
+               codec.effective_chunk(hdr.compression_chunk, num_buf))
+        if not (runs and runs[-1].takes(key)):
+            runs.append(FrameRun(off, off, 0, key, []))
+        runs[-1].add(end, (off + consumed, end - off - consumed), hdr.original_len)
+    return runs
 
 
 def _packed(arrays):
@@ -442,21 +538,26 @@ def _device(device) -> torch.device:
     return device
 
 
-def _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size):
-    t0 = time.perf_counter()
-    plan = build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size)
-    return plan, {"plan_s": time.perf_counter() - t0, "stage_s": 0.0}
+def _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size, frames):
+    timings = {"geometry_s": 0.0, "stage_s": 0.0}
+    t0, c0 = time.perf_counter(), time.thread_time()
+    plan = build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
+                      frames, timings)
+    timings["plan_s"] = time.perf_counter() - t0
+    timings["plan_cpu_s"] = time.thread_time() - c0
+    return plan, timings
 
 
 def start(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
-          device="cuda", defer: Optional[list] = None) -> Started:
-    """Plan a container, stage its uploads and queue every batch's kernels
-    behind its bytes; :func:`finish` completes it.  With ``defer`` (a
-    list), :func:`finish` appends the container's check there for
-    :func:`validate_deferred` instead of fetching ``bits_left`` itself."""
+          device="cuda", defer: Optional[list] = None, frames=None) -> Started:
+    """Plan a container (or a run of ``frames``, see :class:`Geometry`),
+    stage its uploads and queue every batch's kernels behind its bytes;
+    :func:`finish` completes it.  With ``defer`` (a list), :func:`finish`
+    appends the container's check there for :func:`validate_deferred`
+    instead of fetching ``bits_left`` itself."""
     device = _device(device)
     plan, timings = _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
-                          orig_size)
+                          orig_size, frames)
     run = Started(plan, orig_size, device, timings, defer)
     if plan is not None:
         dv = DeviceInputs(plan, device)
@@ -471,12 +572,12 @@ def start(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
 
 
 def stage(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
-          device="cuda") -> Staged:
+          device="cuda", frames=None) -> Staged:
     """The plan and every upload of a container (the counterpart of the
     JAX package's ``stage_dev_batches``), for :func:`start_staged`."""
     device = _device(device)
     plan, timings = _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
-                          orig_size)
+                          orig_size, frames)
     dv = None
     if plan is not None:
         dv = DeviceInputs(plan, device)
@@ -561,6 +662,28 @@ def decompress_payload(
     ``orig_size`` bytes on ``device``: ``finish(start(...))``."""
     return finish(start(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
                         orig_size, device=device))
+
+
+def decompress_run(buf, run: FrameRun, device="cuda") -> torch.Tensor:
+    """The frames of a :func:`frame_runs` run of the streaming container
+    ``buf`` decoded on ``device`` as one container (one host plan; a K1 or
+    K6 and a K2 launch a batch): a uint8 tensor of ``run.orig_size``
+    bytes."""
+    return finish(start(buf, *run.key, run.orig_size, device=device, frames=run.frames))
+
+
+def fetch(flat: torch.Tensor, dst: np.ndarray, timings: Dict) -> None:
+    """Copy a decoded output into the host array ``dst``: from a CUDA
+    device through the staging pool's pinned pieces (``staging.download``,
+    which adds ``download_s`` and ``unstage_s``); adds the call's seconds
+    to ``timings["fetch_s"]``."""
+    t0 = time.perf_counter()
+    if flat.is_cuda:
+        staging.download(staging.pool(flat.device), flat, dst, [(0, 0, flat.numel())],
+                         timings)
+    else:
+        dst[:] = flat.numpy()
+    timings["fetch_s"] = timings.get("fetch_s", 0.0) + time.perf_counter() - t0
 
 
 def kernel_ms() -> Dict[str, float]:
