@@ -130,12 +130,57 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
     bf16 (32 MiB, factor 8: the int16 path) and fp32 out of range (stored
     as floats), each encoded on the card from a CUDA tensor byte-equal to
     engine ``"native"``'s container, and decoded on the card (the
-    int-to-float step too) to the tensor that engine ``"numpy"`` decodes.
+    int-to-float step too) to the tensor that engine ``"numpy"`` decodes;
+13. the command-line tools and a trace on the card, in a temporary
+    directory removed at the end whatever happens:
+    a. phase 9's file written to disk, ``cli.compress_file.main([path,
+       "--force"])`` (engine cuda, the default) must write engine
+       ``"native"``'s container of phase 9 (SHA-256; each frame header's
+       method byte is the CLI's ``--method HUFFMAN``) and launch
+       ``hist_cells``, ``huf_pc_encode`` and ``splice_cells``;
+       ``cli.decompress_file`` on the card must give the file back with
+       fewer ``huf_pc_decode`` launches than frames; the same
+       ``compress_file`` on ``--engine native``; and ``--huffman_table
+       shared`` round-tripped (must launch ``const_scan_rows``,
+       ``huf_shared_encode`` and ``splice_cells``; its frames each carry
+       their own table, so the decode takes ``huf_pc_decode``); each wall
+       with its file read and write apart; the path's kernels against
+       their plain versions at its shapes (``hist_cells``,
+       ``huf_pc_encode`` and ``splice_cells`` on one 1 MiB frame's batch,
+       K1 and K2 on the first batch of the .znn's first run of frames);
+    b. phase 11's q_proj pair as two files through
+       ``cli.compress_file_delta`` (equal to ``--engine native``'s file)
+       and ``cli.decompress_file_delta`` (the fine-tuned bytes back);
+    c. ``cli.compress_path bin --max_processes 2`` and
+       ``cli.decompress_path`` in spawned workers on the card over layer
+       0's k, v and q projections as separate files: each .znn equal to the
+       one ``compress_file`` writes, every file back, no ``ERROR`` line;
+    d. ``stats.trace`` around one warm ``ZipNN(input_format="torch")``
+       decompress of phase 4a's bf16 container and one warm compress of
+       the same tensor: the trace must hold K1's and K2's kernels, then
+       ``hist_cells``', ``huf_pc_encode``'s and ``splice_cells``', and the
+       codec's ``znn:`` spans; each kernel's profiler times beside its
+       phase-2 CUDA-event time, and the device's busy share of the traced
+       window (kernels and copies, and kernels alone);
+    e. ``stats.file_stats`` of a's .znn: 833 frames and the container's
+       length.
+    ``compress_safetensors`` and ``decompress_safetensors`` are not run:
+    they need the ``safetensors`` package, which the card's host may not
+    have (the CPU tests cover them).
+
+Phase 3 also encodes, on the card from a CUDA tensor, the chunk sizes
+whose planes are not whole words but hold 12 bytes or more (bf16 and
+fp16 at 30 B, bf16 at 1002 B, fp32 at 52 and 100 B), both profiles: the
+sub-word route with the host's cell encoders, equal to the golden
+encoder, decoded on the card.
 
 Each encode path prints its phase times (split, histogram, plan, kernels,
 decide, assemble, splice, download, unstage) and end-to-end GB/s beside
 the golden encoder's seconds.  It
-prints a ``kernels`` JSON line, the card's name and power limit and the
+prints a ``kernels`` JSON line (each kernel also with its launches in the
+CLI's counted run of its path, ``cli_launches``, null where the CLI
+runs another path; its time at the CLI's shapes, ``cli_ms`` and
+``cli_bound_ms``; and its time in phase 13's trace, ``profiler_ms``), the card's name and power limit and the
 host CPU's model (the plan and splice are host timings), and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the exit code is not 0 and no result line is printed.
@@ -143,12 +188,17 @@ the exit code is not 0 and no result line is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import hashlib
+import io
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -264,6 +314,11 @@ def plan_of(container: bytes, dev):
     dv = decode.DeviceInputs(plan, dev)
     torch.cuda.current_stream(dev).wait_event(dv.upload(0))
     return plan, dv, (lo, hi)
+
+
+def k1_table_bytes(k1a) -> int:
+    """Bytes of the tables and per-stream table indices that K1 reads."""
+    return 4 * (k1a[6].numel() + k1a[7].numel()) + 2 * k1a[8].numel()
 
 
 def hold_decode(label, module, wrapper, plain, args, table_bytes):
@@ -502,7 +557,8 @@ def hold_encode_kernels(x_cpu: torch.Tensor, dev):
     return k8, hold_huf_encode(g, planes, tables, dev)
 
 
-def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
+def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024,
+                           min_chunks: int = 64):
     """``hist_cells`` and ``huf_pc_encode`` against their plain versions at
     a per-chunk encode path's first batch, with the host plan of its cells
     between them (``encode.plan_cells``): bit-exact counts, stream bytes
@@ -520,7 +576,7 @@ def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
     g = encode.Geometry(x_dev.numel(), nb, chunk, shared=False)
     lo, hi = g.batches[0]
     k, pw = hi - lo, g.plane_bytes // 4
-    check(k >= 64, f"first per-chunk encode batch has {k} chunks, want >= 64")
+    check(k >= min_chunks, f"first per-chunk encode batch has {k} chunks, want >= {min_chunks}")
     planes = transforms.split_device(encode.Source(x_dev, g, dev).batch(lo, hi), nb,
                                      gr.byte_reorder, gr.bit_reorder)
     rows = planes.view(k * nb, pw)
@@ -785,6 +841,36 @@ def sub_word_case(seed: int) -> None:
         log(f"[sub-word] {dt}: chunks of 1 and 2 B decoded on the card (both profiles); "
             f"encode at chunks up to {top} B on the card (sub-word route, nothing uploaded), "
             f"both profiles == golden")
+    # planes that are not whole words but hold 12 bytes or more: the
+    # sub-word route with the host's cell encoders (each payload against
+    # the golden encoder's, then decoded on the card)
+    from zipnn_tpu_torch import codec  # noqa: PLC0415
+
+    for i, (dt, chunk) in enumerate(((torch.bfloat16, 30), (torch.bfloat16, 1002),
+                                     (torch.float32, 52), (torch.float32, 100),
+                                     (torch.float16, 30))):
+        raw = synth(dt, 520 * chunk + 6, seed + 10 + i).view(torch.uint8).numpy().copy()
+        raw[3 * chunk : 9 * chunk] = 0x3C  # RLE cells
+        nb, br = (4, 220) if dt == torch.float32 else (2, 10)
+        for shared in (False, True):
+            t0 = time.perf_counter()
+            got = codec.compress_payload(torch.from_numpy(raw).cuda(), nb, 1, br, chunk,
+                                         engine="cuda", device="cuda", shared_tables=shared,
+                                         check_th_after_percent=10)
+            ms = 1e3 * (time.perf_counter() - t0)
+            t = encode.last_timings
+            check(t["encoder"] == "sub_word_host", f"{dt} {chunk} B encoder {t['encoder']}")
+            check(t["upload_bytes"] == 0, f"{dt} {chunk} B: {t['upload_bytes']} bytes uploaded")
+            check(bytes(got) == codec.compress_payload_numpy(
+                raw, nb, 1, br, chunk, check_th_after_percent=10, shared_tables=shared),
+                f"{dt} {chunk} B (shared {shared}) != golden")
+            back = codec.decompress_payload(bytes(got), nb, 1, br, chunk, raw.size,
+                                            engine="cuda", device="cuda")
+            check(np.array_equal(back.cpu().numpy(), raw), f"{dt} {chunk} B: decode on the card")
+            log(f"[sub-word] {dt} at {chunk} B chunks (planes {raw.size // chunk} x "
+                f"{chunk // nb}+ B, shared {shared}): encoded from a CUDA tensor by the "
+                f"sub-word route with host cell encoders in {ms:.1f} ms, == golden, decoded "
+                f"on the card")
 
 
 def host_phases(t: dict, kms: dict) -> str:
@@ -1127,7 +1213,7 @@ def whole_file_streaming(names, xs, dev, smi):
     compressed in 1 MiB streaming frames on the card (byte-equal to engine
     ``"native"``) and decompressed on the card, the frames decoded together;
     the launch counts set to 0 just before the decode and read just after.
-    Returns those launches."""
+    Returns the file's bytes and engine native's container."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.ops import decode, kernels  # noqa: PLC0415
 
@@ -1140,7 +1226,6 @@ def whole_file_streaming(names, xs, dev, smi):
                            .compress(file))
     nat, nat_ms = host_ms(lambda: ZipNN(is_streaming=True, engine="native").compress(file))
     check(comp == nat, "streaming container from the card != engine native's")
-    del nat
 
     gen2 = {"n": 0, "s": 0.0}  # full garbage collections, and their seconds
 
@@ -1210,7 +1295,7 @@ def whole_file_streaming(names, xs, dev, smi):
         f"{n / one_ms[1] / 1e6:.3f} GB/s; a full gc of this process {full_s:.4f} s over "
         f"{tracked} tracked objects; launches {launches}; tensors parsed back bit-exact; "
         f"card: {smi}")
-    return launches
+    return file, nat
 
 
 def per_tensor_file(names, xs, blobs, iter_wall, dev, smi) -> None:
@@ -1256,7 +1341,8 @@ def delta_case(names, xs, seed, dev, smi) -> None:
     """Phase 11: layer 0's q_proj as the base, the base plus N(0, 1e-3)
     (``seed``) in bf16 as the fine-tuned tensor; the byte-format delta
     container, plain and streaming, byte-equal between engines ``"cuda"``
-    and ``"native"``, decoded on the card back to the fine-tuned bytes."""
+    and ``"native"``, decoded on the card back to the fine-tuned bytes.
+    Returns the (base, fine-tuned) bytes."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
 
@@ -1284,6 +1370,7 @@ def delta_case(names, xs, seed, dev, smi) -> None:
             f"{enc_ms / 1e3:.4f} s (native {nat_ms / 1e3:.4f} s), decode on the card "
             f"{dec_ms / 1e3:.4f} s = {len(base) / dec_ms / 1e6:.3f} GB/s, == fine-tuned bytes; "
             f"launches {launches}; card: {smi}")
+    return base, tuned
 
 
 def lossy_input(seed: int) -> torch.Tensor:
@@ -1324,6 +1411,304 @@ def lossy_case(label, x_cpu, factor, is_int, dev, smi) -> dict:
         f"{n / dec_ms / 1e6:.3f} GB/s == engine numpy ({numpy_ms / 1e3:.1f} s); max |error| "
         f"{err:.3g}; launches {launches}; card: {smi}")
     return launches
+
+
+def sha(path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def cli_call(main, argv) -> tuple:
+    """(ms, standard output) of ``main(argv)``, a CLI's entry point run in
+    this process, synchronised; its output is logged too, and an ``ERROR``
+    line (the path scripts' report of a failed file) fails the run."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, ms = host_ms(lambda: main(argv))
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[cli]   {line}")
+    check("ERROR" not in text, f"{argv}: a file failed")
+    return ms, text
+
+
+def cli_container(nat: bytes) -> str:
+    """SHA-256 of phase 9's engine native container as ``compress_file``
+    writes it: the same frames with the method byte of each frame's header
+    (byte 7) set to the CLI's default ``--method HUFFMAN`` (phase 9's
+    ``ZipNN`` has the default method, AUTO)."""
+    from zipnn_tpu_torch.core.enums import EnumMethod  # noqa: PLC0415
+    from zipnn_tpu_torch.core.header import walk_frames  # noqa: PLC0415
+
+    buf = bytearray(nat)
+    for off, _ in walk_frames(memoryview(nat)):
+        buf[off + 7] = EnumMethod("HUFFMAN").value
+    return hashlib.sha256(buf).hexdigest()
+
+
+def hold_cli_kernels(file: bytes, znn: bytes, dev) -> dict:
+    """Phase 13a: the CLI path's kernels against their plain versions at
+    the shapes that path gives them, each timed as in phase 2:
+    ``hist_cells``, ``huf_pc_encode`` and ``splice_cells`` on the batch of
+    the file's first 1 MiB frame (``compress_file`` encodes one frame at a
+    time: 4 chunks of 256 KB), K1 and K2 on the first batch of the .znn's
+    first run of frames (``decompress_file`` decodes a run as one
+    container).  Returns {row key of the ``kernels`` line: its numbers}."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, huf_pc  # noqa: PLC0415
+
+    frame = torch.frombuffer(bytearray(file[: 1 << 20]), dtype=torch.bfloat16)
+    held = {}
+    held["hist"], held["k7pc"], _ = hold_pc_encode_kernels(frame, dev, min_chunks=4)
+    want = bytes(ZipNN(input_format="torch", engine="native").compress(frame))
+    held["splice_pc"] = hold_splice(frame, {"per_chunk": want}, dev)["per_chunk"]
+    mv = memoryview(znn)
+    run = decode.frame_runs(mv)[0]
+    plan = decode.build_plan(mv, *run.key, run.orig_size, frames=run.frames)
+    lo, hi = decode.plan_batches(plan.g.n_chunks, plan.g.chunk_size)[0]
+    dv = decode.DeviceInputs(plan, dev)
+    torch.cuda.current_stream(dev).wait_event(dv.upload(0))
+    k1a = dv.k1_args(lo, hi)
+    sym, held["k1_bf16"] = hold_decode(
+        f"huf_pc_decode (CLI: first run of {run.n_frames} frames, {hi - lo} chunks)", huf_pc,
+        huf_pc.huf_pc_decode, huf_pc.huf_pc_decode_plain, k1a, k1_table_bytes(k1a))
+    cs = plan.g.chunk_size
+    original = torch.frombuffer(bytearray(file[lo * cs : hi * cs]), dtype=torch.uint8)
+    held["k2_2"] = hold_combine(f"combine_cells (CLI: first run of {run.n_frames} frames)",
+                                plan, dv.k2_args(lo, hi, sym), original, lo, hi)
+    return held
+
+
+def cli_file(file: bytes, nat: bytes, d: Path, smi) -> dict:
+    """Phase 13a and e: ``compress_file`` / ``decompress_file`` on the card
+    over phase 9's file, beside ``--engine native``, and once with
+    ``--huffman_table shared``; the path's kernels held against their
+    plain versions at its shapes (:func:`hold_cli_kernels`);
+    ``stats.file_stats`` of the .znn.  Returns the launches of the counted
+    runs and the held kernels' numbers."""
+    from zipnn_tpu_torch import stats  # noqa: PLC0415
+    from zipnn_tpu_torch.cli import compress_file, decompress_file  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
+
+    nat_sha = cli_container(nat)
+
+    path = d / "model.safetensors"
+    znn = Path(str(path) + ".znn")
+    path.write_bytes(file)
+    n, frames = len(file), -(-len(file) // (1 << 20))
+    launches = {}
+
+    def timings(t):
+        return ", ".join(f"{k[:-2]} {v:.4f} s" for k, v in t.items())
+
+    def compress(label, *flags, must_launch=()):
+        kernels.reset_launches()
+        ms, _ = cli_call(compress_file.main, [str(path), "--force", *flags])
+        got = dict(kernels.launches)
+        for k in must_launch:
+            check(got[k] > 0, f"compress_file {label}: {k} not launched")
+        log(f"[cli] compress_file {label}: {n} bytes -> {znn.stat().st_size}, wall "
+            f"{ms / 1e3:.4f} s ({timings(compress_file.last_timings)}), compress "
+            f"{n / compress_file.last_timings['compress_s'] / 1e9:.3f} GB/s; launches {got}; "
+            f"card: {smi}")
+        return got
+
+    def decompress(label):
+        path.unlink()
+        kernels.reset_launches()
+        ms, _ = cli_call(decompress_file.main, [str(znn), "--force"])
+        got = dict(kernels.launches)
+        check(path.read_bytes() == file, f"decompress_file {label}: != the file")
+        check(0 < got["huf_pc_decode"] < frames,
+              f"decompress_file {label}: huf_pc_decode launched {got['huf_pc_decode']} times "
+              f"for {frames} frames")
+        check(got["combine_cells"] > 0, f"decompress_file {label}: combine_cells not launched")
+        log(f"[cli] decompress_file {label}: wall {ms / 1e3:.4f} s "
+            f"({timings(decompress_file.last_timings)}), decompress "
+            f"{n / decompress_file.last_timings['decompress_s'] / 1e9:.3f} GB/s; == the file; "
+            f"launches {got}; card: {smi}")
+        return got
+
+    launches["compress"] = compress("(engine cuda)", must_launch=(
+        "hist_cells", "huf_pc_encode", "splice_cells"))
+    check(sha(znn) == nat_sha, "compress_file's .znn != phase 9's engine native container "
+          "(with the CLI's method byte)")
+    info = stats.file_stats(str(znn))
+    check(len(info["frames"]) == frames == 833 and info["total_len"] == znn.stat().st_size
+          and info["original_len"] == n, f"file_stats: {len(info['frames'])} frames, "
+          f"{info['total_len']} bytes")
+    huf = sum(p["huffman_chunks"] for f in info["frames"] for p in f.get("planes", []))
+    log(f"[stats] file_stats of the .znn: {len(info['frames'])} frames, {info['total_len']} "
+        f"bytes (ratio {info['ratio']:.4f}), {huf} Huffman cells")
+    launches["decompress"] = decompress("(engine cuda)")
+    held = hold_cli_kernels(file, znn.read_bytes(), torch.device("cuda"))
+    compress("--engine native", "--engine", "native")
+    check(sha(znn) == nat_sha, "compress_file --engine native's .znn != phase 9's")
+    launches["shared"] = compress("--huffman_table shared", "--huffman_table", "shared",
+                                  must_launch=("const_scan_rows", "huf_shared_encode",
+                                               "splice_cells"))
+    # each 1 MiB frame has its own shared table, so the frames' cells do not
+    # share one header and the run decodes by K1 (decode.takes_shared_table)
+    launches["shared_decompress"] = decompress("--huffman_table shared")
+    return {"launches": launches, "held": held}
+
+
+def cli_delta(base: bytes, tuned: bytes, d: Path, smi) -> None:
+    """Phase 13b: phase 11's q_proj pair as two files through
+    ``compress_file_delta`` (byte-equal to ``--engine native``) and
+    ``decompress_file_delta`` on the card."""
+    from zipnn_tpu_torch.cli import compress_file_delta, decompress_file_delta  # noqa: PLC0415
+
+    b, t = d / "q_proj.base.bin", d / "q_proj.tuned.bin"
+    b.write_bytes(base)
+    t.write_bytes(tuned)
+    znn = Path(str(t) + ".znn")
+    ms, _ = cli_call(compress_file_delta.main, [str(t), str(b), "--force"])
+    got = sha(znn)
+    nat_ms, _ = cli_call(compress_file_delta.main, [str(t), str(b), "--force", "--engine", "native"])
+    check(got == sha(znn), "compress_file_delta on the card != --engine native")
+    t.unlink()
+    dec_ms, _ = cli_call(decompress_file_delta.main, [str(znn), str(b), "--force"])
+    check(t.read_bytes() == tuned, "decompress_file_delta != the fine-tuned bytes")
+    log(f"[cli] delta q_proj {len(tuned)} bytes: compress_file_delta {ms / 1e3:.4f} s "
+        f"(--engine native {nat_ms / 1e3:.4f} s, same file), decompress_file_delta "
+        f"{dec_ms / 1e3:.4f} s, == the fine-tuned bytes; card: {smi}")
+
+
+def cli_path(file: bytes, d: Path, smi) -> None:
+    """Phase 13c: ``compress_path bin --max_processes 2`` and
+    ``decompress_path`` on the card in spawned workers over three of the
+    file's tensors as separate files; each .znn equals the one
+    ``compress_file`` writes for that file, and every file comes back."""
+    from zipnn_tpu_torch.cli import compress_file, compress_path, decompress_path  # noqa: PLC0415
+
+    tensors = safetensors_tensors(file)
+    pick = [f"model.layers.0.self_attn.{k}.weight" for k in ("k_proj", "v_proj", "q_proj")]
+    batch, one = d / "batch", d / "one"
+    batch.mkdir()
+    one.mkdir()
+    want = {}
+    for name in pick:
+        raw = tensors[name].view(torch.int16).numpy().tobytes()
+        for folder in (batch, one):
+            (folder / f"{name}.bin").write_bytes(raw)
+        out = compress_file.compress_file(str(one / f"{name}.bin"), force=True)
+        want[name] = (raw, sha(out))
+    del tensors
+    ms, _ = cli_call(compress_path.main, ["bin", "--path", str(batch), "--force",
+                                          "--max_processes", "2"])
+    for name, (raw, digest) in want.items():
+        check(sha(batch / f"{name}.bin.znn") == digest,
+              f"compress_path's {name}.bin.znn != compress_file's")
+        (batch / f"{name}.bin").unlink()
+    dec_ms, _ = cli_call(decompress_path.main, ["--path", str(batch), "--force",
+                                                "--max_processes", "2"])
+    for name, (raw, _) in want.items():
+        check((batch / f"{name}.bin").read_bytes() == raw, f"decompress_path: {name} != original")
+    n = sum(len(r) for r, _ in want.values())
+    log(f"[cli] compress_path / decompress_path bin --max_processes 2 (spawned workers) over "
+        f"{len(want)} files ({n} bytes): {ms / 1e3:.3f} s / {dec_ms / 1e3:.3f} s, every .znn "
+        f"== compress_file's, every file back; card: {smi}")
+
+
+def device_events(prof):
+    """The trace's device events (kernels and copies) as (name, start us,
+    end us); the spans of ``record_function`` that the trace mirrors on the
+    device's timeline (user annotations: ``znn:`` and the window's own)
+    are not device work."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.name.startswith("znn")]
+
+
+def busy_share(prof, label: str, kernels_only: bool = False) -> tuple:
+    """(device-busy microseconds inside the ``label`` span, the span's
+    microseconds): the union of the device events' intervals (kernels
+    only, or copies too), clipped to the span."""
+    span = next(e for e in prof.events() if e.name == label)
+    lo, hi = span.time_range.start, span.time_range.end
+    busy, end = 0.0, lo
+    for name, a, b in sorted(device_events(prof), key=lambda x: x[1]):
+        if kernels_only and ("Memcpy" in name or "Memset" in name):
+            continue
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy, hi - lo
+
+
+def traced(label, fn, kernel_names, spans, event_ms, log_dir, smi) -> dict:
+    """Phase 13d, one call: ``fn()`` once warm, then once inside
+    ``stats.trace``; the trace must hold each kernel of ``kernel_names``
+    ({kernel: its ``__global__`` function}) and each ``znn:`` span of
+    ``spans``.  Logs each kernel's profiler times beside its phase-2
+    CUDA-event ms (``event_ms``) and the device's busy share of the
+    traced window; returns {kernel: largest profiler ms}."""
+    from zipnn_tpu_torch import stats  # noqa: PLC0415
+
+    fn()
+    torch.cuda.synchronize()
+    with stats.trace(str(log_dir), label=f"znn-smoke:{label}") as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    for sp in spans:
+        check(f"znn:{sp}" in names, f"trace of {label}: no znn:{sp} span")
+    dev = device_events(prof)
+    out, parts = {}, []
+    for k, fname in kernel_names.items():
+        ms = [(b - a) / 1e3 for n, a, b in dev if fname in n]
+        check(ms, f"trace of {label}: no {fname} kernel")
+        out[k] = max(ms)
+        parts.append(f"{k} ({fname}) {len(ms)} launches, "
+                     f"{', '.join(f'{m:.3f}' for m in ms)} ms (phase 2's events: "
+                     f"{event_ms[k]:.3f} ms, {max(ms) / event_ms[k] - 1:+.1%})")
+    busy, window = busy_share(prof, f"znn-smoke:{label}")
+    kinds = {}
+    for n, _, _ in dev:
+        kinds[n[:48]] = kinds.get(n[:48], 0) + 1
+    kbusy, _ = busy_share(prof, f"znn-smoke:{label}", kernels_only=True)
+    log(f"[trace] {label}: {'; '.join(parts)}; device busy (kernels and copies) "
+        f"{busy / 1e3:.3f} of {window / 1e3:.3f} ms traced ({busy / window:.1%}, idle "
+        f"{1 - busy / window:.1%}; kernels alone {kbusy / 1e3:.3f} ms, {kbusy / window:.1%}); "
+        f"{len(dev)} device events ({kinds}); "
+        f"{sum(1 for n in names if n.startswith('znn:'))} znn: span names; card: {smi}")
+    return out
+
+
+def cli_and_trace(file, nat, base, tuned, c_bf16, x_bf16, event_ms, dev, smi) -> dict:
+    """Phase 13, in a temporary directory removed at the end, whatever
+    happens: the CLI on the card (a-c), a ``stats.trace`` of a decode and
+    an encode (d), ``stats.file_stats`` (e, inside a).  Returns the
+    launches of a's counted runs, a's held kernels and the profiler's
+    kernel ms."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+
+    d = Path(tempfile.mkdtemp(prefix="znn-smoke-cli-"))
+    try:
+        out = cli_file(file, nat, d, smi)
+        cli_delta(base, tuned, d, smi)
+        cli_path(file, d, smi)
+        z = ZipNN(input_format="torch", engine="cuda", device=dev)
+        x_dev = x_bf16.to(dev)
+        y = z.decompress(c_bf16)
+        check(torch.equal(y.view(torch.int16), x_dev.view(torch.int16)), "traced decode input")
+        del y
+        prof_ms = traced("decode bf16 per-chunk", lambda: z.decompress(c_bf16),
+                         {"k1_bf16": "huf_pc_decode_kernel", "k2_2": "combine_cells_kernel"},
+                         ("decode:plan", "decode:geometry", "decode:plan-tables",
+                          "decode:upload", "decode:stage"), event_ms, d / "trace_dec", smi)
+        check(bytes(z.compress(x_dev)) == c_bf16, "traced encode input")
+        prof_ms.update(traced(
+            "encode bf16 per-chunk", lambda: z.compress(x_dev),
+            {"hist": "hist_cells_kernel", "k7pc": "huf_encode_warps_kernel",
+             "splice_pc": "splice_kernel"},
+            ("encode:split", "encode:hist", "encode:plan", "encode:kernel", "encode:decide",
+             "encode:assemble", "encode:splice", "encode:download", "encode:unstage"),
+            event_ms, d / "trace_enc", smi))
+        return {**out, "profiler_ms": prof_ms}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def cpu_model() -> str:
@@ -1399,9 +1784,6 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ------------------------
     rows = {}
-    def k1_table_bytes(k1a):
-        return 4 * (k1a[6].numel() + k1a[7].numel()) + 2 * k1a[8].numel()
-
     plan, dv, (lo, hi) = plan_of(c_bf16, dev)
     k1a = dv.k1_args(lo, hi)
     sym, rows["k1_bf16"] = hold_decode(
@@ -1543,10 +1925,9 @@ def main() -> int:
     del c_shared
     pc = {"bf16": pc_encode_path("bf16 per-chunk encode", x_bf16, c_bf16,
                                  GOLDEN_S.get(("bf16", "per_chunk")), smi)}
-    del c_bf16
     pc["fp32"] = pc_encode_path("fp32 per-chunk encode", x_fp32, c_fp32,
                                 GOLDEN_S.get(("fp32", "per_chunk")), smi)
-    del c_fp32
+    del c_fp32, x_fp32
 
     # ---- 7. the serving load --------------------------------------------
     names, xs, blobs, walls = serving_load(args.seed + 20, dev, smi)
@@ -1555,13 +1936,13 @@ def main() -> int:
     save = checkpoint_save(names, xs, dev, smi)
 
     # ---- 9. whole-file streaming -----------------------------------------
-    whole_file_streaming(names, xs, dev, smi)
+    file, nat = whole_file_streaming(names, xs, dev, smi)
 
     # ---- 10. the per-tensor .znn.safetensors load ------------------------
     per_tensor_file(names, xs, blobs, walls["iter2"], dev, smi)
 
     # ---- 11. delta -------------------------------------------------------
-    delta_case(names, xs, args.seed + 40, dev, smi)
+    q_base, q_tuned = delta_case(names, xs, args.seed + 40, dev, smi)
     del names, xs, blobs
     torch.cuda.empty_cache()
 
@@ -1573,11 +1954,30 @@ def main() -> int:
                False, dev, smi)
     del x_lossy
 
+    # ---- 13. the CLI and a trace on the card -------------------------------
+    cli = cli_and_trace(file, nat, q_base, q_tuned, bytes(c_bf16), x_bf16,
+                        {k: r["ms"] for k, r in rows.items()}, dev, smi)
+    del file, nat, q_base, q_tuned, c_bf16
+
     # ---- summary ---------------------------------------------------------
+    # phase 13: each row's launches in the CLI's counted run of its path
+    # (a: compress_file, decompress_file, --huffman_table shared; null
+    # where the CLI runs another path), its time at the CLI's shapes (a's
+    # held kernels) and its largest time in the profiler's trace (d)
+    cli_run = {"k1_bf16": "decompress", "k2_2": "decompress", "k6": "shared_decompress",
+               "k8": "shared", "k7": "shared", "hist": "compress", "k7pc": "compress",
+               "splice_pc": "compress", "splice_shared": "shared"}
+
     def row(key, kname, source, replaces, path, launches):
+        run = cli_run.get(key)
+        held = cli["held"].get(key)
         return {"name": kname, "path": path, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "bound_by": "bytes",
-                "library_ms": None, **rows[key]}
+                "library_ms": None, **rows[key],
+                "cli_launches": cli["launches"][run][kname] if run else None,
+                "cli_ms": held["ms"] if held else None,
+                "cli_bound_ms": held["bound_ms"] if held else None,
+                "profiler_ms": cli["profiler_ms"].get(key)}
 
     k1 = "zipnn_tpu/ops/pallas_huf_pc.py:425 (K1); zipnn_tpu/ops/pallas_gather.py:84 (K3)"
     k2 = "zipnn_tpu/ops/pallas_combine.py:249 (K2)"

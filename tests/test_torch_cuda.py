@@ -931,7 +931,8 @@ def test_download_through_small_pieces(card, monkeypatch, pinned):
         for s, d, n in ranges:
             want[d : d + n] += 1
         t = {}
-        staging.download(staging.pool(card), src, dst if pinned else dst.numpy(), ranges, t)
+        staging.download(staging.pool(card), src, dst if pinned else dst.numpy(), ranges, t,
+                         label="encode")
         assert np.array_equal(dst.numpy(), want), rep
         assert t["download_s"] > 0 and (t["unstage_s"] == 0) == pinned
     p = staging.pool(card)
@@ -1125,3 +1126,70 @@ def test_stream_reader_get_tensor_onto_card(card, tmp_path):
     host = r.get_tensor("w")
     assert host.device.type == "cpu" and torch.equal(host.view(torch.int16), w.view(torch.int16))
     assert torch.equal(r.load_shard(device=card)["ids"].cpu(), torch.arange(10))
+
+
+def test_cli_file_roundtrip_on_card(card, tmp_path):
+    """``compress_file`` on its default engine (cuda, on the card) writes
+    engine native's file; ``decompress_file`` on the card gives it back,
+    its frames decoded together."""
+    from zipnn_tpu_torch.cli import compress_file, decompress_file
+
+    rng = np.random.default_rng(71)
+    data = (_raw(torch.bfloat16, 3 << 20, 71).tobytes()
+            + rng.integers(0, 256, 1001, np.uint8).tobytes())
+    src = tmp_path / "w.bin"
+    src.write_bytes(data)
+    compress_file.main([str(src), "--force"])
+    got = (tmp_path / "w.bin.znn").read_bytes()
+    compress_file.main([str(src), "--force", "--engine", "native"])
+    assert got == (tmp_path / "w.bin.znn").read_bytes()
+    src.unlink()
+    kernels.reset_launches()
+    decompress_file.main([str(tmp_path / "w.bin.znn"), "--force"])
+    assert 0 < kernels.launches["huf_pc_decode"] < 4  # 4 frames, one run
+    assert src.read_bytes() == data
+
+
+def test_trace_of_card_decode_lists_kernels(card, tmp_path):
+    """``stats.trace`` of a decode on the card holds K1's and K2's kernels
+    and the decoder's ``znn:`` spans."""
+    from zipnn_tpu_torch import stats
+
+    x = torch.from_numpy(_raw(torch.bfloat16, 4 << 20, 72).view(np.uint16).copy())
+    comp = ZipNN(input_format="torch", engine="numpy").compress(x.view(torch.bfloat16))
+    z = ZipNN(input_format="torch")
+    z.decompress(comp)  # warm
+    with stats.trace(str(tmp_path)) as prof:
+        y = z.decompress(comp)
+        torch.cuda.synchronize()
+    assert torch.equal(y.cpu().view(torch.uint16), x)
+    keys = {e.key for e in prof.key_averages()}
+    for name in ("huf_pc_decode_kernel", "combine_cells_kernel"):
+        assert any(name in k for k in keys), name
+    for span in ("decode:plan", "decode:plan-tables", "decode:upload", "decode:stage"):
+        assert f"znn:{span}" in keys, span
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+@pytest.mark.parametrize("dtype,chunk", [(torch.bfloat16, 30), (torch.bfloat16, 1002),
+                                         (torch.float32, 52), (torch.float32, 100),
+                                         (torch.float16, 30)])
+def test_sub_word_planes_coded_on_card(card, dtype, chunk, profile):
+    """Planes that are not whole words but hold 12 bytes or more, encoded
+    from a CUDA tensor (split and RLE check on the card, the cells coded by
+    the host's encoders): equal to the port's golden encoder, and decoded
+    back on the card."""
+    raw = _raw(dtype, 520 * chunk + 6, chunk).copy()
+    raw[3 * chunk : 9 * chunk] = 0x3C
+    nb, br = {torch.float32: (4, 220)}.get(dtype, (2, 10))
+    shared = profile == "shared"
+    got = codec.compress_payload(torch.from_numpy(raw).to(card), nb, 1, br, chunk, engine="cuda",
+                                 device=card, check_th_after_percent=10, shared_tables=shared)
+    assert encode.last_timings["encoder"] == "sub_word_host"
+    assert encode.last_timings["upload_bytes"] == 0
+    assert bytes(got) == codec.compress_payload_numpy(raw, nb, 1, br, chunk,
+                                                      check_th_after_percent=10,
+                                                      shared_tables=shared)
+    back = codec.decompress_payload(bytes(got), nb, 1, br, chunk, raw.size, engine="cuda",
+                                    device=card)
+    assert np.array_equal(back.cpu().numpy(), raw)

@@ -297,11 +297,51 @@ def test_small_chunks_encode_on_device(dtype, chunk):
     assert got == _golden(x, chunk=chunk)
 
 
-def test_planes_neither_words_nor_short_raise():
-    """Planes that are not whole words and could be Huffman (12 bytes or
-    more: chunk sizes that are not a power of 2) are refused."""
-    with pytest.raises(ValueError, match="whole 4-byte words or planes under 12"):
-        encode.compress_payload(np.zeros(4096, np.uint8), 2, 1, 10, 100, device="cpu")
+# (dtype, chunk) whose planes are not whole words and hold 12 bytes or more
+CODED = [(torch.bfloat16, 30), (torch.bfloat16, 100), (torch.bfloat16, 1002),
+         (torch.float32, 52), (torch.float32, 100), (torch.float16, 30)]
+
+
+@pytest.mark.parametrize("profile", ["per_chunk", "shared"])
+@pytest.mark.parametrize("dtype,chunk", CODED,
+                         ids=[f"{str(d).split('.')[-1]}-{c}" for d, c in CODED])
+def test_sub_word_planes_coded_on_host(dtype, chunk, profile):
+    """Chunk sizes whose planes are not whole words but hold 12 bytes or
+    more take the sub-word route with the host's cell encoders
+    (``native.huf_compress`` per chunk, ``codec.compress_cell_shared``
+    shared): 60 chunks (per chunk) or 520 (shared: stride 8; from chunk 30
+    on, the chunks off the stride constant) with RLE cells, random bytes in
+    chunks off the stride (raw cells) and, in chunk 1, a top byte that no
+    sampled chunk holds (in the shared profile an uncodeable cell where
+    Huffman would win: bf16 at 1002 B); the payload equals the JAX
+    package's ``compress_payload_numpy`` (the per-chunk threshold check at
+    10 %) and decodes back through the port.  An all-zero buffer of the
+    same size (every cell RLE) takes the same route."""
+    shared = profile == "shared"
+    n_chunks = 520 if shared else 60
+    x = _tensor(dtype, n_chunks * chunk + 7, seed=chunk)
+    raw = x.view(torch.uint8).numpy().copy()
+    raw[3 * chunk : 7 * chunk] = 0x3C  # RLE cells
+    if shared:  # cheap cells off the stride; the sampled ones stay Gaussian
+        rows = raw[: n_chunks * chunk].reshape(n_chunks, chunk)
+        rows[30:500][np.arange(30, 500) % 8 != 0] = 0x3C
+    raw[17 * chunk : 23 * chunk] = np.random.default_rng(chunk).integers(0, 256, 6 * chunk)
+    size = x.element_size()
+    raw[chunk + size - 1] = 0x7F
+    nb, br = {2: (2, 10), 4: (4, 220)}[size]
+    got = bytes(codec.compress_payload(raw, nb, 1, br, chunk, engine="cuda", device="cpu",
+                                       check_th_after_percent=10, shared_tables=shared))
+    assert encode.last_timings["encoder"] == "sub_word_host"
+    assert got == ref_codec.compress_payload_numpy(raw, nb, 1, br, chunk,
+                                                   check_th_after_percent=10,
+                                                   shared_tables=shared)
+    back = codec.decompress_payload(got, nb, 1, br, chunk, raw.size, engine="cuda", device="cpu")
+    assert np.array_equal(back.numpy(), raw)
+    zeros = np.zeros_like(raw)
+    got = bytes(codec.compress_payload(zeros, nb, 1, br, chunk, engine="cuda", device="cpu",
+                                       shared_tables=shared))
+    assert encode.last_timings["encoder"] == "sub_word_host"
+    assert got == ref_codec.compress_payload_numpy(zeros, nb, 1, br, chunk, shared_tables=shared)
 
 
 # every chunk size whose planes are under one 4-byte word

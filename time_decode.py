@@ -315,7 +315,8 @@ def fetch_ways(src: torch.Tensor, reps: int, emit) -> None:
         for way, make in ways.items():
             out, touch_s = make()
             t = {}
-            _, wall = timed(lambda: staging.download(pool, src, out, [(0, 0, n)], t))
+            _, wall = timed(lambda: staging.download(pool, src, out, [(0, 0, n)], t,
+                                                     label="decode"))
             head = out[:4096].numpy() if isinstance(out, torch.Tensor) else out[:4096]
             if not np.array_equal(head, want):
                 raise RuntimeError(f"fetch {way}: bytes differ")
@@ -344,7 +345,7 @@ def staging_ways(comp: bytes, reps: int, emit) -> None:
     threads = os.cpu_count() or 1
 
     def by_torch():
-        return staging.upload(pool, src, dst, ranges, {})
+        return staging.upload(pool, src, dst, ranges, {}, label="decode")
 
     def by_native():
         with torch.cuda.stream(pool.stream):

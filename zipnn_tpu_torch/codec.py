@@ -44,7 +44,7 @@ from .ops.entropy import huf
 
 DEFAULT_THRESHOLD = 0.95
 HUF_CAP = 128 * 1024  # HUF block limit; planes larger than this store raw
-ENGINES = ("numpy", "cuda", "native", "auto")
+ENGINES = ("auto", "numpy", "native", "cuda")
 
 # Shared-table profile: table-build sampling (format policy).  At >= 512
 # chunks a plane's Huffman table is built from every 8th chunk's plane

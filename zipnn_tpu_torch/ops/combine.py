@@ -136,7 +136,7 @@ def combine_cells_plain(
             dst[keep::2][: lens[0]] = planes[0]
         if bit_reorder and clen >= 4:
             nw = clen // 4
-            words = dst[: 4 * nw].view(torch.int32)
+            words = dst[: 4 * nw].clone().view(torch.int32)  # dst may be off a word boundary
             revert = transforms.revert_sign_16 if num_buf == 2 else transforms.revert_sign_32
-            words.copy_(revert(words))
+            dst[: 4 * nw] = revert(words).view(torch.uint8)
     return out

@@ -54,7 +54,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import codec
+from .. import codec, stats
 from ..core import dtypes
 from ..core.header import Header, walk_frames
 from ..errors import CorruptChunkError
@@ -288,11 +288,13 @@ def build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
         raise ValueError(f"unsupported plane count {num_buf}")
     if orig_size == 0:
         return None
-    t0 = time.perf_counter()
-    g = Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder, byte_reorder, frames)
-    if timings is not None:
-        timings["geometry_s"] = time.perf_counter() - t0
-    return Plan(g)
+    with stats.phase("decode:geometry"):
+        t0 = time.perf_counter()
+        g = Geometry(payload, num_buf, chunk_size, orig_size, bit_reorder, byte_reorder, frames)
+        if timings is not None:
+            timings["geometry_s"] = time.perf_counter() - t0
+    with stats.phase("decode:plan-tables"):  # the rest of plan_s
+        return Plan(g)
 
 
 def payload_ranges(g: Geometry, lo: int, hi: int):
@@ -416,16 +418,17 @@ class DeviceInputs:
         if device.type == "cuda":
             self.pool = staging.pool(device)
             compute = torch.cuda.current_stream(device)
-            with torch.cuda.stream(self.pool.stream):
-                self.payload = torch.empty(self.src.numel(), dtype=torch.uint8,
-                                           device=device)
-                buf = torch.empty(packed.size, dtype=torch.uint8, device=device)
-                self.start_event = torch.cuda.Event(enable_timing=True)
-                self.start_event.record(self.pool.stream)
-            for t in (self.payload, buf):
-                t.record_stream(compute)
-            staging.upload(self.pool, staging.as_tensor(packed), buf, [(0, packed.size)],
-                           self.timings)
+            with stats.phase("decode:upload"):  # upload_s starts at start_event
+                with torch.cuda.stream(self.pool.stream):
+                    self.payload = torch.empty(self.src.numel(), dtype=torch.uint8,
+                                               device=device)
+                    buf = torch.empty(packed.size, dtype=torch.uint8, device=device)
+                    self.start_event = torch.cuda.Event(enable_timing=True)
+                    self.start_event.record(self.pool.stream)
+                for t in (self.payload, buf):
+                    t.record_stream(compute)
+                staging.upload(self.pool, staging.as_tensor(packed), buf, [(0, packed.size)],
+                               self.timings, label="decode")
         else:
             self.payload, buf = self.src, torch.from_numpy(packed)
         views = [buf[o : o + int(np.prod(shape)) * dt.itemsize].view(_TORCH[dt]).reshape(shape)
@@ -445,8 +448,9 @@ class DeviceInputs:
         them and so behind the plan's arrays too; None on the CPU."""
         if self.pool is None:
             return None
-        event = staging.upload(self.pool, self.src, self.payload, self.ranges[i],
-                               self.timings)
+        with stats.phase("decode:upload"):
+            event = staging.upload(self.pool, self.src, self.payload, self.ranges[i],
+                                   self.timings, label="decode")
         self.events.append(event)
         return event
 
@@ -540,11 +544,12 @@ def _device(device) -> torch.device:
 
 def _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size, frames):
     timings = {"geometry_s": 0.0, "stage_s": 0.0}
-    t0, c0 = time.perf_counter(), time.thread_time()
-    plan = build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
-                      frames, timings)
-    timings["plan_s"] = time.perf_counter() - t0
-    timings["plan_cpu_s"] = time.thread_time() - c0
+    with stats.phase("decode:plan"):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        plan = build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
+                          frames, timings)
+        timings["plan_s"] = time.perf_counter() - t0
+        timings["plan_cpu_s"] = time.thread_time() - c0
     return plan, timings
 
 
@@ -677,13 +682,14 @@ def fetch(flat: torch.Tensor, dst: np.ndarray, timings: Dict) -> None:
     device through the staging pool's pinned pieces (``staging.download``,
     which adds ``download_s`` and ``unstage_s``); adds the call's seconds
     to ``timings["fetch_s"]``."""
-    t0 = time.perf_counter()
-    if flat.is_cuda:
-        staging.download(staging.pool(flat.device), flat, dst, [(0, 0, flat.numel())],
-                         timings)
-    else:
-        dst[:] = flat.numpy()
-    timings["fetch_s"] = timings.get("fetch_s", 0.0) + time.perf_counter() - t0
+    with stats.phase("decode:fetch"):
+        t0 = time.perf_counter()
+        if flat.is_cuda:
+            staging.download(staging.pool(flat.device), flat, dst, [(0, 0, flat.numel())],
+                             timings, label="decode")
+        else:
+            dst[:] = flat.numpy()
+        timings["fetch_s"] = timings.get("fetch_s", 0.0) + time.perf_counter() - t0
 
 
 def kernel_ms() -> Dict[str, float]:

@@ -46,9 +46,12 @@ encoder's (``codec.compress_payload_numpy``) byte for byte:
    at the chunk sizes ``ZipNN`` takes) go by the sub-word route instead
    (:func:`encode_sub_word_batch`), either profile: a byte-wise split
    (``transforms.split_bytes``) and an RLE check on the device, the RLE
-   and raw decisions on the host (such cells are never Huffman), one
-   fetch of the cells' stored bytes, and the native core's splice in
-   :func:`finish`.
+   and raw decisions on the host, one fetch of the cells' stored bytes,
+   and the native core's splice in :func:`finish`.  Planes under 12 bytes
+   are never Huffman; where a plane holds 12 bytes or more (chunk sizes
+   that are not a power of 2) every cell's bytes come down and the host's
+   cell encoders code them (per chunk ``native.huf_compress``; shared
+   ``codec.compress_cell_shared`` with the tables of pass 1).
 4. **Container** (:func:`finish`): the tail cells on the host (per-chunk:
    the native core's block encoder, ``native.huf_compress``; shared:
    ``codec.compress_cell_shared`` with the plane's shared table), the
@@ -74,7 +77,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .. import codec, native
+from .. import codec, native, stats
 from . import byte_group, const_scan, hist, huf_enc, kernels, staging, transforms
 from . import splice as dsplice
 from .entropy import fse, huf
@@ -83,8 +86,9 @@ from .splice import HUF, RAW, RLE
 BATCH_BYTES = 512 << 20  # input bytes per device batch
 
 # what the last finished compress spent, for callers that report it: the
-# encoder that ran ("huf_shared_encode", "huf_pc_encode", or "sub_word"
-# for planes that are not whole words), the device kernels it launches
+# encoder that ran ("huf_shared_encode", "huf_pc_encode", or, for planes
+# that are not whole words, "sub_word" and, where a plane holds 12 bytes or
+# more, "sub_word_host": the cells coded on the host), the device kernels it launches
 # ("kernels"), host-clock phase seconds (split_s, hist_s, plan_s,
 # kernels_s, decide_s: the decisions' fetch and the host decisions,
 # assemble_s: the cells written on the device, splice_s: the tail cells,
@@ -112,8 +116,9 @@ def batch_chunks(chunk_size: int, stride: int) -> int:
 class Geometry:
     """Chunks, tail, sampling stride (1 in the per-chunk profile) and
     batches of one buffer, and the route: planes of whole 4-byte words,
-    or (``sub_word``) planes of ``lens`` bytes shorter than 12 bytes,
-    which are never Huffman."""
+    or (``sub_word``) planes of ``lens`` bytes that are not, whose cells
+    are Huffman-coded on the host when a plane holds 12 bytes or more
+    (``coded``; under 12 a cell is never Huffman)."""
 
     def __init__(self, n: int, num_buf: int, chunk_size: int, shared: bool = True,
                  byte_reorder: int = 10):
@@ -121,9 +126,7 @@ class Geometry:
         self.lens = np.asarray(byte_group.plane_lengths(chunk_size, num_buf, byte_reorder),
                                dtype=np.int64)
         self.sub_word = chunk_size % (4 * num_buf) != 0
-        if self.sub_word and self.lens.max() >= 12:
-            raise ValueError(f"chunk size {chunk_size}: the device encoder needs planes of "
-                             f"whole 4-byte words or planes under 12 bytes")
+        self.coded = self.sub_word and int(self.lens.max()) >= 12
         self.full = n // chunk_size
         self.n_chunks = codec.num_chunks_for(n, chunk_size)
         self.stride = codec.shared_sample_stride(self.n_chunks) if shared else 1
@@ -131,6 +134,7 @@ class Geometry:
         self.seg = self.plane_bytes // 4  # bytes of each of a cell's 4 streams
         if self.sub_word:
             B = max(1, SUB_WORD_CELL_BYTES // (num_buf * int(self.lens.max())))
+            B = max(self.stride, B // self.stride * self.stride)
         else:
             B = batch_chunks(chunk_size, self.stride)
         self.batches = [(lo, min(lo + B, self.full)) for lo in range(0, self.full, B)]
@@ -179,19 +183,20 @@ class Source:
         return arr
 
     def _up(self, rows: np.ndarray) -> torch.Tensor:
-        t0 = time.perf_counter()
         src = staging.as_tensor(rows)
         if not self.cuda:
             return src.view(rows.shape)
-        p = staging.pool(self.device)
-        with torch.cuda.stream(p.stream):
-            t = torch.empty(rows.shape, dtype=torch.uint8, device=self.device)
-        t.record_stream(torch.cuda.current_stream(self.device))
-        done = staging.upload(p, src, t.view(-1), [(0, rows.size)], {})
-        torch.cuda.current_stream(self.device).wait_event(done)
-        self.uploaded += rows.nbytes
-        self.h2d += rows.nbytes
-        self.upload_s += time.perf_counter() - t0
+        with stats.phase("encode:upload"):
+            t0 = time.perf_counter()
+            p = staging.pool(self.device)
+            with torch.cuda.stream(p.stream):
+                t = torch.empty(rows.shape, dtype=torch.uint8, device=self.device)
+            t.record_stream(torch.cuda.current_stream(self.device))
+            done = staging.upload(p, src, t.view(-1), [(0, rows.size)], {}, label="encode")
+            torch.cuda.current_stream(self.device).wait_event(done)
+            self.uploaded += rows.nbytes
+            self.h2d += rows.nbytes
+            self.upload_s += time.perf_counter() - t0
         return t
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
@@ -277,11 +282,15 @@ def sampled_counts(src: Source, g: Geometry, byte_reorder: int,
     nb = g.num_buf
     counts = torch.zeros((nb, 256), dtype=torch.int64, device=src.device)
     for lo, hi in g.batches:
-        planes = transforms.split_device(src.sample(lo, hi, g.stride), nb,
-                                         byte_reorder, bit_reorder)
-        for b in range(nb):
-            counts[b] += torch.bincount(
-                planes[:, b].contiguous().view(torch.uint8).reshape(-1), minlength=256)
+        rows = src.sample(lo, hi, g.stride)
+        if g.sub_word:
+            planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder, g.lens.tolist())
+            cells = [planes[:, b, : int(g.lens[b])] for b in range(nb)]
+        else:
+            planes = transforms.split_device(rows, nb, byte_reorder, bit_reorder)
+            cells = [planes[:, b].contiguous().view(torch.uint8) for b in range(nb)]
+        for b, cell in enumerate(cells):
+            counts[b] += torch.bincount(cell.reshape(-1), minlength=256)
     return counts
 
 
@@ -423,23 +432,15 @@ class Abandon:
 
 @dataclass
 class Batch:
-    """One sub-word batch's decisions ([k, num_buf] ``kind``, stored
-    ``size``, the RLE bytes ``b0``; for Huffman cells the header index
-    ``hid`` into the pool (header ``h`` at ``hpool[hoff[h]]``, ``hlen[h]``
-    bytes) and the jump table ``jump`` [k, num_buf, 3], both None in a
-    batch without Huffman cells) and its cells' bytes on the host: cell
-    (c, b)'s Huffman streams or raw bytes from ``blob[boff[c, b]]``, which
-    the native core's splice writes (:func:`_splice_host`)."""
+    """One sub-word batch's decisions ([k, num_buf] ``kind`` and stored
+    ``size``) and its cells' stored bytes on the host: cell (c, b)'s
+    ``size[c, b]`` bytes from ``blob[boff[c, b]]`` (a raw cell's plane
+    bytes, an RLE cell's one byte, a Huffman cell's whole block), which the
+    native core's splice copies (:func:`_splice_host`)."""
 
     lo: int
     kind: np.ndarray
     size: np.ndarray
-    b0: np.ndarray
-    hid: Optional[np.ndarray]
-    jump: Optional[np.ndarray]
-    hpool: np.ndarray
-    hoff: np.ndarray
-    hlen: np.ndarray
     boff: np.ndarray
     blob: np.ndarray
 
@@ -478,37 +479,39 @@ def assemble(src: Source, lo: int, kind: np.ndarray, size: np.ndarray, planes: t
     Huffman) as its header (``hlen[i]`` bytes of ``hpool`` from
     ``hoff[i]``), jump table and streams, stream ``s`` from row
     ``first[i] + s`` of ``rows[grp[i]]``, cut to ``sb[i, s]`` bytes."""
-    t = time.perf_counter()
-    k, nb = kind.shape
-    n = k * nb
-    sz = size.T
-    plane_bytes = sz.sum(axis=1)
-    plane_off = np.cumsum(plane_bytes) - plane_bytes
-    dst = (plane_off[:, None] + np.cumsum(sz, axis=1) - sz).T.reshape(-1)
-    cells = np.zeros((n, dsplice.FIELDS), np.int64)
-    cells[:, dsplice.DST] = dst
-    cells[:, dsplice.INFO] = dsplice.info(size.reshape(-1), kind.reshape(-1))
-    cells[:, dsplice.SRC] = np.arange(n)
-    h = kind.reshape(-1)[cand] == HUF
-    c = cand[h]
-    cells[c, dsplice.INFO] = dsplice.info(size.reshape(-1)[c], HUF, 1 + grp[h], hlen[h])
-    cells[c, dsplice.SRC] = dsplice.src(first[h], hoff[h])
-    cells[c, dsplice.SB] = dsplice.pack_sb(sb[h])
-    buf = torch.empty(int(plane_bytes.sum()), dtype=torch.uint8, device=src.device)
-    groups = [planes.view(n, -1), *rows]
-    dsplice.splice_cells(buf, cells, groups, hpool)
-    if src.cuda:
-        src.h2d += cells.nbytes + 16 * len(groups)
-    _tick(clock, "assemble_s", t, src.device, between)
+    with stats.phase("encode:assemble"):
+        t = time.perf_counter()
+        k, nb = kind.shape
+        n = k * nb
+        sz = size.T
+        plane_bytes = sz.sum(axis=1)
+        plane_off = np.cumsum(plane_bytes) - plane_bytes
+        dst = (plane_off[:, None] + np.cumsum(sz, axis=1) - sz).T.reshape(-1)
+        cells = np.zeros((n, dsplice.FIELDS), np.int64)
+        cells[:, dsplice.DST] = dst
+        cells[:, dsplice.INFO] = dsplice.info(size.reshape(-1), kind.reshape(-1))
+        cells[:, dsplice.SRC] = np.arange(n)
+        h = kind.reshape(-1)[cand] == HUF
+        c = cand[h]
+        cells[c, dsplice.INFO] = dsplice.info(size.reshape(-1)[c], HUF, 1 + grp[h], hlen[h])
+        cells[c, dsplice.SRC] = dsplice.src(first[h], hoff[h])
+        cells[c, dsplice.SB] = dsplice.pack_sb(sb[h])
+        buf = torch.empty(int(plane_bytes.sum()), dtype=torch.uint8, device=src.device)
+        groups = [planes.view(n, -1), *rows]
+        dsplice.splice_cells(buf, cells, groups, hpool)
+        if src.cuda:
+            src.h2d += cells.nbytes + 16 * len(groups)
+        _tick(clock, "assemble_s", t, src.device, between)
     return Assembled(lo, kind, size, buf, plane_off, plane_bytes)
 
 
 def _split(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
            bit_reorder: int, clock: Dict, between: Between):
     words = src.batch(lo, hi)
-    t = time.perf_counter()
-    planes = transforms.split_device(words, g.num_buf, byte_reorder, bit_reorder)
-    return planes, _tick(clock, "split_s", t, src.device, between)
+    with stats.phase("encode:split"):
+        t = time.perf_counter()
+        planes = transforms.split_device(words, g.num_buf, byte_reorder, bit_reorder)
+        return planes, _tick(clock, "split_s", t, src.device, between)
 
 
 def _streams(cells: torch.Tensor, pw: int) -> torch.Tensor:
@@ -528,23 +531,25 @@ def encode_shared_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder
     nb, pw = g.num_buf, g.plane_bytes // 4
     k = hi - lo
     planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
-    flags = const_scan.const_scan_rows(planes.view(k * nb, pw))
-    chunks = np.arange(k, dtype=np.int64) * nb
-    cand = np.concatenate([chunks + b for b in tables] or [np.zeros(0, np.int64)])
-    rows, bits = [], []
-    for b, table in tables.items():
-        r, tb = huf_enc.huf_shared_encode(planes, table, g.seg,
-                                          _streams(src.put(chunks + b), pw))
-        rows.append(r)
-        bits.append(tb)
-    between()
-    dec = src.get(torch.cat([flags] + bits))
-    t = _tick(clock, "kernels_s", t, src.device, between)
-    flags_h = dec[: k * nb].reshape(k, nb)
-    hid = np.repeat(np.asarray(list(tables), dtype=np.int64), k)
-    kind, size, sb = decide((flags_h >> 8).astype(bool), cand, dec[k * nb :], hlen[hid],
-                            g.plane_bytes, threshold)
-    _tick(clock, "decide_s", t, src.device, between)
+    with stats.phase("encode:kernel"):
+        flags = const_scan.const_scan_rows(planes.view(k * nb, pw))
+        chunks = np.arange(k, dtype=np.int64) * nb
+        cand = np.concatenate([chunks + b for b in tables] or [np.zeros(0, np.int64)])
+        rows, bits = [], []
+        for b, table in tables.items():
+            r, tb = huf_enc.huf_shared_encode(planes, table, g.seg,
+                                              _streams(src.put(chunks + b), pw))
+            rows.append(r)
+            bits.append(tb)
+        between()
+        dec = src.get(torch.cat([flags] + bits))
+        t = _tick(clock, "kernels_s", t, src.device, between)
+    with stats.phase("encode:decide"):
+        flags_h = dec[: k * nb].reshape(k, nb)
+        hid = np.repeat(np.asarray(list(tables), dtype=np.int64), k)
+        kind, size, sb = decide((flags_h >> 8).astype(bool), cand, dec[k * nb :], hlen[hid],
+                                g.plane_bytes, threshold)
+        _tick(clock, "decide_s", t, src.device, between)
     return assemble(src, lo, kind, size, planes, rows, cand,
                     np.repeat(np.arange(len(tables)), k), np.tile(4 * np.arange(k), len(tables)),
                     sb, hoff[hid], hlen[hid], hpool, clock, between)
@@ -560,23 +565,27 @@ def encode_pc_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: in
     nb, pw = g.num_buf, g.plane_bytes // 4
     k = hi - lo
     planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
-    counts = hist.hist_cells(planes.view(k * nb, pw))
-    between()
-    counts = src.get(counts)
-    t = _tick(clock, "hist_s", t, src.device, between)
-    plan = plan_cells(counts.reshape(k, nb, 256), g.plane_bytes, abandon.planes)
-    t = _tick(clock, "plan_s", t, src.device, between)
+    with stats.phase("encode:hist"):
+        counts = hist.hist_cells(planes.view(k * nb, pw))
+        between()
+        counts = src.get(counts)
+        t = _tick(clock, "hist_s", t, src.device, between)
+    with stats.phase("encode:plan"):
+        plan = plan_cells(counts.reshape(k, nb, 256), g.plane_bytes, abandon.planes)
+        t = _tick(clock, "plan_s", t, src.device, between)
     m = plan.cand.size
-    rows, bits = [], np.zeros((0, 4), np.int32)
-    if m:
-        r, tb = huf_enc.huf_pc_encode(planes, src.put(plan.tables), g.seg,
-                                      _streams(src.put(plan.cand), pw))
-        rows = [r]
-        bits = src.get(tb)
-    t = _tick(clock, "kernels_s", t, src.device, between)
-    kind, size, sb = decide(plan.rle, plan.cand, bits, plan.hlen, g.plane_bytes, threshold)
-    abandon.apply(lo, kind, size, np.full(nb, g.plane_bytes, np.int64), threshold)
-    _tick(clock, "decide_s", t, src.device, between)
+    with stats.phase("encode:kernel"):
+        rows, bits = [], np.zeros((0, 4), np.int32)
+        if m:
+            r, tb = huf_enc.huf_pc_encode(planes, src.put(plan.tables), g.seg,
+                                          _streams(src.put(plan.cand), pw))
+            rows = [r]
+            bits = src.get(tb)
+        t = _tick(clock, "kernels_s", t, src.device, between)
+    with stats.phase("encode:decide"):
+        kind, size, sb = decide(plan.rle, plan.cand, bits, plan.hlen, g.plane_bytes, threshold)
+        abandon.apply(lo, kind, size, np.full(nb, g.plane_bytes, np.int64), threshold)
+        _tick(clock, "decide_s", t, src.device, between)
     idx = np.arange(m, dtype=np.int64)
     return assemble(src, lo, kind, size, planes, rows, plan.cand, np.zeros(m, np.int64), 4 * idx,
                     sb, idx * native.HDR_STRIDE, plan.hlen, _hpool(src, plan.headers.reshape(-1)),
@@ -585,50 +594,70 @@ def encode_pc_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: in
 
 def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
                           bit_reorder: int, threshold, abandon: Optional[Abandon],
+                          coder: Optional[Callable[[int, np.ndarray], Optional[bytes]]],
                           clock: Dict, between: Between) -> Batch:
     """Either profile on chunks [lo, hi) whose planes are not whole words
-    (``g.lens`` bytes, under 12: never Huffman).  On the device: the
-    byte-wise split and each cell's RLE check (one repeated byte), one
-    fetch of the flags; on the host: RLE where it beats the threshold
-    (``1 < lens * threshold``), else raw, then the per-chunk threshold
-    check (``abandon``; None in the shared profile); on the device again,
-    the stored bytes of every cell in plane-major order (an RLE cell's one
-    byte, a raw cell's plane bytes), fetched in one copy.  Only [num_buf]
-    integers go up."""
+    (``g.lens`` bytes).  On the device: the byte-wise split and each cell's
+    RLE check (one repeated byte), one fetch of the flags; on the host: RLE
+    where it beats the threshold (``1 < lens * threshold``), else raw, then
+    the per-chunk threshold check (``abandon``; None in the shared
+    profile).  Without a ``coder`` (planes under 12 bytes, never Huffman)
+    the device gathers the stored bytes of every cell in plane-major order
+    (an RLE cell's one byte, a raw cell's plane bytes), fetched in one copy,
+    and only [num_buf] integers go up.  With one (``g.coded``) every cell's
+    plane bytes come down in one copy and ``coder(plane, cell)`` (the
+    profile's host cell encoder: the golden encoder's rules) codes each
+    cell that is not RLE; a block shorter than ``lens * threshold`` is
+    stored as Huffman, before the threshold check."""
     nb, k, dev = g.num_buf, hi - lo, src.device
     rows = src.batch(lo, hi)
-    t = time.perf_counter()
-    planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder, g.lens.tolist())
-    t = _tick(clock, "split_s", t, dev, between)
-    lens = src.put(g.lens)
-    inside = torch.arange(planes.shape[2], device=dev) < lens[:, None]  # [nb, pmax]
-    flags = ((planes == planes[:, :, :1]) | ~inside).all(dim=2) & (lens > 0)
-    between()
-    flags_h = src.get(flags)
-    t = _tick(clock, "kernels_s", t, dev, between)
-    before = np.zeros(nb, bool) if abandon is None else abandon.planes.copy()
-    rle_ok = (1 < g.lens * threshold) & ~before
-    kind = np.where(flags_h & rle_ok, RLE, RAW).astype(np.uint8)
-    size = np.where(kind == RLE, 1, g.lens).astype(np.int64)
-    # the first row of the batch from which each plane stores raw
-    cut = np.where(rle_ok, k, 0)
-    if abandon is not None:
-        flips = abandon.apply(lo, kind, size, g.lens, threshold)
-        if flips is not None:
-            cut[flips] = np.minimum(cut[flips], abandon.idx - lo + 1)
-    rle = flags & (torch.arange(k, device=dev)[:, None] < src.put(cut)[None, :])
-    keep = torch.where(rle[:, :, None], torch.arange(planes.shape[2], device=dev) == 0,
-                       inside[None])
-    blob = src.get(planes.permute(1, 0, 2)[keep.permute(1, 0, 2)])
-    sz = size.T.reshape(-1)
-    boff = (np.cumsum(sz) - sz).reshape(nb, k).T
-    r = kind == RLE
-    b0 = np.zeros((k, nb), dtype=np.uint8)
-    b0[r] = blob[boff[r]]
-    _tick(clock, "decide_s", t, dev, between)
-    none = np.zeros(0, np.int64)
-    return Batch(lo, kind, size, b0, None, None, np.zeros(0, np.uint8), none, none,
-                 np.ascontiguousarray(boff), blob)
+    with stats.phase("encode:split"):
+        t = time.perf_counter()
+        planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder, g.lens.tolist())
+        t = _tick(clock, "split_s", t, dev, between)
+    with stats.phase("encode:kernel"):
+        lens = src.put(g.lens)
+        inside = torch.arange(planes.shape[2], device=dev) < lens[:, None]  # [nb, pmax]
+        flags = ((planes == planes[:, :, :1]) | ~inside).all(dim=2) & (lens > 0)
+        between()
+        flags_h = src.get(flags)
+        t = _tick(clock, "kernels_s", t, dev, between)
+    with stats.phase("encode:decide"):
+        before = np.zeros(nb, bool) if abandon is None else abandon.planes.copy()
+        rle_ok = (1 < g.lens * threshold) & ~before
+        kind = np.where(flags_h & rle_ok, RLE, RAW).astype(np.uint8)
+        size = np.where(kind == RLE, 1, g.lens).astype(np.int64)
+        cells = blocks = None
+        if coder is not None:
+            cells = src.get(planes)
+            blocks = {}
+            for c, b in zip(*np.nonzero((kind == RAW) & ~before[None, :])):
+                block = coder(int(b), cells[c, b, : g.lens[b]])
+                if block is not None and len(block) < g.lens[b] * threshold:
+                    kind[c, b], size[c, b] = HUF, len(block)
+                    blocks[c, b] = np.frombuffer(block, np.uint8)
+        # the first row of the batch from which each plane stores raw
+        cut = np.where(rle_ok, k, 0)
+        if abandon is not None:
+            flips = abandon.apply(lo, kind, size, g.lens, threshold)
+            if flips is not None:
+                cut[flips] = np.minimum(cut[flips], abandon.idx - lo + 1)
+        sz = size.T.reshape(-1)
+        boff = np.ascontiguousarray((np.cumsum(sz) - sz).reshape(nb, k).T)
+        if cells is None:
+            rle = flags & (torch.arange(k, device=dev)[:, None] < src.put(cut)[None, :])
+            keep = torch.where(rle[:, :, None], torch.arange(planes.shape[2], device=dev) == 0,
+                               inside[None])
+            blob = src.get(planes.permute(1, 0, 2)[keep.permute(1, 0, 2)])
+        else:
+            blob = np.empty(int(sz.sum()), np.uint8)
+            for c, b in zip(*np.nonzero(kind != HUF)):
+                blob[boff[c, b] : boff[c, b] + size[c, b]] = cells[c, b, : size[c, b]]
+            for (c, b), block in blocks.items():
+                if kind[c, b] == HUF:  # not flipped raw by the threshold check
+                    blob[boff[c, b] : boff[c, b] + block.size] = block
+        _tick(clock, "decide_s", t, dev, between)
+    return Batch(lo, kind, size, boff, blob)
 
 
 def _layout(g: Geometry, batches, tail, prefix_len: int,
@@ -666,24 +695,24 @@ def _tail_cells(tail):
 
 def _splice_host(out: np.ndarray, base, starts, g: Geometry, batches: List[Batch],
                  tail) -> None:
-    """Host-side batches' cells and the tail's, by the native core
-    (``native.splice_cells``), at the output's offsets (:func:`_layout`).
-    ``tail`` is None or (types [num_buf], sizes [num_buf], stored
-    blocks)."""
+    """Host-side batches' cells and the tail's, copied from their stored
+    bytes by the native core (``native.splice_cells``) to the output's
+    offsets (:func:`_layout`).  ``tail`` is None or (types [num_buf], sizes
+    [num_buf], stored blocks)."""
     dummy16, dummy64 = np.zeros(3, np.uint16), np.zeros(1, np.int64)
+
+    def copy(at, size, boff, blob):
+        n = size.size
+        native.splice_cells(out, at, np.zeros(n, np.uint8), size, np.zeros(n, np.uint8),
+                            dummy64, np.zeros(0, np.uint8), dummy64, dummy64, dummy16,
+                            boff, blob)
+
     for bt in batches:
         k = bt.kind.shape[0]
-        at = base[None, :] + starts[:, bt.lo : bt.lo + k].T
-        native.splice_cells(
-            out, at, bt.kind, bt.size, bt.b0,
-            dummy64 if bt.hid is None else bt.hid, bt.hpool, bt.hoff, bt.hlen,
-            dummy16 if bt.jump is None else bt.jump, bt.boff, bt.blob)
+        copy(base[None, :] + starts[:, bt.lo : bt.lo + k].T, bt.size, bt.boff, bt.blob)
     if tail is not None:
         sizes, offs, blob = _tail_cells(tail)
-        nb = g.num_buf
-        native.splice_cells(out, base + starts[:, -2], np.zeros(nb, np.uint8), sizes,
-                            np.zeros(nb, np.uint8), dummy64, np.zeros(0, np.uint8), dummy64,
-                            dummy64, dummy16, offs, blob)
+        copy(base + starts[:, -2], sizes, offs, blob)
 
 
 class Started:
@@ -709,6 +738,29 @@ def _tail_planes(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int):
     return byte_group.split(tail, g.num_buf, byte_reorder, bit_reorder) if tail.size else None
 
 
+def shared_tables_pass(src: Source, g: Geometry, reorder, threshold: float, clock: Dict,
+                       between: Between):
+    """Shared profile, pass 1: the sampled counts on the device
+    (:func:`sampled_counts`), their fetch, the tail cell's counts when its
+    index is on stride, and each plane's (table, live) pair
+    (``codec.shared_tables_from_counts``); its seconds, less the sampled
+    chunks' uploads (several batches of host input count as upload), go to
+    ``clock["hist_s"]``."""
+    t0, up0 = time.perf_counter(), src.upload_s
+    with stats.phase("encode:split+hist"):
+        counts = sampled_counts(src, g, *reorder)
+        between()
+        counts = src.get(counts)
+        tail_planes = _tail_planes(src, g, *reorder)
+        if tail_planes is not None and g.full % g.stride == 0:
+            for b, plane in enumerate(tail_planes):  # the tail cell is on stride
+                if plane.size:
+                    counts[b] += np.bincount(plane, minlength=256)
+        tables = codec.shared_tables_from_counts(counts, threshold, g.stride)
+    clock["hist_s"] = time.perf_counter() - t0 - (src.upload_s - up0)
+    return tables
+
+
 def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: int,
           threshold: float = codec.DEFAULT_THRESHOLD, check_th_after_percent: int = 0,
           shared_tables: bool = False, device="cuda", prefix_len: int = 0,
@@ -730,7 +782,7 @@ def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: i
     g = Geometry(n, num_buf, chunk_size, shared_tables, byte_reorder)
     timings: Dict = {}
     if g.sub_word:
-        timings.update(encoder="sub_word", kernels=())
+        timings.update(encoder="sub_word_host" if g.coded else "sub_word", kernels=())
     elif shared_tables:
         timings.update(encoder="huf_shared_encode", kernels=SHARED_KERNELS)
     else:
@@ -742,33 +794,30 @@ def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: i
     args = (src, g)
     reorder = (byte_reorder, bit_reorder)
     with kernels.recording() as events:
+        if shared_tables and (g.coded or not g.sub_word):
+            tables, live = shared_tables_pass(src, g, reorder, threshold, timings, hook)
+            shared = [t if alive else None for t, alive in zip(tables, live)]
         if g.sub_word:
+            coder = None
+            if g.coded and shared_tables:
+                def coder(b, cell):
+                    return codec.compress_cell_shared(cell, shared[b])
+            elif g.coded:
+                def coder(b, cell):
+                    return native.huf_compress(cell)
             batches = [encode_sub_word_batch(*args, lo, hi, *reorder, threshold, abandon,
-                                             timings, hook) for lo, hi in g.batches]
+                                             coder, timings, hook) for lo, hi in g.batches]
         elif shared_tables:
-            t0, up0 = time.perf_counter(), src.upload_s
-            counts = sampled_counts(src, g, *reorder)
-            hook()
-            counts = src.get(counts)
-            tail_planes = _tail_planes(src, g, *reorder)
-            if tail_planes is not None and g.full % g.stride == 0:
-                for b, plane in enumerate(tail_planes):  # the tail cell is on stride
-                    if plane.size:
-                        counts[b] += np.bincount(plane, minlength=256)
-            shared, live = codec.shared_tables_from_counts(counts, threshold, g.stride)
-            # the sampled chunks' uploads (several batches of host input) count as upload
-            timings["hist_s"] = time.perf_counter() - t0 - (src.upload_s - up0)
             hdrs = [b"" if t is None else t[2] for t in shared]
             hpool = _hpool(src, np.frombuffer(b"".join(hdrs), np.uint8))
             hlen = np.asarray([len(h) for h in hdrs], dtype=np.int64)
             hoff = np.cumsum(hlen) - hlen
             tables = {}
             if 12 <= g.plane_bytes <= huf.HUF_BLOCKSIZE_MAX:  # else every cell is raw or RLE
-                for b in range(num_buf):
-                    if live[b]:
-                        lengths, vals, _, _ = shared[b]
+                for b, t in enumerate(shared):
+                    if t is not None:
+                        lengths, vals, _, _ = t
                         tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
-            shared = [t if alive else None for t, alive in zip(shared, live)]
             batches = [encode_shared_batch(*args, lo, hi, *reorder, tables, hpool, hoff, hlen,
                                            threshold, timings, hook) for lo, hi in g.batches]
         else:
@@ -812,11 +861,13 @@ def finish(run: Started, alloc: Callable[[int], np.ndarray] = codec.frame) -> np
     (``staging.download`` on the card, the copy stream waiting on the
     event behind the last assembly).  Sets ``last_timings``."""
     g, src, timings = run.g, run.src, run.timings
-    t0 = time.perf_counter()
-    tail = _tail(run)
-    out, base, starts = _layout(g, run.batches, tail, run.prefix_len, alloc)
-    _splice_host(out, base, starts, g, [bt for bt in run.batches if isinstance(bt, Batch)], tail)
-    timings["splice_s"] = time.perf_counter() - t0
+    with stats.phase("encode:splice"):
+        t0 = time.perf_counter()
+        tail = _tail(run)
+        out, base, starts = _layout(g, run.batches, tail, run.prefix_len, alloc)
+        _splice_host(out, base, starts, g, [bt for bt in run.batches if isinstance(bt, Batch)],
+                     tail)
+        timings["splice_s"] = time.perf_counter() - t0
     timings.update(download_s=0.0, unstage_s=0.0)
     for bt in run.batches:
         if not isinstance(bt, Assembled):
@@ -825,7 +876,7 @@ def finish(run: Started, alloc: Callable[[int], np.ndarray] = codec.frame) -> np
                   for b in range(g.num_buf) if bt.plane_bytes[b]]
         if src.cuda:
             staging.download(staging.pool(src.device), bt.buf, out, ranges, timings,
-                             after=run.ready)
+                             after=run.ready, label="encode")
             src.d2h += sum(r[2] for r in ranges)
         else:
             host = bt.buf.numpy()

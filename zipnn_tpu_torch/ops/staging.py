@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import stats
+
 PIECE_BYTES = 8 << 20  # bytes per pinned buffer and per DMA
 POOL_BYTES = 128 << 20  # page-locked bytes a pool holds, free and busy together
 DOWNLOAD_DEPTH = 3  # pieces a download keeps in flight while the host empties the oldest
@@ -113,21 +115,24 @@ def as_tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def upload(p: Pool, src: torch.Tensor, dst: torch.Tensor,
-           ranges: Sequence[Tuple[int, int]], timings: dict) -> torch.cuda.Event:
+           ranges: Sequence[Tuple[int, int]], timings: dict, *,
+           label: str) -> torch.cuda.Event:
     """Copy ``src[off : off + n]`` to ``dst[off : off + n]`` for each
     ``(off, n)`` of ``ranges`` through pinned pieces on the pool's copy
     stream; returns an event recorded there behind the last piece.  Adds
     the host seconds of the copies into pinned memory to
-    ``timings["stage_s"]``."""
+    ``timings["stage_s"]``, each copy a ``<label>:stage`` span
+    (``stats.phase``)."""
     stage_s = 0.0
     with torch.cuda.stream(p.stream):
         for off, n in ranges:
             for o in range(off, off + n, PIECE_BYTES):
                 m = min(PIECE_BYTES, off + n - o)
                 buf = p.acquire(m)
-                t0 = time.perf_counter()
-                buf[:m].copy_(src[o : o + m])
-                stage_s += time.perf_counter() - t0
+                with stats.phase(f"{label}:stage"):
+                    t0 = time.perf_counter()
+                    buf[:m].copy_(src[o : o + m])
+                    stage_s += time.perf_counter() - t0
                 dst[o : o + m].copy_(buf[:m], non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(p.stream)
@@ -139,7 +144,8 @@ def upload(p: Pool, src: torch.Tensor, dst: torch.Tensor,
 
 
 def download(p: Pool, src: torch.Tensor, dst, ranges: Sequence[Tuple[int, int, int]],
-             timings: dict, after: Optional[torch.cuda.Event] = None) -> None:
+             timings: dict, after: Optional[torch.cuda.Event] = None, *,
+             label: str) -> None:
     """Copy ``src[s : s + n]`` (a uint8 device tensor) to ``dst[d : d + n]``
     (host memory: a writable uint8 numpy array or CPU tensor) for each
     ``(s, d, n)`` of ``ranges``; returns once every byte is in ``dst``.
@@ -153,52 +159,56 @@ def download(p: Pool, src: torch.Tensor, dst, ranges: Sequence[Tuple[int, int, i
     run, and a piece goes back to the pool once its host copy is done (or
     once its DMA is, when the download fails).  Adds the host seconds of
     the copies out of pinned memory to ``timings["unstage_s"]`` and the
-    copy stream's span, first DMA to last, to ``timings["download_s"]``."""
-    dst = dst if isinstance(dst, torch.Tensor) else torch.from_numpy(dst)
-    if after is None:
-        after = torch.cuda.Event()
-        after.record(torch.cuda.current_stream(src.device))
-    src.record_stream(p.stream)
-    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    depth = max(1, min(DOWNLOAD_DEPTH, POOL_BYTES // PIECE_BYTES))
-    pending: deque = deque()
-    unstage_s = 0.0
+    copy stream's span, first DMA to last, to ``timings["download_s"]``;
+    the call is a ``<label>:download`` span (``stats.phase``), each host
+    copy a ``<label>:unstage`` one."""
+    with stats.phase(f"{label}:download"):
+        dst = dst if isinstance(dst, torch.Tensor) else torch.from_numpy(dst)
+        if after is None:
+            after = torch.cuda.Event()
+            after.record(torch.cuda.current_stream(src.device))
+        src.record_stream(p.stream)
+        first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        depth = max(1, min(DOWNLOAD_DEPTH, POOL_BYTES // PIECE_BYTES))
+        pending: deque = deque()
+        unstage_s = 0.0
 
-    def empty_oldest() -> float:
-        buf, d, m, done = pending.popleft()
-        done.synchronize()
-        t0 = time.perf_counter()
-        dst[d : d + m].copy_(buf[:m])
-        took = time.perf_counter() - t0
-        p.release(buf, done)
-        return took
+        def empty_oldest() -> float:
+            buf, d, m, done = pending.popleft()
+            done.synchronize()
+            with stats.phase(f"{label}:unstage"):
+                t0 = time.perf_counter()
+                dst[d : d + m].copy_(buf[:m])
+                took = time.perf_counter() - t0
+            p.release(buf, done)
+            return took
 
-    with torch.cuda.stream(p.stream):
-        p.stream.wait_event(after)
-        first.record(p.stream)
-        if dst.is_pinned():
-            for s, d, n in ranges:
-                dst[d : d + n].copy_(src[s : s + n], non_blocking=True)
-            last.record(p.stream)
-        else:
-            try:
+        with torch.cuda.stream(p.stream):
+            p.stream.wait_event(after)
+            first.record(p.stream)
+            if dst.is_pinned():
                 for s, d, n in ranges:
-                    for o in range(0, n, PIECE_BYTES):
-                        m = min(PIECE_BYTES, n - o)
-                        buf = p.acquire(m)
-                        buf[:m].copy_(src[s + o : s + o + m], non_blocking=True)
-                        done = torch.cuda.Event()
-                        done.record(p.stream)
-                        pending.append((buf, d + o, m, done))
-                        if len(pending) > depth:
-                            unstage_s += empty_oldest()
+                    dst[d : d + n].copy_(src[s : s + n], non_blocking=True)
                 last.record(p.stream)
-                while pending:
-                    unstage_s += empty_oldest()
-            finally:
-                for buf, _, _, done in pending:
-                    p.release(buf, done)
-    last.synchronize()
-    timings["unstage_s"] = timings.get("unstage_s", 0.0) + unstage_s
-    timings["download_s"] = (timings.get("download_s", 0.0)
-                             + first.elapsed_time(last) / 1e3)
+            else:
+                try:
+                    for s, d, n in ranges:
+                        for o in range(0, n, PIECE_BYTES):
+                            m = min(PIECE_BYTES, n - o)
+                            buf = p.acquire(m)
+                            buf[:m].copy_(src[s + o : s + o + m], non_blocking=True)
+                            done = torch.cuda.Event()
+                            done.record(p.stream)
+                            pending.append((buf, d + o, m, done))
+                            if len(pending) > depth:
+                                unstage_s += empty_oldest()
+                    last.record(p.stream)
+                    while pending:
+                        unstage_s += empty_oldest()
+                finally:
+                    for buf, _, _, done in pending:
+                        p.release(buf, done)
+        last.synchronize()
+        timings["unstage_s"] = timings.get("unstage_s", 0.0) + unstage_s
+        timings["download_s"] = (timings.get("download_s", 0.0)
+                                 + first.elapsed_time(last) / 1e3)

@@ -45,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import codec
+from . import codec, stats
 from .core import dtypes
 from .core.enums import EnumFormat, EnumLossy, EnumMethod
 from .core.header import HEADER_LEN, Header, describe, walk_frames
@@ -299,9 +299,7 @@ class ZipNN:
         return consumed
 
     def _record_stats(self, op: str, original: int, compressed: int, seconds: float):
-        from .stats import CodecStats  # noqa: PLC0415
-
-        self.last_stats = CodecStats(
+        self.last_stats = stats.CodecStats(
             op=op, original_bytes=original, compressed_bytes=compressed,
             seconds=seconds, engine=codec.resolve_engine(self.engine),
             dtype=str(self.bytearray_dtype), chunk_size=self.compression_chunk,
@@ -603,10 +601,11 @@ class ZipNN:
             return bytes(out)
         from .ops import decode  # noqa: PLC0415
 
-        t0 = time.perf_counter()
-        runs = decode.frame_runs(mv, VANILLA_BYTE_REORDERS)
-        timings = {"frames": sum(r.n_frames for r in runs), "runs": len(runs),
-                   "runs_s": time.perf_counter() - t0}
+        with stats.phase("decode:runs"):
+            t0 = time.perf_counter()
+            runs = decode.frame_runs(mv, VANILLA_BYTE_REORDERS)
+            timings = {"frames": sum(r.n_frames for r in runs), "runs": len(runs),
+                       "runs_s": time.perf_counter() - t0}
         out = codec.frame(sum(r.orig_size for r in runs))
         pos = 0
         for r in runs:
