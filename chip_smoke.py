@@ -167,6 +167,29 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
     ``compress_safetensors`` and ``decompress_safetensors`` are not run:
     they need the ``safetensors`` package, which the card's host may not
     have (the CPU tests cover them).
+14. several shards and several processes (``zipnn_tpu_torch.parallel``),
+    printing each wall with its read and write and the phase's own:
+    a. ``ZipNN(input_format="torch")`` compresses phase 4a's bf16 tensor
+       (both profiles) and the fp32 one (per-chunk) and decompresses the
+       golden containers onto the card, with no mesh, under
+       ``make_mesh([dev, dev])`` (two shards on one card) and under
+       ``make_mesh()``: each container equal to the golden one, each
+       decode bit-exact, each kernel launched once a (batch, shard) range
+       for each launch a batch makes with no mesh; K1 (bf16, fp32), K2
+       (2 and 4 planes), K6, K8, K7, H, E and ``splice_cells`` (both
+       profiles) held against their plain versions at the first shard of
+       the 2-shard mesh's first batch;
+    b. two processes started by ``spawn`` on the card, over gloo:
+       ``compress_file_multihost`` of phase 9's file, per-chunk (the 10 %
+       bounded check agreed through ``raw_planes``) and shared (a preset
+       table from the summed sampled counts), each decompressed back by
+       ``decompress_file_multihost``; the streaming mode on the file's
+       first 64 MiB; ``compress_safetensors_multihost``, loaded back
+       bit-exact by ``SafetensorsStreamReader``; each file equal to one
+       process's, beside one process's engine native compress of the
+       file; in a temporary directory removed at the end;
+    c. ``entry.entry()``'s decode step (K1 then K2) and
+       ``entry.dryrun_multichip(2)``.
 
 Phase 3 also encodes, on the card from a CUDA tensor, the chunk sizes
 whose planes are not whole words but hold 12 bytes or more (bf16 and
@@ -180,7 +203,10 @@ the golden encoder's seconds.  It
 prints a ``kernels`` JSON line (each kernel also with its launches in the
 CLI's counted run of its path, ``cli_launches``, null where the CLI
 runs another path; its time at the CLI's shapes, ``cli_ms`` and
-``cli_bound_ms``; and its time in phase 13's trace, ``profiler_ms``), the card's name and power limit and the
+``cli_bound_ms``; its time in phase 13's trace, ``profiler_ms``; its
+launches in phase 14a's 2-shard run of its path, ``mesh_launches``, and
+its time at one shard's shapes, ``mesh_ms`` and ``mesh_bound_ms``, null
+where 14a does not run its path), the card's name and power limit and the
 host CPU's model (the plan and splice are host timings), and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the exit code is not 0 and no result line is printed.
@@ -467,10 +493,19 @@ def corrupt_case(label, comp: bytes, stream: int):
     raise RuntimeError(f"chip_smoke check failed: corrupt {label} container decoded")
 
 
-def encode_first_batch(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
-    """A shared encode path's first batch on the card: its split planes
-    [k, num_buf, W], the live planes' K7 tables (from the sampled counts),
-    and the batch's geometry."""
+def first_shard(lo: int, hi: int, parts: int):
+    """The first of ``parts`` shards of chunks [lo, hi), as a mesh of
+    ``parts`` entries splits them (``parallel.sharded.chunk_range``)."""
+    from zipnn_tpu_torch.parallel.sharded import chunk_range  # noqa: PLC0415
+
+    a, b = chunk_range(0, parts, hi - lo)
+    return lo + a, lo + b
+
+
+def encode_first_batch(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024, parts: int = 1):
+    """A shared encode path's first batch on the card (the first of its
+    ``parts`` shards): its split planes [k, num_buf, W], the live planes'
+    K7 tables (from the sampled counts), and the batch's geometry."""
     from zipnn_tpu_torch import codec  # noqa: PLC0415
     from zipnn_tpu_torch.core import dtypes  # noqa: PLC0415
     from zipnn_tpu_torch.ops import byte_group, encode, huf_enc, transforms  # noqa: PLC0415
@@ -480,14 +515,15 @@ def encode_first_batch(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024):
     g = encode.Geometry(flat.size, gr.num_buf, chunk)
     src = encode.Source(flat, g, dev)
     tail = byte_group.split(src.tail, gr.num_buf, gr.byte_reorder, gr.bit_reorder)
-    counts = src.get(encode.sampled_counts(src, g, gr.byte_reorder, gr.bit_reorder))
+    counts = sum(src.get(c) for c in encode.sampled_counts(src, g, gr.byte_reorder,
+                                                           gr.bit_reorder))
     if g.full % g.stride == 0:  # the tail cell is on stride: sampled too
         for b, plane in enumerate(tail):
             counts[b] += np.bincount(plane, minlength=256)
     shared, live = codec.shared_tables_from_counts(counts, codec.DEFAULT_THRESHOLD, g.stride)
-    lo, hi = g.batches[0]
+    lo, hi = first_shard(*g.batches[0], parts)
     check(hi - lo >= 64, f"first encode batch has {hi - lo} chunks, want >= 64")
-    planes = transforms.split_device(src.batch(lo, hi), gr.num_buf, gr.byte_reorder,
+    planes = transforms.split_device(src.batch(lo, hi, dev), gr.num_buf, gr.byte_reorder,
                                      gr.bit_reorder)
     tables = {b: torch.from_numpy(huf_enc.pack_etable(shared[b][1], shared[b][0])).to(dev)
               for b in range(gr.num_buf) if live[b]}
@@ -535,14 +571,14 @@ def hold_huf_encode(g, planes, tables, dev):
             "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
 
 
-def hold_encode_kernels(x_cpu: torch.Tensor, dev):
+def hold_encode_kernels(x_cpu: torch.Tensor, dev, parts: int = 1):
     """K8 and K7 against their plain versions at the bf16 shared encode
-    path's first batch: K8 over every (chunk, plane) row, K7 over every
-    stream of each live plane; bit-exact flags, ``total_bits`` and stream
-    bytes; their times and byte bounds."""
+    path's first batch (the first of its ``parts`` shards): K8 over every
+    (chunk, plane) row, K7 over every stream of each live plane; bit-exact
+    flags, ``total_bits`` and stream bytes; their times and byte bounds."""
     from zipnn_tpu_torch.ops import const_scan  # noqa: PLC0415
 
-    g, planes, tables = encode_first_batch(x_cpu, dev)
+    g, planes, tables = encode_first_batch(x_cpu, dev, parts=parts)
     k, nb, w = planes.shape
     rows = planes.view(k * nb, w)
     f_k = const_scan.const_scan_rows(rows)
@@ -558,9 +594,10 @@ def hold_encode_kernels(x_cpu: torch.Tensor, dev):
 
 
 def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024,
-                           min_chunks: int = 64):
+                           min_chunks: int = 64, parts: int = 1):
     """``hist_cells`` and ``huf_pc_encode`` against their plain versions at
-    a per-chunk encode path's first batch, with the host plan of its cells
+    a per-chunk encode path's first batch (the first of its ``parts``
+    shards), with the host plan of its cells
     between them (``encode.plan_cells``): bit-exact counts, stream bytes
     and ``total_bits``; their times, byte bounds, and for the histogram the
     one PyTorch call that computes it (``torch.bincount`` over
@@ -574,10 +611,10 @@ def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024,
     nb = gr.num_buf
     x_dev = x_cpu.to(dev).view(torch.uint8).reshape(-1)
     g = encode.Geometry(x_dev.numel(), nb, chunk, shared=False)
-    lo, hi = g.batches[0]
+    lo, hi = first_shard(*g.batches[0], parts)
     k, pw = hi - lo, g.plane_bytes // 4
     check(k >= min_chunks, f"first per-chunk encode batch has {k} chunks, want >= {min_chunks}")
-    planes = transforms.split_device(encode.Source(x_dev, g, dev).batch(lo, hi), nb,
+    planes = transforms.split_device(encode.Source(x_dev, g, dev).batch(lo, hi, dev), nb,
                                      gr.byte_reorder, gr.bit_reorder)
     rows = planes.view(k * nb, pw)
     h_k = hist.hist_cells(rows)
@@ -1730,6 +1767,291 @@ def cpu_model() -> str:
     return f"{model} ({os.cpu_count()} cores)"
 
 
+MESH_RANKS = 2  # phase 14b's processes, all on the one card
+
+
+def mesh_paths(x_bf16, x_fp32, goldens: dict, dev, smi) -> dict:
+    """Phase 14a: ``ZipNN(input_format="torch")`` on the bf16 tensor (both
+    profiles) and the fp32 one (per-chunk) with no mesh, under
+    ``make_mesh([dev, dev])`` (two shards on the one card) and under
+    ``make_mesh()`` (every card), then with no mesh again (a warm
+    baseline): each container byte-equal to the golden
+    one (which phase 6 showed the card writes with no mesh), each decode
+    onto the card bit-exact, and each kernel's launches the mesh's entries
+    times the no-mesh call's (every batch has a launch set a shard); the
+    launch counts set to 0 just before each call and read just after.
+    Returns the 2-shard runs' launches by "case:encode" / "case:decode"."""
+    from zipnn_tpu_torch import ZipNN, parallel  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import decode, encode, kernels  # noqa: PLC0415
+
+    meshes = {"2 shards on one card": parallel.make_mesh([dev, dev]),
+              "make_mesh()": parallel.make_mesh()}
+    cases = (("bf16 per-chunk", x_bf16, "per_chunk", goldens["bf16"]),
+             ("bf16 shared", x_bf16, "shared", goldens["shared"]),
+             ("fp32 per-chunk", x_fp32, "per_chunk", goldens["fp32"]))
+    out = {}
+    for label, x, profile, want in cases:
+        ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        x_dev = x.to(dev)
+        n = x.numel() * x.element_size()
+        runs = {}
+        # no mesh first (its launches are the baseline) and again last: the
+        # first call of a case is the cold one
+        for mlabel, mesh in (("no mesh", None), *meshes.items(), ("no mesh, again", None)):
+            with parallel.use_mesh(mesh):
+                kernels.reset_launches()
+                (got, enc_ms) = host_ms(lambda: ZipNN(input_format="torch",
+                                                      huffman_table=profile).compress(x))
+                enc = dict(kernels.launches)
+                et = dict(encode.last_timings)
+                check(bytes(got) == want, f"{label} under {mlabel}: container != golden")
+                del got
+                kernels.reset_launches()
+                (y, dec_ms) = host_ms(lambda: ZipNN(input_format="torch").decompress(want))
+                dec = dict(kernels.launches)
+                dt = dict(decode.last_timings)
+                check(y.is_cuda and torch.equal(y.view(ints), x_dev.view(ints)),
+                      f"{label} under {mlabel}: decode onto the card != original")
+                del y
+            runs[mlabel] = (enc_ms, dec_ms, enc, dec, et, dt)
+        # every (batch, shard) range launches the set that each batch
+        # launches with no mesh; a batch of fewer chunks than shards (the
+        # decode's last batch holds the tail chunk alone) has fewer ranges
+        chunk, nb = 256 * 1024, x.element_size()
+        batches = {"encode": encode.Geometry(n, nb, chunk, profile == "shared").batches,
+                   "decode": decode.plan_batches(-(-n // chunk), chunk)}
+        base = runs["no mesh"]
+        for mlabel, mesh in meshes.items():
+            for what, i in (("encode", 2), ("decode", 3)):
+                ranges = sum(min(mesh.size, hi - lo) for lo, hi in batches[what])
+                check(runs[mlabel][i + 2]["shards"] == ranges,
+                      f"{label} {what} under {mlabel}: {runs[mlabel][i + 2]['shards']} "
+                      f"ranges, want {ranges}")
+                for k, v in base[i].items():
+                    want_k = v // len(batches[what]) * ranges
+                    check(v % len(batches[what]) == 0 and runs[mlabel][i][k] == want_k,
+                          f"{label} {what} under {mlabel}: {k} launched "
+                          f"{runs[mlabel][i][k]} times, want {want_k}")
+        for mlabel in runs:
+            enc_ms, dec_ms, enc, dec, et, dt = runs[mlabel]
+            log(f"[mesh] {label}, {mlabel}: encode {enc_ms / 1e3:.4f} s = "
+                f"{n / enc_ms / 1e6:.3f} GB/s ({et['batches']} batch(es) x "
+                f"{et['shards'] // et['batches']} shard(s); launches "
+                f"{ {k: v for k, v in enc.items() if v} }), == golden; decode onto the card "
+                f"{dec_ms / 1e3:.4f} s = {n / dec_ms / 1e6:.3f} GB/s (launches "
+                f"{ {k: v for k, v in dec.items() if v} }), bit-exact")
+        out[f"{label}:encode"] = runs["2 shards on one card"][2]
+        out[f"{label}:decode"] = runs["2 shards on one card"][3]
+        del x_dev
+        torch.cuda.empty_cache()
+    log(f"[mesh] every kernel launched once a (batch, shard) range for each launch a batch "
+        f"makes with no mesh; card: {smi}")
+    return out
+
+
+def mesh_holds(x_bf16, x_fp32, goldens: dict, dev) -> dict:
+    """Phase 14a: each kernel of the mesh's paths against its plain version
+    at the first shard of the 2-shard mesh's first batch (half of phase
+    2's shapes), timed as in phase 2: K1 (bf16, fp32), K2 (2 and 4
+    planes), K6, K8, K7, H, E, and ``splice_cells`` (both profiles: the
+    first splice of an encode under the mesh is its first shard's)."""
+    from zipnn_tpu_torch import parallel  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import huf_pc, huf_shared  # noqa: PLC0415
+
+    rows = {}
+    for tag, k1, k2, x in (("bf16", "k1_bf16", "k2_2", x_bf16),
+                           ("fp32", "k1_fp32", "k2_4", x_fp32)):
+        plan, dv, (lo, hi) = plan_of(goldens[tag], dev)
+        a, b = first_shard(lo, hi, 2)
+        k1a = dv.k1_args(a, b)
+        sym, rows[k1] = hold_decode(f"huf_pc_decode ({tag}, shard 0 of 2: {b - a} chunks)",
+                                    huf_pc, huf_pc.huf_pc_decode, huf_pc.huf_pc_decode_plain,
+                                    k1a, k1_table_bytes(k1a))
+        rows[k2] = hold_combine(f"combine_cells ({tag}, shard 0 of 2)", plan,
+                                dv.k2_args(a, b, sym), x, a, b)
+        del dv, sym, k1a
+    plan, dv, (lo, hi) = plan_of(goldens["shared"], dev)
+    a, b = first_shard(lo, hi, 2)
+    _, rows["k6"] = hold_decode(f"huf_shared_decode (bf16 shared, shard 0 of 2: {b - a} chunks)",
+                                huf_shared, huf_shared.huf_shared_decode,
+                                huf_shared.huf_shared_decode_plain, dv.k6_args(a, b), 512)
+    del dv
+    rows["k8"], rows["k7"] = hold_encode_kernels(x_bf16, dev, parts=2)
+    rows["hist"], rows["k7pc"], _ = hold_pc_encode_kernels(x_bf16, dev, parts=2)
+    with parallel.use_mesh(parallel.make_mesh([dev, dev])):
+        spl = hold_splice(x_bf16, {"per_chunk": goldens["bf16"], "shared": goldens["shared"]},
+                          dev)
+    rows["splice_pc"], rows["splice_shared"] = spl["per_chunk"], spl["shared"]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rank_worker(rank: int, address: str, jobs: list, times_path: str) -> None:
+    """Phase 14b: one of the ``MESH_RANKS`` spawned processes: joins the
+    gloo group and runs every job of ``jobs`` (``multihost`` function name,
+    arguments, keywords) in order; rank 0 writes each job's
+    ``multihost.last_timings`` to ``times_path``."""
+    sys.path.insert(0, str(ROOT))
+    from zipnn_tpu_torch.parallel import multihost  # noqa: PLC0415
+
+    multihost.initialize(address, MESH_RANKS, rank, timeout_s=240)
+    times = []
+    for fn, args, kw in jobs:
+        getattr(multihost, fn)(*args, **kw)
+        times.append(dict(multihost.last_timings))
+    if rank == 0:
+        Path(times_path).write_text(json.dumps(times))
+
+
+def two_ranks(file: bytes, dev, smi) -> None:
+    """Phase 14b: two processes started by ``spawn`` on the one card, over
+    gloo, on phase 9's file (written to a temporary directory, removed at
+    the end): ``compress_file_multihost`` per-chunk (the 10 % bounded
+    check's decision agreed through ``raw_planes``) and shared (a preset
+    table from the summed sampled counts), each then
+    ``decompress_file_multihost``; the streaming mode on the file's first
+    64 MiB; ``compress_safetensors_multihost``.  Each file equals the one
+    of one process (``ZipNN(input_format="byte",
+    bytearray_dtype="bfloat16")`` on the card; engine native's for the
+    streaming one; the same call with no process group for the
+    safetensors one) and each decompressed file the input; the
+    safetensors file loads back bit-exact through
+    ``SafetensorsStreamReader`` (``SafeOpen`` needs the ``safetensors``
+    package, which the card's host may lack).  Beside them, one process's
+    ``compress_file_multihost(engine="native")`` of the same file."""
+    import multiprocessing  # noqa: PLC0415
+    import socket  # noqa: PLC0415
+
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.io.streaming import SafetensorsStreamReader  # noqa: PLC0415
+    from zipnn_tpu_torch.parallel import multihost  # noqa: PLC0415
+
+    d = Path(tempfile.mkdtemp(prefix="znn_ranks_"))
+    try:
+        src, head = d / "model.safetensors", d / "head.bin"
+        src.write_bytes(file)
+        head.write_bytes(file[: 64 << 20])
+        n = len(file)
+        wants = {}
+        for key, kw in (("per_chunk", {}), ("shared", {"huffman_table": "shared"})):
+            wants[key], ms = host_ms(lambda: bytes(ZipNN(bytearray_dtype="bfloat16", **kw)
+                                                   .compress(file)))
+            log(f"[ranks] one process, {key}: ZipNN.compress on the card {ms / 1e3:.4f} s = "
+                f"{n / ms / 1e6:.3f} GB/s ({len(wants[key])} bytes)")
+        _, ms = host_ms(lambda: multihost.compress_file_multihost(
+            str(src), str(d / "native.znn"), engine="native"))
+        check((d / "native.znn").read_bytes() == wants["per_chunk"],
+              "one process's compress_file_multihost(engine='native') != ZipNN's container")
+        t = multihost.last_timings
+        log(f"[ranks] one process, per-chunk, compress_file_multihost(engine='native'): "
+            f"{ms / 1e3:.4f} s = {n / ms / 1e6:.3f} GB/s (read {t['read_s']:.4f}, compress "
+            f"{t['compress_s']:.4f}, write {t['write_s']:.4f} s), == ZipNN's container")
+        wants["stream"] = bytes(ZipNN(is_streaming=True, engine="native")
+                                .compress(file[: 64 << 20]))
+        st1 = d / "one.znn.safetensors"
+        _, st_ms = host_ms(lambda: multihost.compress_safetensors_multihost(str(src), str(st1)))
+        log(f"[ranks] one process, compress_safetensors_multihost on the card: "
+            f"{st_ms / 1e3:.4f} s")
+
+        jobs = [("compress_file_multihost", (str(src), str(d / "pc.znn")), {}),
+                ("decompress_file_multihost", (str(d / "pc.znn"), str(d / "pc.bin")), {}),
+                ("compress_file_multihost", (str(src), str(d / "sh.znn")),
+                 {"huffman_table": "shared"}),
+                ("decompress_file_multihost", (str(d / "sh.znn"), str(d / "sh.bin")), {}),
+                ("compress_file_multihost", (str(head), str(d / "st.znn")),
+                 {"is_streaming": True}),
+                ("decompress_file_multihost", (str(d / "st.znn"), str(d / "st.bin")), {}),
+                ("compress_safetensors_multihost", (str(src), str(d / "two.znn.safetensors")),
+                 {})]
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+        s.close()
+        ctx = multiprocessing.get_context("spawn")  # a forked child cannot use CUDA
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=rank_worker, args=(r, address, jobs, str(d / "times.json")))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs),
+              f"a rank failed: exit codes {[p.exitcode for p in procs]}")
+        times = json.loads((d / "times.json").read_text())
+        for (fn, args, kw), t in zip(jobs, times):
+            what = "".join(f" {k}={v}" for k, v in kw.items())
+            log(f"[ranks] rank 0 of {MESH_RANKS}, {fn}({Path(args[0]).name}{what}): "
+                f"{t['wall_s']:.4f} s (read {t.get('read_s', 0):.4f}, compress "
+                f"{t.get('compress_s', 0):.4f}, decompress {t.get('decompress_s', 0):.4f}, "
+                f"collective {t.get('collective_s', 0):.4f}, write {t.get('write_s', 0):.4f} s)")
+        check((d / "pc.znn").read_bytes() == wants["per_chunk"],
+              "two ranks' per-chunk container != one process's")
+        check((d / "sh.znn").read_bytes() == wants["shared"],
+              "two ranks' shared container != one process's")
+        check((d / "st.znn").read_bytes() == wants["stream"],
+              "two ranks' streaming container != one process's")
+        check((d / "pc.bin").read_bytes() == file and (d / "sh.bin").read_bytes() == file
+              and (d / "st.bin").read_bytes() == file[: 64 << 20],
+              "a two-rank decompress != the input")
+        check((d / "two.znn.safetensors").read_bytes() == st1.read_bytes(),
+              "two ranks' .znn.safetensors != one process's")
+        src_rdr = SafetensorsStreamReader(str(src))
+        rdr = SafetensorsStreamReader(str(d / "two.znn.safetensors"))
+        check(set(rdr.compressed) == set(src_rdr.keys()), "a tensor was not compressed")
+        for name, x in src_rdr.load_shard(device=dev).items():
+            y = rdr.get_tensor(name, device=dev)
+            check(y.dtype == x.dtype and torch.equal(y.view(torch.uint8), x.view(torch.uint8)),
+                  f"{name} of the two-rank .znn.safetensors != the original")
+        log(f"[ranks] {MESH_RANKS} spawned ranks on {torch.cuda.get_device_name(0)}, gloo: "
+            f"{len(jobs)} jobs in {wall:.4f} s (process starts included); every container "
+            f"== one process's, every file decompressed back exactly, the .znn.safetensors "
+            f"({len(rdr.compressed)} tensors) loaded bit-exact; card: {smi}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def entry_phase(dev) -> None:
+    """Phase 14c: ``entry.entry()``'s decode step (K1 then K2) on the card,
+    bit-exact, and ``entry.dryrun_multichip(2)``."""
+    from zipnn_tpu_torch import entry  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
+
+    fn, args = entry.entry(dev)
+    kernels.reset_launches()
+    (out, bits_left), ms = host_ms(lambda: fn(*args))
+    check(kernels.launches["huf_pc_decode"] == 1 and kernels.launches["combine_cells"] == 1,
+          "entry's step did not launch K1 then K2 once each")
+    check(int(bits_left.abs().sum()) == 0 and np.array_equal(
+        out.cpu().numpy(), entry.synth_bf16(entry.N_CHUNKS * entry.CHUNK)),
+        "entry's step is not bit-exact")
+    log(f"[entry] entry(): one K1 + one K2 on {out.device}, {ms:.3f} ms, bit-exact")
+    entry.dryrun_multichip(2)
+
+
+def multi_device(file, x_bf16, x_fp32, goldens: dict, dev, smi) -> dict:
+    """Phase 14: a (the mesh's paths and their kernels at a shard's
+    shapes), b (two processes) and c (the entry module); returns 14a's
+    launches and held kernels for the ``kernels`` line."""
+    t0 = time.perf_counter()
+    launches = mesh_paths(x_bf16, x_fp32, goldens, dev, smi)
+    held = mesh_holds(x_bf16, x_fp32, goldens, dev)
+    t_a = time.perf_counter()
+    two_ranks(file, dev, smi)
+    t_b = time.perf_counter()
+    entry_phase(dev)
+    wall = time.perf_counter() - t0
+    log(f"[phase 14] {wall:.2f} s (a {t_a - t0:.2f}, b {t_b - t_a:.2f}, "
+        f"c {time.perf_counter() - t_b:.2f})")
+    return {"launches": launches, "held": held}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1922,12 +2244,10 @@ def main() -> int:
         check(encode.last_timings["batches"] >= 2, "the 256 MiB batch bound gave one batch")
     finally:
         encode.batch_chunks = batch_chunks
-    del c_shared
     pc = {"bf16": pc_encode_path("bf16 per-chunk encode", x_bf16, c_bf16,
                                  GOLDEN_S.get(("bf16", "per_chunk")), smi)}
     pc["fp32"] = pc_encode_path("fp32 per-chunk encode", x_fp32, c_fp32,
                                 GOLDEN_S.get(("fp32", "per_chunk")), smi)
-    del c_fp32, x_fp32
 
     # ---- 7. the serving load --------------------------------------------
     names, xs, blobs, walls = serving_load(args.seed + 20, dev, smi)
@@ -1957,7 +2277,13 @@ def main() -> int:
     # ---- 13. the CLI and a trace on the card -------------------------------
     cli = cli_and_trace(file, nat, q_base, q_tuned, bytes(c_bf16), x_bf16,
                         {k: r["ms"] for k, r in rows.items()}, dev, smi)
-    del file, nat, q_base, q_tuned, c_bf16
+    del nat, q_base, q_tuned
+    torch.cuda.empty_cache()
+
+    # ---- 14. several shards and several processes --------------------------
+    mesh = multi_device(file, x_bf16, x_fp32,
+                        {"bf16": bytes(c_bf16), "shared": c_shared, "fp32": c_fp32}, dev, smi)
+    del file, c_bf16, c_shared, c_fp32, x_fp32
 
     # ---- summary ---------------------------------------------------------
     # phase 13: each row's launches in the CLI's counted run of its path
@@ -1968,16 +2294,29 @@ def main() -> int:
                "k8": "shared", "k7": "shared", "hist": "compress", "k7pc": "compress",
                "splice_pc": "compress", "splice_shared": "shared"}
 
+    # phase 14a: each row's launches in the 2-shard mesh's counted run of its
+    # path (null where 14a does not run it) and its time at one shard's batch
+    mesh_run = {"k1_bf16": "bf16 per-chunk:decode", "k2_2": "bf16 per-chunk:decode",
+                "k1_fp32": "fp32 per-chunk:decode", "k2_4": "fp32 per-chunk:decode",
+                "k6": "bf16 shared:decode", "k8": "bf16 shared:encode",
+                "k7": "bf16 shared:encode", "splice_shared": "bf16 shared:encode",
+                "hist": "bf16 per-chunk:encode", "k7pc": "bf16 per-chunk:encode",
+                "splice_pc": "bf16 per-chunk:encode"}
+
     def row(key, kname, source, replaces, path, launches):
         run = cli_run.get(key)
         held = cli["held"].get(key)
+        mrun = mesh_run.get(key)
         return {"name": kname, "path": path, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "bound_by": "bytes",
                 "library_ms": None, **rows[key],
                 "cli_launches": cli["launches"][run][kname] if run else None,
                 "cli_ms": held["ms"] if held else None,
                 "cli_bound_ms": held["bound_ms"] if held else None,
-                "profiler_ms": cli["profiler_ms"].get(key)}
+                "profiler_ms": cli["profiler_ms"].get(key),
+                "mesh_launches": mesh["launches"][mrun][kname] if mrun else None,
+                "mesh_ms": mesh["held"][key]["ms"] if mrun else None,
+                "mesh_bound_ms": mesh["held"][key]["bound_ms"] if mrun else None}
 
     k1 = "zipnn_tpu/ops/pallas_huf_pc.py:425 (K1); zipnn_tpu/ops/pallas_gather.py:84 (K3)"
     k2 = "zipnn_tpu/ops/pallas_combine.py:249 (K2)"

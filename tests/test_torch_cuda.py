@@ -1193,3 +1193,82 @@ def test_sub_word_planes_coded_on_card(card, dtype, chunk, profile):
     back = codec.decompress_payload(bytes(got), nb, 1, br, chunk, raw.size, engine="cuda",
                                     device=card)
     assert np.array_equal(back.cpu().numpy(), raw)
+
+
+MESH_CASES = [(torch.bfloat16, "per_chunk"), (torch.bfloat16, "shared"),
+              (torch.float32, "per_chunk"), (torch.float32, "shared")]
+
+
+@pytest.mark.parametrize("dtype,profile", MESH_CASES)
+def test_two_shard_mesh_on_one_card_equals_no_mesh(card, dtype, profile):
+    """A mesh of two entries on one card: each encode kernel (K8 + K7, or
+    H + E, and ``splice_cells``) and each decode kernel (K1 or K6, and K2)
+    launches once a shard of each batch, and the container and the decode
+    onto the card equal those of no mesh."""
+    from zipnn_tpu_torch import parallel
+
+    raw = _raw(dtype, (64 << 20) + 1002, 81)
+    x = torch.from_numpy(raw).view(dtype).to(card)
+    runs = []
+    for mesh in (None, parallel.make_mesh([card, card])):
+        with parallel.use_mesh(mesh):
+            kernels.reset_launches()
+            comp = bytes(ZipNN(input_format="torch", huffman_table=profile).compress(x))
+            enc = dict(kernels.launches)
+            kernels.reset_launches()
+            y = ZipNN(input_format="torch").decompress(comp)
+            dec = dict(kernels.launches)
+        assert y.is_cuda and torch.equal(y.view(torch.uint8), x.view(torch.uint8))
+        runs.append((comp, enc, dec))
+    (c0, e0, d0), (c2, e2, d2) = runs
+    assert c2 == c0
+    enc_names = (("const_scan_rows", "huf_shared_encode") if profile == "shared"
+                 else ("hist_cells", "huf_pc_encode")) + ("splice_cells",)
+    for k in enc_names:
+        assert e0[k] > 0 and e2[k] == 2 * e0[k], (k, e0[k], e2[k])
+    dec_name = "huf_shared_decode" if profile == "shared" else "huf_pc_decode"
+    assert d0[dec_name] == 1 and d2[dec_name] == 2  # one batch of 256 chunks and a tail
+    assert d0["combine_cells"] == 1 and d2["combine_cells"] == 2
+
+
+WORKER_CUDA = r"""
+import sys
+from zipnn_tpu_torch.parallel import multihost
+
+port, rank, src, out, back = sys.argv[1], int(sys.argv[2]), *sys.argv[3:6]
+multihost.initialize(f"127.0.0.1:{port}", 2, rank)
+for profile in ("per_chunk", "shared"):
+    multihost.compress_file_multihost(src, out + profile, huffman_table=profile)
+    multihost.decompress_file_multihost(out + profile, back + profile)
+"""
+
+
+def test_two_ranks_on_the_card(card, tmp_path):
+    """Two processes on the one card (engine cuda, gloo): each file equals
+    one process's ``ZipNN`` container on the card, and decompresses back
+    on the card exactly."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    data = _raw(torch.bfloat16, (24 << 20) + 777, 82).tobytes()
+    src = tmp_path / "w.bin"
+    src.write_bytes(data)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent.parent))
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER_CUDA, str(port), str(rank), str(src),
+                               str(tmp_path / "o."), str(tmp_path / "b.")], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for rank in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err.decode()[-3000:]
+    for profile in ("per_chunk", "shared"):
+        want = bytes(ZipNN(huffman_table=profile).compress(data))
+        assert (tmp_path / f"o.{profile}").read_bytes() == want
+        assert (tmp_path / f"b.{profile}").read_bytes() == data

@@ -124,6 +124,33 @@ def num_chunks_for(length: int, chunk_size: int) -> int:
 # compress
 # ---------------------------------------------------------------------------
 
+def sampled_plane_counts(
+    data: np.ndarray,
+    num_buf: int,
+    bit_reorder: int,
+    byte_reorder: int,
+    chunk_size: int,
+    global_chunk0: int = 0,
+    stride: int = 1,
+) -> np.ndarray:
+    """Per-plane byte histograms (int64 [num_buf, 256]) of the sampled
+    chunks of ``data``, whose chunks have the global indices
+    ``global_chunk0, global_chunk0 + 1, ...``: a chunk is sampled when its
+    global index is 0 mod ``stride`` (the shared profile's policy).  Summed
+    over the processes of a multi-process compress, these are the counts
+    of a one-process compress of the whole file (``native.sampled_counts``
+    gives the same integers)."""
+    data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    n = data.size
+    counts = np.zeros((num_buf, 256), dtype=np.int64)
+    for c in range((-global_chunk0) % stride, num_chunks_for(n, chunk_size), stride):
+        chunk = data[c * chunk_size : min((c + 1) * chunk_size, n)]
+        for b, plane in enumerate(byte_group.split(chunk, num_buf, byte_reorder, bit_reorder)):
+            if plane.size:
+                counts[b] += np.bincount(plane, minlength=256)
+    return counts
+
+
 def compress_payload_numpy(
     data: np.ndarray,
     num_buf: int,
@@ -134,6 +161,7 @@ def compress_payload_numpy(
     check_th_after_percent: int = 0,
     shared_tables: bool = False,
     preset_shared=None,
+    raw_planes=None,
 ) -> bytes:
     """Compress a flat uint8 buffer into the table+planes payload (no
     header).
@@ -143,7 +171,11 @@ def compress_payload_numpy(
     shared-table profile: one <=8-bit table per byte plane, built from the
     plane's (sampled) histogram, its weight header repeated in every
     Huffman cell; ``preset_shared`` passes the (tables, live) pair in
-    instead.  The shared profile ignores ``check_th_after_percent``.
+    instead (:func:`shared_tables_from_counts`).  The shared profile
+    ignores ``check_th_after_percent``.  ``raw_planes`` ([num_buf] bools,
+    per-chunk profile only) stores the listed planes raw from chunk 0, the
+    tail too: the bounded threshold check's decision, made by a
+    multi-process compress over the global prefix.
     """
     data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
     n = data.size
@@ -159,6 +191,8 @@ def compress_payload_numpy(
     plane_sizes: List[List[int]] = [[] for _ in range(num_buf)]
 
     abandoned = np.zeros(num_buf, dtype=bool)
+    if raw_planes is not None and not shared_tables:
+        abandoned = np.asarray(raw_planes, dtype=bool).copy()
     check_idx = None if shared_tables else check_abandon_index(
         n_chunks, check_th_after_percent)
     for c in range(n_chunks):
@@ -202,17 +236,9 @@ def shared_plane_tables(
     hopeless plane is not live.  Returns ([table or None] * num_buf,
     [bool] * num_buf), a table being ``huf.build_shared_table``'s tuple.
     """
-    n = data.size
-    n_chunks = num_chunks_for(n, chunk_size)
-    stride = shared_sample_stride(n_chunks)
-    counts = np.zeros((num_buf, 256), dtype=np.int64)
-    for c in range(0, n_chunks, stride):
-        chunk = data[c * chunk_size : min((c + 1) * chunk_size, n)]
-        for b, plane in enumerate(
-            byte_group.split(chunk, num_buf, byte_reorder, bit_reorder)
-        ):
-            if plane.size:
-                counts[b] += np.bincount(plane, minlength=256)
+    stride = shared_sample_stride(num_chunks_for(data.size, chunk_size))
+    counts = sampled_plane_counts(data, num_buf, bit_reorder, byte_reorder, chunk_size,
+                                  stride=stride)
     return shared_tables_from_counts(counts, threshold, stride)
 
 
@@ -307,13 +333,17 @@ def start_payload(
     device="cuda",
     prefix_len: int = 0,
     between=None,
+    raw_planes=None,
+    preset_shared=None,
 ):
     """The first half of :func:`compress_payload`, for a writer that
     overlaps containers: on ``cuda``, ``ops.encode.start`` (kernels queued,
     every cell decided and written on the card; ``between`` called once,
     after the first launch and before the first host sync); the other
     engines compute the whole payload here (``between`` called first).
-    :func:`finish_payload` gives the result."""
+    :func:`finish_payload` gives the result.  ``raw_planes`` and
+    ``preset_shared`` as in :func:`compress_payload_numpy`, on every
+    engine."""
     engine = resolve_engine(engine)
     if engine == "cuda":
         from .ops import encode  # noqa: PLC0415
@@ -321,7 +351,8 @@ def start_payload(
         return encode.start(
             data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
             check_th_after_percent=check_th_after_percent, shared_tables=shared_tables,
-            device=device, prefix_len=prefix_len, between=between,
+            device=device, prefix_len=prefix_len, between=between, raw_planes=raw_planes,
+            preset_shared=preset_shared,
         )
     if between is not None:
         between()
@@ -330,16 +361,17 @@ def start_payload(
 
         if shared_tables:
             payload = native.compress_payload_shared(
-                data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold)
+                data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
+                preset=preset_shared)
         else:
             payload = native.compress_payload(
                 data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
-                check_th_after_percent=check_th_after_percent)
+                check_th_after_percent=check_th_after_percent, raw_planes=raw_planes)
     else:
         payload = compress_payload_numpy(
             np.asarray(data), num_buf, bit_reorder, byte_reorder, chunk_size, threshold,
             check_th_after_percent=check_th_after_percent,
-            shared_tables=shared_tables,
+            shared_tables=shared_tables, preset_shared=preset_shared, raw_planes=raw_planes,
         )
         if not prefix_len:
             return _Payload(payload)
@@ -372,6 +404,8 @@ def compress_payload(
     shared_tables: bool = False,
     device="cuda",
     prefix_len: int = 0,
+    raw_planes=None,
+    preset_shared=None,
 ):
     """Engine-dispatched payload compress: ``finish_payload(start_payload(
     ...))``.
@@ -389,7 +423,8 @@ def compress_payload(
     """
     out = finish_payload(start_payload(
         data, num_buf, bit_reorder, byte_reorder, chunk_size, threshold, engine,
-        check_th_after_percent, shared_tables, device, prefix_len))
+        check_th_after_percent, shared_tables, device, prefix_len, raw_planes=raw_planes,
+        preset_shared=preset_shared))
     if resolve_engine(engine) == "cuda" and not prefix_len:
         return frame_bytes(out)
     return out

@@ -69,6 +69,8 @@ _SIGNATURES = {
     # hlens, n_headers, jumps, boffs, blob, blob_len, threads
     "ztpu_splice_cells": [_P, _L, _P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P, _P, _L, _I],
     "ztpu_sample_policy": [_P, _P],
+    # data, n, num_buf, bit_reorder, byte_reorder, chunk, global_chunk0, stride, out
+    "ztpu_sampled_counts": [_P, _S, _U, _I, _I, _S, _S, _S, _P],
 }
 
 
@@ -175,15 +177,17 @@ def _out_buffer(n: int, n_chunks: int, num_buf: int):
 
 def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
                      chunk_size: int, threshold: float,
-                     check_th_after_percent: int = 0) -> np.ndarray:
-    """The per-chunk profile's payload, byte-equal to the golden encoder's:
-    a uint8 view of the core's worst-case output buffer (about the input's
-    size)."""
+                     check_th_after_percent: int = 0, raw_planes=None) -> np.ndarray:
+    """The per-chunk profile's payload, byte-equal to the golden encoder's
+    (``raw_planes`` too): a uint8 view of the core's worst-case output
+    buffer (about the input's size)."""
     data = _c(data, np.uint8).reshape(-1)
     out = _out_buffer(data.size, -(-data.size // chunk_size), num_buf)
+    mask = sum(1 << b for b, flag in enumerate(raw_planes if raw_planes is not None else ())
+               if flag)
     r = lib().ztpu_compress(data.ctypes.data, data.size, num_buf, bit_reorder, byte_reorder,
                             chunk_size, threshold, _threads(),
-                            int(check_th_after_percent or 0), 0,
+                            int(check_th_after_percent or 0), mask,
                             out.ctypes.data, out.size)
     if r < 0:
         raise RuntimeError(f"native compress failed: {r}")
@@ -191,15 +195,28 @@ def compress_payload(data, num_buf: int, bit_reorder: int, byte_reorder: int,
 
 
 def compress_payload_shared(data, num_buf: int, bit_reorder: int, byte_reorder: int,
-                            chunk_size: int, threshold: float) -> np.ndarray:
+                            chunk_size: int, threshold: float, preset=None) -> np.ndarray:
     """The shared-table profile's payload, as :func:`compress_payload`
-    gives the per-chunk one.  Raises :class:`SharedOverflow` past the
-    core's uint32 histograms."""
+    gives the per-chunk one.  ``preset`` is a (tables, live) pair of
+    ``codec.shared_tables_from_counts`` used in place of the core's own
+    sampled tables: only the code lengths cross (the core rebuilds each
+    table's values and header, as the golden encoder does).  Raises
+    :class:`SharedOverflow` past the core's uint32 histograms."""
     data = _c(data, np.uint8).reshape(-1)
     out = _out_buffer(data.size, -(-data.size // chunk_size), num_buf)
+    lengths = live = None
+    if preset is not None:
+        tables, alive = preset
+        lengths = np.zeros((num_buf, 256), dtype=np.uint8)
+        for b, t in enumerate(tables):
+            if t is not None:
+                lengths[b] = np.asarray(t[0], dtype=np.uint8)[:256]
+        live = np.asarray([bool(a) for a in alive], dtype=np.uint8)
     r = lib().ztpu_compress_shared(data.ctypes.data, data.size, num_buf, bit_reorder,
                                    byte_reorder, chunk_size, threshold, _threads(),
-                                   None, None, out.ctypes.data, out.size)
+                                   None if lengths is None else lengths.ctypes.data,
+                                   None if live is None else live.ctypes.data,
+                                   out.ctypes.data, out.size)
     if r == -2:
         raise SharedOverflow("a shared-profile plane histogram exceeds uint32")
     if r < 0:
@@ -217,6 +234,20 @@ def decompress_payload(payload, num_buf: int, bit_reorder: int, byte_reorder: in
                               chunk_size, orig_size, _threads(), out.ctypes.data)
     if r != 0:
         raise RuntimeError(f"native decompress failed: {r}")
+    return out
+
+
+def sampled_counts(data, num_buf: int, bit_reorder: int, byte_reorder: int,
+                   chunk_size: int, global_chunk0: int = 0, stride: int = 1) -> np.ndarray:
+    """``codec.sampled_plane_counts`` in the core: the same int64 [num_buf,
+    256] counts."""
+    data = _c(data, np.uint8).reshape(-1)
+    out = np.zeros((num_buf, 256), dtype=np.int64)
+    r = lib().ztpu_sampled_counts(data.ctypes.data, data.size, num_buf, bit_reorder,
+                                  byte_reorder, chunk_size, global_chunk0, stride,
+                                  out.ctypes.data)
+    if r < 0:
+        raise RuntimeError(f"native sampled_counts failed: {r}")
     return out
 
 

@@ -41,8 +41,15 @@ cells side by side in chunk order, so one host plan and one K1/K6 + K2
 launch set per batch of chunks cover many frames (:func:`decompress_run`),
 and ``CorruptChunkError`` counts chunks across the run.
 
+Under an ambient mesh (``parallel.use_mesh``) steps 2 and 3 run a shard
+at a time: each batch's chunks are split over the mesh's entries
+(``parallel.sharded.shards``, each shard on a word boundary of the
+output), each device gets the plan's arrays and its shards' payload
+ranges, and each shard's K1/K6 and K2 launch on its device, writing into
+the output (or, from another device, through a copy).
+
 :func:`stage` runs steps 1 and 2 only, for a later :func:`start_staged`
-that copies nothing to the card.  On CPU tensors there is no staging (the
+that copies nothing to the card; neither runs under a mesh.  On CPU tensors there is no staging (the
 plan's arrays are the kernels' inputs) and the kernels' plain versions
 run, so the same pipeline decodes on the host for the tests.
 """
@@ -58,6 +65,7 @@ from .. import codec, stats
 from ..core import dtypes
 from ..core.header import Header, walk_frames
 from ..errors import CorruptChunkError
+from ..parallel import sharded
 from . import combine, huf_pc, huf_shared, kernels, staging
 
 KIND_STORED, KIND_RLE, KIND_HUF = 0, 1, 2
@@ -67,7 +75,8 @@ BATCH_BYTES = 512 << 20  # output bytes per device batch
 # plan_s (host; of it geometry_s, the chunk tables' parse and checks, and
 # plan_cpu_s, the planning thread's CPU seconds), stage_s (host copies
 # into pinned memory), upload_s (the copy stream, from the end of the plan
-# to the last batch's copy event), the decode kernel's name, and on CUDA
+# to the last batch's copy event), the decode kernel's name, the count of
+# (batch, shard) ranges (``shards``: the batches with no mesh), and on CUDA
 # the events recorded around each kernel launch
 last_timings: Dict = {}
 
@@ -403,10 +412,11 @@ class DeviceInputs:
     copied.
     """
 
-    def __init__(self, plan: Plan, device):
+    def __init__(self, plan: Plan, device, batches=None):
         device = torch.device(device)
-        self.plan = plan
-        self.batches = plan_batches(plan.g.n_chunks, plan.g.chunk_size)
+        self.plan, self.device = plan, device
+        self.batches = (plan_batches(plan.g.n_chunks, plan.g.chunk_size) if batches is None
+                        else batches)
         self.events: List = []
         self.timings: Dict = {"stage_s": 0.0}
         arrays = [plan.starts, plan.lens, plan.bits0, plan.out_offs, plan.out_lens,
@@ -519,19 +529,29 @@ class Started:
         self.plan, self.orig_size, self.timings, self.defer = plan, orig_size, timings, defer
         self.out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
         self.bits: List[torch.Tensor] = []
-        self.upload = None  # (first, last) copy-stream event of this call's uploads
+        self.upload: List = []  # (first, last) copy-stream events of the uploads, per device
 
     def launch(self, dv: DeviceInputs, i: int) -> None:
-        """Batch ``i``: wait for its bytes, decode its Huffman streams,
-        assemble its chunks."""
+        """Batch ``i`` of ``dv``, on its device: wait for its bytes, decode
+        its Huffman streams, assemble its chunks into the output (through a
+        buffer on that device and a copy, when the output lies on
+        another)."""
         lo, hi = dv.batches[i]
         if dv.events:
-            torch.cuda.current_stream(self.out.device).wait_event(dv.events[i])
+            torch.cuda.current_stream(dv.device).wait_event(dv.events[i])
         name, decode_fn, args_of = dv.decoder()
         self.timings["decoder"] = name
         hsym, bl = decode_fn(*args_of(lo, hi))
         cs = self.plan.g.chunk_size
-        combine.combine_cells(*dv.k2_args(lo, hi, hsym), self.out[lo * cs :])
+        k2 = dv.k2_args(lo, hi, hsym)
+        if dv.device == self.out.device:
+            combine.combine_cells(*k2, self.out[lo * cs :])
+        else:
+            total = k2[6]
+            part = combine.combine_cells(*k2, torch.empty(-(-total // 4) * 4, dtype=torch.uint8,
+                                                          device=dv.device))
+            self.out[lo * cs : lo * cs + total].copy_(part[:total])
+            bl = bl.to(self.out.device)
         self.bits.append(bl)
 
 
@@ -539,7 +559,15 @@ def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is available")
-    return device
+    return sharded.canonical(device)
+
+
+def _no_mesh(what: str) -> None:
+    mesh = sharded.get_default_mesh()
+    if mesh is not None:
+        raise ValueError(f"decode.{what}: the staged replay does not shard; it refuses the "
+                         f"ambient mesh {mesh!r} (decode with decode.start, or leave "
+                         "parallel.use_mesh)")
 
 
 def _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size, frames):
@@ -565,21 +593,32 @@ def start(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
                           orig_size, frames)
     run = Started(plan, orig_size, device, timings, defer)
     if plan is not None:
-        dv = DeviceInputs(plan, device)
+        # each batch's shards (one, with no mesh), each shard's inputs on
+        # its device; a shard's output starts on a word boundary
+        align = 4 // np.gcd(plan.g.chunk_size, 4)
+        order, per_dev = [], {}
+        for lo, hi in plan_batches(plan.g.n_chunks, plan.g.chunk_size):
+            for dev, slo, shi in sharded.shards(lo, hi, device, align):
+                order.append((dev, len(per_dev.setdefault(dev, []))))
+                per_dev[dev].append((slo, shi))
+        dvs = {dev: DeviceInputs(plan, dev, b) for dev, b in per_dev.items()}
         with kernels.recording() as events:
-            for i in range(len(dv.batches)):
-                dv.upload(i)
-                run.launch(dv, i)
+            for dev, i in order:
+                dvs[dev].upload(i)
+                run.launch(dvs[dev], i)
         timings["events"] = events
-        timings["stage_s"] = dv.timings["stage_s"]
-        run.upload = (dv.start_event, dv.events[-1]) if dv.events else None
+        timings["shards"] = len(order)
+        timings["stage_s"] = sum(dv.timings["stage_s"] for dv in dvs.values())
+        run.upload = [(dv.start_event, dv.events[-1]) for dv in dvs.values() if dv.events]
     return run
 
 
 def stage(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
           device="cuda", frames=None) -> Staged:
     """The plan and every upload of a container (the counterpart of the
-    JAX package's ``stage_dev_batches``), for :func:`start_staged`."""
+    JAX package's ``stage_dev_batches``), for :func:`start_staged`.  Not
+    under a mesh: raises ``ValueError``."""
+    _no_mesh("stage")
     device = _device(device)
     plan, timings = _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
                           orig_size, frames)
@@ -596,7 +635,9 @@ def start_staged(st: Staged, defer: Optional[list] = None) -> Started:
     """Queue the kernels of a :func:`stage`\\ d container; copies nothing
     to the card, so its plan, stage and upload seconds are 0 (the staged
     container's ``timings`` hold those of :func:`stage`).  A staged
-    container starts any number of times."""
+    container starts any number of times.  Not under a mesh: raises
+    ``ValueError``."""
+    _no_mesh("start_staged")
     run = Started(st.plan, st.orig_size, st.device, {"plan_s": 0.0, "stage_s": 0.0}, defer)
     if st.plan is not None:
         with kernels.recording() as events:
@@ -617,11 +658,13 @@ class Deferred:
 
     def upload_s(self) -> float:
         """Seconds on the copy stream from the end of the plan to the last
-        batch's copy event (0 on the CPU); synchronises on it."""
-        if self.upload is None:
+        batch's copy event (0 on the CPU; under a mesh, the longest of the
+        devices'); synchronises on it."""
+        if not self.upload:
             return 0.0
-        self.upload[1].synchronize()
-        return self.upload[0].elapsed_time(self.upload[1]) / 1e3
+        for _, last in self.upload:
+            last.synchronize()
+        return max(first.elapsed_time(last) for first, last in self.upload) / 1e3
 
 
 def finish(run: Started) -> torch.Tensor:

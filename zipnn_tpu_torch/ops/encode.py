@@ -61,6 +61,14 @@ encoder's (``codec.compress_payload_numpy``) byte for byte:
    through pinned pieces (``staging.download``), the copy stream waiting
    on an event behind the last assembly.
 
+Under an ambient mesh (``parallel.use_mesh``) each batch of the word
+route is split over the mesh's entries (``parallel.sharded.shards``):
+each shard's chunks go to its device, where its split, histograms or K8,
+encode kernel and ``splice_cells`` run; the plan, the decisions and the
+threshold check take the whole batch on the host in chunk order, so the
+container is the one of no mesh.  The sub-word route launches no kernel
+and is not split.
+
 :func:`start` calls its ``between`` hook once, after the first kernels are
 queued and before the first host sync (at once when nothing is launched):
 a pipelined writer (``io.serving.ShardEncoder``) finishes the previous
@@ -72,12 +80,13 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from .. import codec, native, stats
+from ..parallel import sharded
 from . import byte_group, const_scan, hist, huf_enc, kernels, staging, transforms
 from . import splice as dsplice
 from .entropy import fse, huf
@@ -97,8 +106,9 @@ BATCH_BYTES = 512 << 20  # input bytes per device batch
 # payload's fetch (download_s) and the host copies out of pinned memory
 # (unstage_s), the input bytes uploaded (upload_bytes), every byte moved
 # each way (h2d_bytes: the input's uploads, the tables, stream offsets and
-# cell descriptors; d2h_bytes), the batch count and, on CUDA, the events
-# recorded around each kernel launch
+# cell descriptors; d2h_bytes), the batch count, the count of (batch, shard)
+# ranges (``shards``: the batches again with no mesh) and, on CUDA, the
+# events recorded around each kernel launch
 last_timings: Dict = {}
 
 SHARED_KERNELS = ("const_scan_rows", "huf_shared_encode", "splice_cells")
@@ -150,7 +160,7 @@ class Source:
     stream), and counts the bytes it and the encoder move each way and the
     host seconds of the input's uploads."""
 
-    def __init__(self, data, g: Geometry, device: torch.device):
+    def __init__(self, data, g: Geometry, device: torch.device, upfront: bool = True):
         self.device = device
         self.cuda = device.type == "cuda"
         self.sub_word = g.sub_word
@@ -171,8 +181,8 @@ class Source:
         flat = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
         self.host = flat[:nfull].reshape(g.full, g.chunk_size)
         self._tail = (flat[nfull:], None)
-        if len(g.batches) == 1:
-            self.rows = self._up(self.host)
+        if len(g.batches) == 1 and upfront:
+            self.rows = self._up(self.host, device)
 
     @property
     def tail(self) -> np.ndarray:
@@ -182,42 +192,44 @@ class Source:
             done.synchronize()
         return arr
 
-    def _up(self, rows: np.ndarray) -> torch.Tensor:
+    def _up(self, rows: np.ndarray, device: torch.device) -> torch.Tensor:
         src = staging.as_tensor(rows)
-        if not self.cuda:
+        if device.type != "cuda":
             return src.view(rows.shape)
         with stats.phase("encode:upload"):
             t0 = time.perf_counter()
-            p = staging.pool(self.device)
+            p = staging.pool(device)
             with torch.cuda.stream(p.stream):
-                t = torch.empty(rows.shape, dtype=torch.uint8, device=self.device)
-            t.record_stream(torch.cuda.current_stream(self.device))
+                t = torch.empty(rows.shape, dtype=torch.uint8, device=device)
+            t.record_stream(torch.cuda.current_stream(device))
             done = staging.upload(p, src, t.view(-1), [(0, rows.size)], {}, label="encode")
-            torch.cuda.current_stream(self.device).wait_event(done)
+            torch.cuda.current_stream(device).wait_event(done)
             self.uploaded += rows.nbytes
             self.h2d += rows.nbytes
             self.upload_s += time.perf_counter() - t0
         return t
 
-    def put(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the device (a pinned copy sent without waiting;
-        on the CPU the array itself), its bytes counted."""
+    def put(self, arr: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+        """A host array on ``device`` (default the encode's; a pinned copy
+        sent without waiting; on the CPU the array itself), its bytes
+        counted."""
+        device = device or self.device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if not self.cuda:
+        if device.type != "cuda":
             return t
         self.h2d += t.nbytes
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def get_later(self, t: torch.Tensor):
         """(host array, event): ``t``'s copy into pinned memory, queued on
-        the current stream; the array holds it once the event has
+        its device's current stream; the array holds it once the event has
         completed (None on the CPU, where the array is ``t``'s)."""
-        if not self.cuda:
+        if not t.is_cuda:
             return t.numpy(), None
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        done.record(torch.cuda.current_stream(t.device))
         self.d2h += host.nbytes
         return host.numpy(), done
 
@@ -232,16 +244,23 @@ class Source:
     def _route(self, rows: torch.Tensor) -> torch.Tensor:
         return rows if self.sub_word else rows.view(torch.int32)
 
-    def batch(self, lo: int, hi: int) -> torch.Tensor:
-        if self.rows is not None:
-            return self._route(self.rows[lo:hi])
-        return self._route(self._up(self.host[lo:hi]))
+    @staticmethod
+    def _on(rows: torch.Tensor, device: torch.device) -> torch.Tensor:
+        return rows if rows.device == device else rows.to(device)
 
-    def sample(self, lo: int, hi: int, stride: int) -> torch.Tensor:
-        """Chunks lo, lo + stride, ... below hi."""
+    def batch(self, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+        """Chunks [lo, hi) on ``device``."""
         if self.rows is not None:
-            return self._route(self.rows[lo:hi:stride])
-        return self._route(self._up(np.ascontiguousarray(self.host[lo:hi:stride])))
+            return self._route(self._on(self.rows[lo:hi], device))
+        return self._route(self._up(self.host[lo:hi], device))
+
+    def sample(self, lo: int, hi: int, stride: int, device: torch.device) -> torch.Tensor:
+        """The chunks in [lo, hi) whose index is 0 mod ``stride``, on
+        ``device``."""
+        lo += (-lo) % stride
+        if self.rows is not None:
+            return self._route(self._on(self.rows[lo:hi:stride], device))
+        return self._route(self._up(np.ascontiguousarray(self.host[lo:hi:stride]), device))
 
 
 def _sync(device: torch.device) -> None:
@@ -276,22 +295,30 @@ def _tick(clock: Dict, key: str, t0: float, device: torch.device,
 
 
 def sampled_counts(src: Source, g: Geometry, byte_reorder: int,
-                   bit_reorder: int) -> torch.Tensor:
+                   bit_reorder: int) -> List[torch.Tensor]:
     """Shared profile, pass 1 on the device: [num_buf, 256] int64 byte
-    counts of the sampled full chunks (the tail cell is the caller's)."""
+    counts of the sampled full chunks (the tail cell is the caller's), a
+    tensor per device (each batch's shards on theirs, under a mesh; the
+    sample is taken by global chunk index, so it does not move with the
+    shards)."""
     nb = g.num_buf
-    counts = torch.zeros((nb, 256), dtype=torch.int64, device=src.device)
+    counts: Dict[torch.device, torch.Tensor] = {}
     for lo, hi in g.batches:
-        rows = src.sample(lo, hi, g.stride)
-        if g.sub_word:
-            planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder, g.lens.tolist())
-            cells = [planes[:, b, : int(g.lens[b])] for b in range(nb)]
-        else:
-            planes = transforms.split_device(rows, nb, byte_reorder, bit_reorder)
-            cells = [planes[:, b].contiguous().view(torch.uint8) for b in range(nb)]
-        for b, cell in enumerate(cells):
-            counts[b] += torch.bincount(cell.reshape(-1), minlength=256)
-    return counts
+        for dev, slo, shi in _shards(src, g, lo, hi):
+            if not range(slo + (-slo) % g.stride, shi, g.stride):
+                continue
+            rows = src.sample(slo, shi, g.stride, dev)
+            if g.sub_word:
+                planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder,
+                                                g.lens.tolist())
+                cells = [planes[:, b, : int(g.lens[b])] for b in range(nb)]
+            else:
+                planes = transforms.split_device(rows, nb, byte_reorder, bit_reorder)
+                cells = [planes[:, b].contiguous().view(torch.uint8) for b in range(nb)]
+            c = counts.setdefault(dev, torch.zeros((nb, 256), dtype=torch.int64, device=dev))
+            for b, cell in enumerate(cells):
+                c[b] += torch.bincount(cell.reshape(-1), minlength=256)
+    return list(counts.values())
 
 
 def cell_table(count: np.ndarray, n: int):
@@ -460,12 +487,23 @@ class Assembled:
     plane_bytes: np.ndarray
 
 
-def _hpool(src: Source, headers: np.ndarray) -> torch.Tensor:
-    """Weight headers on the device, padded to whole 16 bytes (never
-    empty)."""
+def _hpool(src: Source, headers: np.ndarray, device: Optional[torch.device] = None
+           ) -> torch.Tensor:
+    """Weight headers on ``device`` (default the encode's), padded to whole
+    16 bytes (never empty)."""
     pad = np.zeros(-(-max(headers.size, 1) // 16) * 16, np.uint8)
     pad[: headers.size] = headers
-    return src.put(pad)
+    return src.put(pad, device)
+
+
+def _shards(src: Source, g: Geometry, lo: int, hi: int):
+    """``(device, lo, hi)`` of each shard of chunks [lo, hi): their split
+    over the ambient mesh (``parallel.sharded.shards``), or the whole range
+    on the encode's device.  The sub-word route launches no kernel and
+    stays on the encode's device."""
+    if g.sub_word:
+        return [(src.device, lo, hi)]
+    return sharded.shards(lo, hi, src.device)
 
 
 def assemble(src: Source, lo: int, kind: np.ndarray, size: np.ndarray, planes: torch.Tensor,
@@ -496,18 +534,18 @@ def assemble(src: Source, lo: int, kind: np.ndarray, size: np.ndarray, planes: t
         cells[c, dsplice.INFO] = dsplice.info(size.reshape(-1)[c], HUF, 1 + grp[h], hlen[h])
         cells[c, dsplice.SRC] = dsplice.src(first[h], hoff[h])
         cells[c, dsplice.SB] = dsplice.pack_sb(sb[h])
-        buf = torch.empty(int(plane_bytes.sum()), dtype=torch.uint8, device=src.device)
+        buf = torch.empty(int(plane_bytes.sum()), dtype=torch.uint8, device=planes.device)
         groups = [planes.view(n, -1), *rows]
         dsplice.splice_cells(buf, cells, groups, hpool)
-        if src.cuda:
+        if buf.is_cuda:
             src.h2d += cells.nbytes + 16 * len(groups)
         _tick(clock, "assemble_s", t, src.device, between)
     return Assembled(lo, kind, size, buf, plane_off, plane_bytes)
 
 
-def _split(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
+def _split(src: Source, g: Geometry, dev: torch.device, lo: int, hi: int, byte_reorder: int,
            bit_reorder: int, clock: Dict, between: Between):
-    words = src.batch(lo, hi)
+    words = src.batch(lo, hi, dev)
     with stats.phase("encode:split"):
         t = time.perf_counter()
         planes = transforms.split_device(words, g.num_buf, byte_reorder, bit_reorder)
@@ -521,75 +559,125 @@ def _streams(cells: torch.Tensor, pw: int) -> torch.Tensor:
     return (cells[:, None] * pw + quarter).reshape(-1)
 
 
+class _Shard(NamedTuple):
+    """One shard of a batch (:func:`_shards`): its device, first chunk,
+    chunk count, and its chunks' split planes on that device."""
+
+    dev: torch.device
+    lo: int
+    k: int
+    planes: torch.Tensor
+
+
+def _split_shards(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
+                  bit_reorder: int, clock: Dict, between: Between):
+    """Each shard of chunks [lo, hi) split on its device, and the clock
+    after the last split."""
+    shards, t = [], time.perf_counter()
+    for dev, slo, shi in _shards(src, g, lo, hi):
+        planes, t = _split(src, g, dev, slo, shi, byte_reorder, bit_reorder, clock, between)
+        shards.append(_Shard(dev, slo, shi - slo, planes))
+    return shards, t
+
+
 def encode_shared_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
-                        bit_reorder: int, tables: Dict[int, torch.Tensor], hpool: torch.Tensor,
-                        hoff: np.ndarray, hlen: np.ndarray, threshold, clock: Dict,
-                        between: Between) -> Assembled:
-    """Shared profile, pass 2 on chunks [lo, hi): split, K8, K7, the
-    decisions and the cells on the device.  Plane ``b``'s header is ``b``
-    of the pool (``hpool``, ``hoff``, ``hlen``)."""
+                        bit_reorder: int, tables: Dict, hpool: Dict, hoff: np.ndarray,
+                        hlen: np.ndarray, threshold, clock: Dict,
+                        between: Between) -> List[Assembled]:
+    """Shared profile, pass 2 on chunks [lo, hi): on each shard's device
+    (:func:`_shards`) the split, K8 and K7; the decisions over the whole
+    range on the host, in chunk order; then each shard's cells on its
+    device.  ``tables`` holds each live plane's table and ``hpool`` the
+    header pool, per device; plane ``b``'s header is ``b`` of the pool
+    (``hoff``, ``hlen``)."""
     nb, pw = g.num_buf, g.plane_bytes // 4
-    k = hi - lo
-    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
+    live = np.asarray(list(tables[src.device]), dtype=np.int64)
+    shards, t = _split_shards(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
+    rows, cands, fetch = [], [], []
     with stats.phase("encode:kernel"):
-        flags = const_scan.const_scan_rows(planes.view(k * nb, pw))
-        chunks = np.arange(k, dtype=np.int64) * nb
-        cand = np.concatenate([chunks + b for b in tables] or [np.zeros(0, np.int64)])
-        rows, bits = [], []
-        for b, table in tables.items():
-            r, tb = huf_enc.huf_shared_encode(planes, table, g.seg,
-                                              _streams(src.put(chunks + b), pw))
-            rows.append(r)
-            bits.append(tb)
+        for sh in shards:
+            flags = const_scan.const_scan_rows(sh.planes.view(sh.k * nb, pw))
+            chunks = np.arange(sh.k, dtype=np.int64) * nb
+            rows.append([])
+            bits = []
+            for b, table in tables[sh.dev].items():
+                r, tb = huf_enc.huf_shared_encode(sh.planes, table, g.seg,
+                                                  _streams(src.put(chunks + b, sh.dev), pw))
+                rows[-1].append(r)
+                bits.append(tb)
+            # the shard's cells in K7's order: by live plane, then by chunk
+            cands.append((live[:, None] + chunks[None, :]).reshape(-1))
+            fetch.append(torch.cat([flags] + bits))
         between()
-        dec = src.get(torch.cat([flags] + bits))
+        dec = [src.get(f) for f in fetch]  # a shard's K8 flags, then its K7 bit counts
         t = _tick(clock, "kernels_s", t, src.device, between)
     with stats.phase("encode:decide"):
-        flags_h = dec[: k * nb].reshape(k, nb)
-        hid = np.repeat(np.asarray(list(tables), dtype=np.int64), k)
-        kind, size, sb = decide((flags_h >> 8).astype(bool), cand, dec[k * nb :], hlen[hid],
+        flags = np.concatenate([d[: sh.k * nb] for d, sh in zip(dec, shards)]).reshape(-1, nb)
+        bits = np.concatenate([d[sh.k * nb :] for d, sh in zip(dec, shards)])
+        cand = np.concatenate([c + (sh.lo - lo) * nb for c, sh in zip(cands, shards)])
+        hid = np.concatenate([np.repeat(live, sh.k) for sh in shards])
+        kind, size, sb = decide((flags >> 8).astype(bool), cand, bits, hlen[hid],
                                 g.plane_bytes, threshold)
         _tick(clock, "decide_s", t, src.device, between)
-    return assemble(src, lo, kind, size, planes, rows, cand,
-                    np.repeat(np.arange(len(tables)), k), np.tile(4 * np.arange(k), len(tables)),
-                    sb, hoff[hid], hlen[hid], hpool, clock, between)
+    out, m0 = [], 0
+    for sh, r, c in zip(shards, rows, cands):
+        h, sbs = hid[m0 : m0 + c.size], sb[m0 : m0 + c.size]
+        m0 += c.size
+        at = slice(sh.lo - lo, sh.lo - lo + sh.k)
+        out.append(assemble(src, sh.lo, kind[at], size[at], sh.planes, r, c,
+                            np.repeat(np.arange(live.size), sh.k),
+                            np.tile(4 * np.arange(sh.k), live.size), sbs, hoff[h], hlen[h],
+                            hpool[sh.dev], clock, between))
+    return out
 
 
 def encode_pc_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
                     bit_reorder: int, threshold, abandon: Abandon, clock: Dict,
-                    between: Between) -> Assembled:
-    """Per-chunk profile on chunks [lo, hi): split, the cell histograms
-    and their fetch, the plan (native tables), K7 over the Huffman cells'
-    streams, the decisions and the threshold check, and the cells on the
-    device."""
+                    between: Between) -> List[Assembled]:
+    """Per-chunk profile on chunks [lo, hi): on each shard's device
+    (:func:`_shards`) the split and the cell histograms; their fetch, the
+    plan (native tables) over the whole range; E over each shard's
+    Huffman cells' streams on its device; the decisions and the threshold
+    check over the whole range on the host, in chunk order; then each
+    shard's cells on its device."""
     nb, pw = g.num_buf, g.plane_bytes // 4
-    k = hi - lo
-    planes, t = _split(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
+    shards, t = _split_shards(src, g, lo, hi, byte_reorder, bit_reorder, clock, between)
     with stats.phase("encode:hist"):
-        counts = hist.hist_cells(planes.view(k * nb, pw))
+        counts = [hist.hist_cells(sh.planes.view(sh.k * nb, pw)) for sh in shards]
         between()
-        counts = src.get(counts)
+        counts = np.concatenate([src.get(c) for c in counts])
         t = _tick(clock, "hist_s", t, src.device, between)
     with stats.phase("encode:plan"):
-        plan = plan_cells(counts.reshape(k, nb, 256), g.plane_bytes, abandon.planes)
+        plan = plan_cells(counts.reshape(hi - lo, nb, 256), g.plane_bytes, abandon.planes)
         t = _tick(clock, "plan_s", t, src.device, between)
-    m = plan.cand.size
+    # each shard's Huffman cells: a run of the plan's cells (chunk-major)
+    cut = np.searchsorted(plan.cand, [(sh.lo - lo) * nb for sh in shards] + [(hi - lo) * nb])
+    runs = list(zip(shards, cut[:-1], cut[1:]))
     with stats.phase("encode:kernel"):
-        rows, bits = [], np.zeros((0, 4), np.int32)
-        if m:
-            r, tb = huf_enc.huf_pc_encode(planes, src.put(plan.tables), g.seg,
-                                          _streams(src.put(plan.cand), pw))
-            rows = [r]
-            bits = src.get(tb)
+        rows, bits = [], []
+        for sh, a, b in runs:
+            rows.append([])
+            if b > a:
+                r, tb = huf_enc.huf_pc_encode(
+                    sh.planes, src.put(plan.tables[a:b], sh.dev), g.seg,
+                    _streams(src.put(plan.cand[a:b] - (sh.lo - lo) * nb, sh.dev), pw))
+                rows[-1].append(r)
+                bits.append(tb)
+        bits = np.concatenate([src.get(tb) for tb in bits] or [np.zeros(0, np.int32)])
         t = _tick(clock, "kernels_s", t, src.device, between)
     with stats.phase("encode:decide"):
         kind, size, sb = decide(plan.rle, plan.cand, bits, plan.hlen, g.plane_bytes, threshold)
         abandon.apply(lo, kind, size, np.full(nb, g.plane_bytes, np.int64), threshold)
         _tick(clock, "decide_s", t, src.device, between)
-    idx = np.arange(m, dtype=np.int64)
-    return assemble(src, lo, kind, size, planes, rows, plan.cand, np.zeros(m, np.int64), 4 * idx,
-                    sb, idx * native.HDR_STRIDE, plan.hlen, _hpool(src, plan.headers.reshape(-1)),
-                    clock, between)
+    out = []
+    for (sh, a, b), r in zip(runs, rows):
+        idx = np.arange(b - a, dtype=np.int64)
+        at = slice(sh.lo - lo, sh.lo - lo + sh.k)
+        out.append(assemble(src, sh.lo, kind[at], size[at], sh.planes, r,
+                            plan.cand[a:b] - (sh.lo - lo) * nb, np.zeros(b - a, np.int64),
+                            4 * idx, sb[a:b], idx * native.HDR_STRIDE, plan.hlen[a:b],
+                            _hpool(src, plan.headers[a:b].reshape(-1), sh.dev), clock, between))
+    return out
 
 
 def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reorder: int,
@@ -610,7 +698,7 @@ def encode_sub_word_batch(src: Source, g: Geometry, lo: int, hi: int, byte_reord
     cell that is not RLE; a block shorter than ``lens * threshold`` is
     stored as Huffman, before the threshold check."""
     nb, k, dev = g.num_buf, hi - lo, src.device
-    rows = src.batch(lo, hi)
+    rows = src.batch(lo, hi, dev)
     with stats.phase("encode:split"):
         t = time.perf_counter()
         planes = transforms.split_bytes(rows, nb, byte_reorder, bit_reorder, g.lens.tolist())
@@ -717,9 +805,10 @@ def _splice_host(out: np.ndarray, base, starts, g: Geometry, batches: List[Batch
 
 class Started:
     """An encode in flight (:func:`start`): every batch decided and, on the
-    word route, its cells written on the device, where they wait for
-    :func:`finish`; ``ready`` is a CUDA event behind the last of them (None
-    on the CPU) and ``timings`` the phase seconds so far."""
+    word route, its cells written on the device (each shard's on its own),
+    where they wait for :func:`finish`; ``ready`` holds, for each CUDA
+    device, an event behind the last of them, and ``timings`` the phase
+    seconds so far."""
 
     def __init__(self, g: Geometry, src: Source, batches: List[Union[Assembled, Batch]],
                  shared, abandon: Optional[Abandon], threshold: float, prefix_len: int,
@@ -727,10 +816,12 @@ class Started:
         self.g, self.src, self.batches, self.shared, self.abandon = g, src, batches, shared, abandon
         self.threshold, self.prefix_len, self.reorder = threshold, prefix_len, reorder
         self.timings = timings
-        self.ready = None
-        if src.cuda:
-            self.ready = torch.cuda.Event()
-            self.ready.record(torch.cuda.current_stream(src.device))
+        self.ready: Dict[torch.device, torch.cuda.Event] = {}
+        for bt in batches:
+            dev = bt.buf.device if isinstance(bt, Assembled) else None
+            if dev is not None and dev.type == "cuda" and dev not in self.ready:
+                self.ready[dev] = torch.cuda.Event()
+                self.ready[dev].record(torch.cuda.current_stream(dev))
 
 
 def _tail_planes(src: Source, g: Geometry, byte_reorder: int, bit_reorder: int):
@@ -748,9 +839,11 @@ def shared_tables_pass(src: Source, g: Geometry, reorder, threshold: float, cloc
     ``clock["hist_s"]``."""
     t0, up0 = time.perf_counter(), src.upload_s
     with stats.phase("encode:split+hist"):
-        counts = sampled_counts(src, g, *reorder)
+        parts = sampled_counts(src, g, *reorder)
         between()
-        counts = src.get(counts)
+        counts = np.zeros((g.num_buf, 256), dtype=np.int64)
+        for c in parts:
+            counts += src.get(c)
         tail_planes = _tail_planes(src, g, *reorder)
         if tail_planes is not None and g.full % g.stride == 0:
             for b, plane in enumerate(tail_planes):  # the tail cell is on stride
@@ -764,16 +857,27 @@ def shared_tables_pass(src: Source, g: Geometry, reorder, threshold: float, cloc
 def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: int,
           threshold: float = codec.DEFAULT_THRESHOLD, check_th_after_percent: int = 0,
           shared_tables: bool = False, device="cuda", prefix_len: int = 0,
-          between: Optional[Callable[[], None]] = None) -> Started:
+          between: Optional[Callable[[], None]] = None, raw_planes=None,
+          preset_shared=None) -> Started:
     """Route, upload, split, histograms, plan, kernels, every cell's
     decision and every batch's cells on the device, for :func:`finish`.
     ``data`` is a host uint8 array or a uint8 tensor, read in place on its
     CUDA device.  ``between`` is called exactly once: after the first
     kernels are queued and before the first host sync (at once when
-    nothing is launched)."""
+    nothing is launched).  ``raw_planes`` and ``preset_shared`` as in
+    ``codec.compress_payload_numpy``: the per-chunk profile's planes stored
+    raw from chunk 0, and the shared profile's (tables, live) pair in place
+    of pass 1.
+
+    Under an ambient mesh (``parallel.use_mesh``) each batch's full chunks
+    are split into contiguous shards, one per mesh entry: each shard's
+    input goes to its device and its kernels launch there; the cells'
+    decisions are taken over the whole batch on the host, so the container
+    is the one of no mesh."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    device = sharded.canonical(device)
     if isinstance(data, torch.Tensor):
         n = int(data.numel())
     else:
@@ -788,14 +892,20 @@ def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: i
     else:
         timings.update(encoder="huf_pc_encode", kernels=PC_KERNELS)
     hook = Between(between)
-    src = Source(data, g, device)
+    devices = {device}
+    if not g.sub_word and sharded.get_default_mesh() is not None:
+        devices.update(sharded.get_default_mesh().flat())
+    src = Source(data, g, device, upfront=devices == {device})
     abandon = None if shared_tables else Abandon(g.n_chunks, check_th_after_percent, num_buf)
+    if abandon is not None and raw_planes is not None:
+        abandon.planes |= np.asarray(raw_planes, dtype=bool)
     shared = [None] * num_buf
     args = (src, g)
     reorder = (byte_reorder, bit_reorder)
     with kernels.recording() as events:
         if shared_tables and (g.coded or not g.sub_word):
-            tables, live = shared_tables_pass(src, g, reorder, threshold, timings, hook)
+            tables, live = (preset_shared if preset_shared is not None else
+                            shared_tables_pass(src, g, reorder, threshold, timings, hook))
             shared = [t if alive else None for t, alive in zip(tables, live)]
         if g.sub_word:
             coder = None
@@ -809,20 +919,23 @@ def start(data, num_buf: int, bit_reorder: int, byte_reorder: int, chunk_size: i
                                              coder, timings, hook) for lo, hi in g.batches]
         elif shared_tables:
             hdrs = [b"" if t is None else t[2] for t in shared]
-            hpool = _hpool(src, np.frombuffer(b"".join(hdrs), np.uint8))
+            pool = np.frombuffer(b"".join(hdrs), np.uint8)
             hlen = np.asarray([len(h) for h in hdrs], dtype=np.int64)
             hoff = np.cumsum(hlen) - hlen
-            tables = {}
+            packed = {}
             if 12 <= g.plane_bytes <= huf.HUF_BLOCKSIZE_MAX:  # else every cell is raw or RLE
-                for b, t in enumerate(shared):
-                    if t is not None:
-                        lengths, vals, _, _ = t
-                        tables[b] = src.put(huf_enc.pack_etable(vals, lengths))
-            batches = [encode_shared_batch(*args, lo, hi, *reorder, tables, hpool, hoff, hlen,
-                                           threshold, timings, hook) for lo, hi in g.batches]
+                packed = {b: huf_enc.pack_etable(t[1], t[0]) for b, t in enumerate(shared)
+                          if t is not None}
+            # the read-only tables and header pool, replicated on each device
+            tables = {d: {b: src.put(e, d) for b, e in packed.items()} for d in devices}
+            hpool = {d: _hpool(src, pool, d) for d in devices}
+            batches = [a for lo, hi in g.batches
+                       for a in encode_shared_batch(*args, lo, hi, *reorder, tables, hpool, hoff,
+                                                    hlen, threshold, timings, hook)]
         else:
-            batches = [encode_pc_batch(*args, lo, hi, *reorder, threshold, abandon, timings,
-                                       hook) for lo, hi in g.batches]
+            batches = [a for lo, hi in g.batches
+                       for a in encode_pc_batch(*args, lo, hi, *reorder, threshold, abandon,
+                                                timings, hook)]
     hook()
     timings["events"] = events
     return Started(g, src, batches, shared, abandon, threshold, prefix_len, reorder, timings)
@@ -874,16 +987,16 @@ def finish(run: Started, alloc: Callable[[int], np.ndarray] = codec.frame) -> np
             continue
         ranges = [(int(bt.plane_off[b]), int(base[b] + starts[b, bt.lo]), int(bt.plane_bytes[b]))
                   for b in range(g.num_buf) if bt.plane_bytes[b]]
-        if src.cuda:
-            staging.download(staging.pool(src.device), bt.buf, out, ranges, timings,
-                             after=run.ready, label="encode")
+        if bt.buf.is_cuda:
+            staging.download(staging.pool(bt.buf.device), bt.buf, out, ranges, timings,
+                             after=run.ready[bt.buf.device], label="encode")
             src.d2h += sum(r[2] for r in ranges)
         else:
             host = bt.buf.numpy()
             for s, d, m in ranges:
                 out[d : d + m] = host[s : s + m]
     timings.update(upload_s=src.upload_s, upload_bytes=src.uploaded, h2d_bytes=src.h2d,
-                   d2h_bytes=src.d2h, batches=len(run.batches))
+                   d2h_bytes=src.d2h, batches=len(g.batches), shards=len(run.batches))
     last_timings.clear()
     last_timings.update(timings)
     return out
