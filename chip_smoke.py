@@ -105,9 +105,10 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    each way's wall, GB/s and summed plan, kernels, assemble, download and
    unstage seconds;
 9. the whole-file streaming path: the load's 18 tensors laid out as one
-   safetensors file in memory (the layout written here: no
-   ``safetensors`` import), compressed by ``ZipNN(is_streaming=True,
-   engine="cuda")`` in 1 MiB frames (~833, the last with no full chunk),
+   safetensors file in memory (laid out by ``io.safetensors_layout``
+   as ``safetensors.torch.save`` would: no ``safetensors`` import),
+   compressed by ``ZipNN(is_streaming=True, engine="cuda")`` in 1 MiB
+   frames (~833, the last with no full chunk),
    byte-equal to engine ``"native"``'s, and decompressed on the card by
    ``ZipNN(is_streaming=True, engine="cuda")``: the bytes equal the file,
    parsing them gives the 18 tensors back, and ``huf_pc_decode`` launches
@@ -164,9 +165,8 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
        window (kernels and copies, and kernels alone);
     e. ``stats.file_stats`` of a's .znn: 833 frames and the container's
        length.
-    ``compress_safetensors`` and ``decompress_safetensors`` are not run:
-    they need the ``safetensors`` package, which the card's host may not
-    have (the CPU tests cover them).
+    ``compress_safetensors`` and ``decompress_safetensors`` are not run
+    here (the CPU tests hold their files against the JAX package's).
 14. several shards and several processes (``zipnn_tpu_torch.parallel``),
     printing each wall with its read and write and the phase's own:
     a. ``ZipNN(input_format="torch")`` compresses phase 4a's bf16 tensor
@@ -185,11 +185,24 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
        table from the summed sampled counts), each decompressed back by
        ``decompress_file_multihost``; the streaming mode on the file's
        first 64 MiB; ``compress_safetensors_multihost``, loaded back
-       bit-exact by ``SafetensorsStreamReader``; each file equal to one
-       process's, beside one process's engine native compress of the
-       file; in a temporary directory removed at the end;
+       bit-exact by ``SafetensorsStreamReader`` and ``SafeOpen``; each
+       file equal to one process's, beside one process's engine native
+       compress of the file; in a temporary directory removed at the end;
     c. ``entry.entry()``'s decode step (K1 then K2) and
-       ``entry.dryrun_multichip(2)``.
+       ``entry.dryrun_multichip(2)``;
+15. the port's examples on the card, each through its ``main`` in this
+    process with the launch counts set to 0 just before it and read just
+    after (its wall, its launches per kernel and its success line):
+    ``simple_example_byte``, ``simple_example_torch``,
+    ``simple_example_device``, ``example_delta``, ``example_lossy``,
+    ``example_checkpoint --size-mb 256``, ``example_shard_serving``,
+    ``example_fused_serving``, ``example_safetensors``,
+    ``example_multichip`` and the two multihost examples (each starts 2
+    ranks by ``spawn``, whose launches are not counted); together they
+    must launch all eight kernels.  ``example_hf_model`` and
+    ``example_vllm`` are decided before the phase by whether
+    ``transformers`` and ``vllm`` are installed (and vLLM's needs a model
+    directory this script does not have) and printed as not run.
 
 Phase 3 also encodes, on the card from a CUDA tensor, the chunk sizes
 whose planes are not whole words but hold 12 bytes or more (bf16 and
@@ -206,7 +219,8 @@ runs another path; its time at the CLI's shapes, ``cli_ms`` and
 ``cli_bound_ms``; its time in phase 13's trace, ``profiler_ms``; its
 launches in phase 14a's 2-shard run of its path, ``mesh_launches``, and
 its time at one shard's shapes, ``mesh_ms`` and ``mesh_bound_ms``, null
-where 14a does not run its path), the card's name and power limit and the
+where 14a does not run its path; its launches summed over phase 15's
+examples, ``example_launches``), the card's name and power limit and the
 host CPU's model (the plan and splice are host timings), and as its last
 line ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the exit code is not 0 and no result line is printed.
@@ -221,7 +235,6 @@ import io
 import json
 import os
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
@@ -1205,43 +1218,23 @@ def checkpoint_save(names, xs, dev, smi) -> dict:
     return launches
 
 
-ST_DTYPES = {torch.bfloat16: "BF16", torch.uint8: "U8"}
+def safetensors_bytes(tensors: dict, metadata: dict) -> bytes:
+    """The safetensors file of ``tensors`` ({name: CPU tensor}), as
+    ``safetensors.torch.save`` lays it out (``io.safetensors_layout``: no
+    ``safetensors`` package)."""
+    from zipnn_tpu_torch.io import safetensors_layout  # noqa: PLC0415
 
-
-def safetensors_bytes(tensors: dict, metadata: dict) -> bytearray:
-    """The safetensors layout of ``tensors`` ({name: CPU tensor}, in
-    order), written here: an 8-byte little-endian header length, the JSON
-    header (each tensor's dtype, shape and ``data_offsets``, and
-    ``__metadata__``) padded with spaces to a multiple of 8 bytes, then the
-    tensors' bytes back to back."""
-    header, off = {}, 0
-    for name, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [off, off + n]}
-        off += n
-    header["__metadata__"] = metadata
-    text = json.dumps(header, separators=(",", ":")).encode()
-    text += b" " * (-len(text) % 8)
-    out = bytearray(struct.pack("<Q", len(text)) + text)
-    for t in tensors.values():
-        out += t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
-    return out
+    return safetensors_layout.to_bytes(tensors, metadata)
 
 
 def safetensors_tensors(buf) -> dict:
     """{name: CPU tensor} parsed from the safetensors layout ``buf`` (bf16
     tensors only)."""
-    mv = memoryview(buf)
-    (hlen,) = struct.unpack("<Q", mv[:8])
-    header = json.loads(bytes(mv[8 : 8 + hlen]))
-    header.pop("__metadata__", None)
-    out = {}
-    for name, info in header.items():
-        check(info["dtype"] == "BF16", f"{name}: dtype {info['dtype']}")
-        lo, hi = info["data_offsets"]
-        raw = np.frombuffer(mv[8 + hlen + lo : 8 + hlen + hi], dtype=np.uint16).copy()
-        out[name] = torch.from_numpy(raw).view(torch.bfloat16).reshape(info["shape"])
+    from zipnn_tpu_torch.io import safetensors_layout  # noqa: PLC0415
+
+    out, _ = safetensors_layout.read(buf)
+    for name, t in out.items():
+        check(t.dtype == torch.bfloat16, f"{name}: dtype {t.dtype}")
     return out
 
 
@@ -1255,7 +1248,7 @@ def whole_file_streaming(names, xs, dev, smi):
     from zipnn_tpu_torch.ops import decode, kernels  # noqa: PLC0415
 
     host = {n: x.cpu() for n, x in zip(names, xs)}
-    file = bytes(safetensors_bytes(host, {"format": "pt"}))
+    file = safetensors_bytes(host, {"format": "pt"})
     frame = 1 << 20
     frames = -(-len(file) // frame)
     check(0 < len(file) % frame < 256 * 1024, "the last frame holds a full chunk")
@@ -1296,7 +1289,7 @@ def whole_file_streaming(names, xs, dev, smi):
           f"huf_pc_decode launched {launches['huf_pc_decode']} times for {frames} frames")
     check(launches["combine_cells"] > 0, "combine_cells not launched by the streaming decode")
     got = safetensors_tensors(out)
-    check(list(got) == names, "the decoded file's tensors")
+    check(sorted(got) == sorted(names), "the decoded file's tensors")
     for name, x in host.items():
         check(torch.equal(got[name].view(torch.int16), x.view(torch.int16)), f"{name} != original")
     del out, got
@@ -1337,9 +1330,10 @@ def whole_file_streaming(names, xs, dev, smi):
 
 def per_tensor_file(names, xs, blobs, iter_wall, dev, smi) -> None:
     """Phase 10: phase 7's containers as a ``.znn.safetensors`` file
-    (``znn_compressed_vectors`` metadata, written here) read back onto the
-    card by ``SafetensorsStreamReader.load_shard``; the launch counts set to
-    0 just before each load and read just after."""
+    (``znn_compressed_vectors`` metadata, laid out by
+    ``io.safetensors_layout``) read back onto the card by
+    ``SafetensorsStreamReader.load_shard``; the launch counts set to 0 just
+    before each load and read just after."""
     from zipnn_tpu_torch.io.streaming import METADATA_KEY, SafetensorsStreamReader  # noqa: PLC0415
     from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
 
@@ -1916,8 +1910,8 @@ def two_ranks(file: bytes, dev, smi) -> None:
     streaming one; the same call with no process group for the
     safetensors one) and each decompressed file the input; the
     safetensors file loads back bit-exact through
-    ``SafetensorsStreamReader`` (``SafeOpen`` needs the ``safetensors``
-    package, which the card's host may lack).  Beside them, one process's
+    ``SafetensorsStreamReader`` and through ``SafeOpen.get_tensors`` (no
+    ``safetensors`` package needed).  Beside them, one process's
     ``compress_file_multihost(engine="native")`` of the same file."""
     import multiprocessing  # noqa: PLC0415
     import socket  # noqa: PLC0415
@@ -1925,6 +1919,7 @@ def two_ranks(file: bytes, dev, smi) -> None:
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.io.streaming import SafetensorsStreamReader  # noqa: PLC0415
     from zipnn_tpu_torch.parallel import multihost  # noqa: PLC0415
+    from zipnn_tpu_torch.plugins.safetensors import SafeOpen  # noqa: PLC0415
 
     d = Path(tempfile.mkdtemp(prefix="znn_ranks_"))
     try:
@@ -2005,14 +2000,18 @@ def two_ranks(file: bytes, dev, smi) -> None:
         src_rdr = SafetensorsStreamReader(str(src))
         rdr = SafetensorsStreamReader(str(d / "two.znn.safetensors"))
         check(set(rdr.compressed) == set(src_rdr.keys()), "a tensor was not compressed")
+        with SafeOpen(str(d / "two.znn.safetensors"), "pt", device=dev,
+                      decode_device=dev) as f:
+            opened = f.get_tensors()
         for name, x in src_rdr.load_shard(device=dev).items():
-            y = rdr.get_tensor(name, device=dev)
-            check(y.dtype == x.dtype and torch.equal(y.view(torch.uint8), x.view(torch.uint8)),
-                  f"{name} of the two-rank .znn.safetensors != the original")
+            for how, y in (("reader", rdr.get_tensor(name, device=dev)), ("SafeOpen", opened[name])):
+                check(y.dtype == x.dtype and torch.equal(y.view(torch.uint8), x.view(torch.uint8)),
+                      f"{name} of the two-rank .znn.safetensors by {how} != the original")
         log(f"[ranks] {MESH_RANKS} spawned ranks on {torch.cuda.get_device_name(0)}, gloo: "
             f"{len(jobs)} jobs in {wall:.4f} s (process starts included); every container "
             f"== one process's, every file decompressed back exactly, the .znn.safetensors "
-            f"({len(rdr.compressed)} tensors) loaded bit-exact; card: {smi}")
+            f"({len(rdr.compressed)} tensors) loaded bit-exact by the reader and SafeOpen; "
+            f"card: {smi}")
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -2050,6 +2049,77 @@ def multi_device(file, x_bf16, x_fp32, goldens: dict, dev, smi) -> dict:
     log(f"[phase 14] {wall:.2f} s (a {t_a - t0:.2f}, b {t_b - t_a:.2f}, "
         f"c {time.perf_counter() - t_b:.2f})")
     return {"launches": launches, "held": held}
+
+
+# phase 15: the port's examples on the card, in this process, in this order
+EXAMPLES = (
+    ("simple_example_byte", []),
+    ("simple_example_torch", []),
+    ("simple_example_device", []),
+    ("example_delta", []),
+    ("example_lossy", []),
+    ("example_checkpoint", ["--size-mb", "256"]),
+    ("example_shard_serving", []),
+    ("example_fused_serving", []),
+    ("example_safetensors", []),
+    ("example_multichip", []),
+    ("example_multihost_shared", []),
+    ("example_multihost_safetensors", []),
+)
+# examples that spawn 2 ranks of their own (the ranks' launches are not
+# counted here, only the parent's)
+SPAWNING_EXAMPLES = ("example_multihost_shared", "example_multihost_safetensors")
+# examples that need a package the card's host may not have
+OPTIONAL_EXAMPLES = {"example_hf_model": ("transformers", ["--demo"]),
+                     "example_vllm": ("vllm", None)}
+PATH_KERNELS = ("huf_pc_decode", "huf_shared_decode", "combine_cells", "huf_shared_encode",
+                "const_scan_rows", "hist_cells", "huf_pc_encode", "splice_cells")
+
+
+def examples_phase(smi) -> dict:
+    """Phase 15: the port's examples on the card through their ``main``,
+    each with the launch counts set to 0 just before it and read just after;
+    together they must launch every kernel.  The examples that need a
+    package are decided before the phase: run where it is installed (and,
+    for vLLM, a model directory is given, which this script does not),
+    printed as not run otherwise.  Returns the summed launches."""
+    import importlib  # noqa: PLC0415
+    import importlib.util  # noqa: PLC0415
+
+    from zipnn_tpu_torch.ops import kernels  # noqa: PLC0415
+
+    runs = list(EXAMPLES)
+    for name, (pkg, argv) in OPTIONAL_EXAMPLES.items():
+        if importlib.util.find_spec(pkg) is None:
+            log(f"[examples] {name}: not run, the {pkg} package is not installed")
+        elif argv is None:
+            log(f"[examples] {name}: not run, it needs a local model directory")
+        else:
+            runs.append((name, argv))
+    t0 = time.perf_counter()
+    total = dict.fromkeys(kernels.launches, 0)
+    for name, argv in runs:
+        mod = importlib.import_module(f"zipnn_tpu_torch.examples.{name}")
+        dev_arg = [] if name in SPAWNING_EXAMPLES else ["--device", "cuda"]  # each rank's card
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            mod.main([*argv, *dev_arg])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        for k, v in launches.items():
+            total[k] += v
+        lines = out.getvalue().strip().splitlines()
+        who = "this process's launches (2 spawned ranks not counted)" \
+            if name in SPAWNING_EXAMPLES else "launches"
+        log(f"[examples] {name} {' '.join(argv)}: {wall:.3f} s, {who} {launches}; "
+            f"{lines[-1] if lines else ''}")
+    missing = [k for k in PATH_KERNELS if not total[k]]
+    check(not missing, f"the examples launched no {missing}")
+    log(f"[phase 15] {time.perf_counter() - t0:.2f} s, {len(runs)} examples; launches in all "
+        f"{total}; card: {smi}")
+    return total
 
 
 def main() -> int:
@@ -2284,6 +2354,10 @@ def main() -> int:
     mesh = multi_device(file, x_bf16, x_fp32,
                         {"bf16": bytes(c_bf16), "shared": c_shared, "fp32": c_fp32}, dev, smi)
     del file, c_bf16, c_shared, c_fp32, x_fp32
+    torch.cuda.empty_cache()
+
+    # ---- 15. the examples on the card -------------------------------------
+    example_launches = examples_phase(smi)
 
     # ---- summary ---------------------------------------------------------
     # phase 13: each row's launches in the CLI's counted run of its path
@@ -2316,7 +2390,8 @@ def main() -> int:
                 "profiler_ms": cli["profiler_ms"].get(key),
                 "mesh_launches": mesh["launches"][mrun][kname] if mrun else None,
                 "mesh_ms": mesh["held"][key]["ms"] if mrun else None,
-                "mesh_bound_ms": mesh["held"][key]["bound_ms"] if mrun else None}
+                "mesh_bound_ms": mesh["held"][key]["bound_ms"] if mrun else None,
+                "example_launches": example_launches[kname]}
 
     k1 = "zipnn_tpu/ops/pallas_huf_pc.py:425 (K1); zipnn_tpu/ops/pallas_gather.py:84 (K3)"
     k2 = "zipnn_tpu/ops/pallas_combine.py:249 (K2)"

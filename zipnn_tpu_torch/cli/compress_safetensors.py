@@ -1,12 +1,15 @@
 """Per-tensor compression of a safetensors file -> ``.znn.safetensors``
 (reference scripts/zipnn_compress_safetensors.py).  Each float tensor is
 compressed on ``--device`` (``plugins.safetensors.compress_tensor``); the
-``safetensors`` package is imported only when a file is compressed."""
+file is read by ``io.streaming.SafetensorsStreamReader`` and written by
+``io.safetensors_layout``, with no ``safetensors`` package."""
 from __future__ import annotations
 
 import argparse
 import os
 
+from ..io import safetensors_layout as layout
+from ..io.streaming import SafetensorsStreamReader
 from ..plugins.safetensors import compress_tensor, set_compressed_tensors_metadata
 from . import Timer, confirm_overwrite, die, hf_cache_replace, throughput
 
@@ -23,9 +26,6 @@ def compress_safetensors_file(
     threads=None,
     device="cuda",
 ) -> str | None:
-    from safetensors import safe_open  # noqa: PLC0415
-    from safetensors.torch import save_file  # noqa: PLC0415
-
     if not filename.endswith(ST_SUFFIX):
         die(f"{filename} does not end in {ST_SUFFIX}")
     output = filename[: -len(ST_SUFFIX)] + OUT_SUFFIX
@@ -40,10 +40,11 @@ def compress_safetensors_file(
     tensors = {}
     infos = {}
     total = kept = 0
-    with Timer() as t, safe_open(filename, "pt", "cpu") as f:
-        metadata = f.metadata() or {}
-        for name in f.keys():
-            tensor = f.get_tensor(name)
+    with Timer() as t:
+        rdr = SafetensorsStreamReader(filename)
+        metadata = dict(rdr.metadata)
+        for name in sorted(rdr.keys()):
+            tensor = rdr.stored(name)
             total += tensor.numel() * tensor.element_size()
             if not tensor.dtype.is_floating_point:
                 tensors[name] = tensor  # skip non-float (reference :82-84)
@@ -60,7 +61,7 @@ def compress_safetensors_file(
             kept += blob.numel()
     metadata.setdefault("format", "pt")
     set_compressed_tensors_metadata(infos, metadata)
-    save_file(tensors, output, metadata=metadata)
+    layout.write(output, tensors, metadata)
     print(
         f"Compressed {filename}: {total} -> {kept} tensor bytes "
         f"(ratio {kept / max(total, 1):.4f}), {len(infos)} tensors compressed, "

@@ -1,12 +1,14 @@
 """Decompress a ``.znn.safetensors`` file back to plain safetensors
 (reference scripts/zipnn_decompress_safetensors.py).  The tensors decode on
 ``--device`` (``plugins.safetensors.SafeOpen``'s ``decode_device``); the
-``safetensors`` package is imported only when a file is decompressed."""
+output is written by ``io.safetensors_layout``, with no ``safetensors``
+package."""
 from __future__ import annotations
 
 import argparse
 import os
 
+from ..io import safetensors_layout as layout
 from ..plugins.safetensors import SafeOpen
 from . import Timer, confirm_overwrite, die, throughput
 
@@ -22,8 +24,6 @@ def decompress_safetensors_file(
     threads=None,
     device="cuda",
 ) -> str | None:
-    from safetensors.torch import save_file  # noqa: PLC0415
-
     if not filename.endswith(IN_SUFFIX):
         die(f"{filename} does not end in {IN_SUFFIX}")
     output = filename[: -len(IN_SUFFIX)] + OUT_SUFFIX
@@ -40,7 +40,7 @@ def decompress_safetensors_file(
             tensor = f.get_tensor(name)  # transparently decompresses
             tensors[name] = tensor
             total += tensor.numel() * tensor.element_size()
-    save_file(tensors, output, metadata=metadata or None)
+    layout.write(output, tensors, metadata or None)
     print(f"Decompressed {filename} -> {output}, {throughput(total, t.seconds)}")
     if delete:
         os.remove(filename)

@@ -13,31 +13,12 @@ cpu``):
     python -m zipnn_tpu_torch.examples.example_multihost_safetensors [--device cpu]
 """
 import argparse
-import json
 import multiprocessing
 import os
 import socket
 import tempfile
 
 import torch
-
-ST_DTYPES = {torch.bfloat16: "BF16", torch.float32: "F32", torch.int64: "I64"}
-
-
-def write_safetensors(path: str, tensors: dict) -> None:
-    """The safetensors layout, written directly (no ``safetensors``
-    package needed): 8-byte header length, JSON header, data."""
-    header, blobs, off = {"__metadata__": {"format": "pt"}}, [], 0
-    for name, t in tensors.items():
-        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
-        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [off, off + len(raw)]}
-        blobs.append(raw)
-        off += len(raw)
-    hjson = json.dumps(header).encode()
-    hjson += b" " * ((-len(hjson)) % 8)
-    with open(path, "wb") as f:
-        f.write(len(hjson).to_bytes(8, "little") + hjson + b"".join(blobs))
 
 
 def work(src: str, out: str, device, address, n, rank) -> None:
@@ -52,6 +33,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="default: each rank's card; or cpu")
     args = ap.parse_args(argv)
 
+    from zipnn_tpu_torch.io import safetensors_layout
     from zipnn_tpu_torch.io.streaming import SafetensorsStreamReader
     from zipnn_tpu_torch.parallel import multihost
 
@@ -65,7 +47,7 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "model.safetensors")
         out2, out1 = (os.path.join(d, f"model{k}.znn.safetensors") for k in (2, 1))
-        write_safetensors(src, tensors)
+        safetensors_layout.write(src, tensors, {"format": "pt"})
         s = socket.socket()
         s.bind(("127.0.0.1", 0))
         address = f"127.0.0.1:{s.getsockname()[1]}"

@@ -26,6 +26,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from . import safetensors_layout as layout
 from .streaming import SafetensorsStreamReader
 
 __all__ = ["save_pytree", "load_pytree", "leaf_paths"]
@@ -88,8 +89,6 @@ def save_pytree(
     reference scripts/zipnn_compress_safetensors.py:103-109); integer and
     bool leaves store raw.  Returns {path: was_compressed}.
     """
-    from safetensors.torch import save_file  # noqa: PLC0415
-
     from ..plugins.safetensors import (  # noqa: PLC0415
         COMPRESSION_METHOD, build_compressed_tensor_info,
         set_compressed_tensors_metadata,
@@ -117,7 +116,7 @@ def save_pytree(
             out[name] = torch.from_numpy(np.frombuffer(blob, dtype=np.uint8).copy())
     metadata: Dict[str, str] = {"format": "pt"}
     set_compressed_tensors_metadata(infos, metadata)
-    save_file(out, path, metadata=metadata)
+    layout.write(path, out, metadata)
     return compressed
 
 

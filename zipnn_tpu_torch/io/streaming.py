@@ -3,9 +3,10 @@
 The port of the JAX package's ``io/streaming.py``.  safetensors layout:
 ``[8-byte little-endian header length][JSON header][data]``, the header
 mapping tensor name -> {dtype, shape, data_offsets}.  The reader parses
-the file itself (no ``safetensors`` import) and seeks straight to a
-tensor's byte range instead of mapping the whole file, so each host of a
-multi-host load reads only its share (:func:`partition_names`).
+the file with ``io.safetensors_layout`` (no ``safetensors`` import) and
+seeks straight to a tensor's byte range instead of mapping the whole
+file, so each host of a multi-host load reads only its share
+(:func:`partition_names`).
 
 Tensors come back as torch tensors (bf16 and fp8 as torch dtypes, no
 ``ml_dtypes``).  Compressed tensors (per-tensor containers under the
@@ -19,22 +20,14 @@ back through ``io.serving.ShardDecoder.decompress_iter``.
 from __future__ import annotations
 
 import json
-from struct import unpack
 from typing import Dict, Iterator, List, Sequence, Tuple
 
-import numpy as np
 import torch
 
+from . import safetensors_layout as layout
 from .serving import ShardDecoder
 
 METADATA_KEY = "znn_compressed_vectors"
-# safetensors dtype -> torch dtype attribute
-_ST_DTYPES = {
-    "F64": "float64", "F32": "float32", "F16": "float16", "BF16": "bfloat16",
-    "F8_E4M3": "float8_e4m3fn", "F8_E5M2": "float8_e5m2", "I64": "int64",
-    "I32": "int32", "I16": "int16", "I8": "int8", "U8": "uint8", "U16": "uint16",
-    "U32": "uint32", "U64": "uint64", "BOOL": "bool",
-}
 
 
 def partition_names(
@@ -70,11 +63,10 @@ class SafetensorsStreamReader:
     def __init__(self, path: str, decode_device="cuda"):
         self.path = path
         self.decode_device = torch.device(decode_device)
-        with open(path, "rb") as f:
-            (hlen,) = unpack("<Q", f.read(8))
-            header = json.loads(f.read(hlen))
-        self._data_start = 8 + hlen
-        self.metadata: Dict[str, str] = header.pop("__metadata__", {}) or {}
+        header, self._data_start = layout.read_header(path)
+        # None when the file has no "__metadata__" (``safe_open``'s ``metadata()``)
+        self.raw_metadata = header.pop(layout.METADATA, None)
+        self.metadata: Dict[str, str] = self.raw_metadata or {}
         self._tensors = header
         comp = self.metadata.get(METADATA_KEY)
         self.compressed: Dict[str, Dict] = json.loads(comp) if comp else {}
@@ -96,20 +88,18 @@ class SafetensorsStreamReader:
         return partition_names(self.entries(), n_hosts, host_id)
 
     # -- range reads -----------------------------------------------------
+    def entry(self, name: str) -> dict:
+        """A tensor's header entry: ``{"dtype", "shape", "data_offsets"}``."""
+        return self._tensors[name]
+
     def read_bytes(self, name: str) -> bytes:
-        info = self._tensors[name]
-        lo, hi = info["data_offsets"]
-        with open(self.path, "rb") as f:
-            f.seek(self._data_start + lo)
-            return f.read(hi - lo)
+        return layout.read_range(self.path, self._tensors[name], self._data_start)
 
-    def _stored(self, name: str) -> torch.Tensor:
+    def stored(self, name: str) -> torch.Tensor:
         """The stored bytes as a host tensor of the stored dtype and shape."""
-        info = self._tensors[name]
-        raw = torch.from_numpy(np.frombuffer(self.read_bytes(name), dtype=np.uint8).copy())
-        return raw.view(getattr(torch, _ST_DTYPES[info["dtype"]])).reshape(info["shape"])
+        return layout.as_tensor(self.read_bytes(name), self._tensors[name])
 
-    def _decoded(self, names: List[str]) -> Iterator[torch.Tensor]:
+    def decoded(self, names: List[str]) -> Iterator[torch.Tensor]:
         """The compressed tensors ``names`` decoded on ``decode_device``
         back to back (``ShardDecoder.decompress_iter``), in order."""
         dec = ShardDecoder(to_device=True, device=self.decode_device)
@@ -118,8 +108,8 @@ class SafetensorsStreamReader:
 
     def _load(self, names: List[str], device) -> Dict[str, torch.Tensor]:
         comp = [n for n in names if n in self.compressed]
-        decoded = dict(zip(comp, self._decoded(comp)))
-        return {n: (decoded[n] if n in decoded else self._stored(n)).to(device)
+        decoded = dict(zip(comp, self.decoded(comp)))
+        return {n: (decoded[n] if n in decoded else self.stored(n)).to(device)
                 for n in names}
 
     def get_tensor(self, name: str, device="cpu") -> torch.Tensor:

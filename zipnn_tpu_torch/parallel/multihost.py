@@ -431,7 +431,8 @@ def compress_safetensors_multihost(
     in place.  Each tensor is compressed whole by one process, so the
     file does not depend on the process count in either profile.
     """
-    from ..io.streaming import _ST_DTYPES, METADATA_KEY, SafetensorsStreamReader  # noqa: PLC0415
+    from ..io import safetensors_layout as layout  # noqa: PLC0415
+    from ..io.streaming import METADATA_KEY, SafetensorsStreamReader  # noqa: PLC0415
     from ..zipnn import ZipNN  # noqa: PLC0415
 
     last_timings.clear()
@@ -448,9 +449,9 @@ def compress_safetensors_multihost(
             continue
         raw_n = rdr.nbytes(name)
         comp = None
-        if rdr._tensors[name]["dtype"] in _FLOAT_ST:
+        if rdr.entry(name)["dtype"] in _FLOAT_ST:
             t0 = time.perf_counter()
-            t = rdr._stored(name)
+            t = rdr.stored(name)
             t0 = _clock("read_s", t0)
             blob = ZipNN(input_format="torch", method=method, engine=engine, device=device,
                          huffman_table=huffman_table).compress(t)
@@ -469,36 +470,33 @@ def compress_safetensors_multihost(
                      dtype=np.int64).reshape(len(names), 2)
 
     # the same header on every process (insertion order = file order)
-    infos, header = {}, {}
+    infos, entries = {}, []
     md = dict(rdr.metadata)
     md.pop(METADATA_KEY, None)
     md.setdefault("format", "pt")
-    off = 0
     for i, name in enumerate(names):
         nbytes, is_comp = int(sizes[i, 0]), int(sizes[i, 1])
-        info = rdr._tensors[name]
+        info = rdr.entry(name)
         if is_comp:
-            infos[name] = {"dtype": _ST_DTYPES[info["dtype"]], "shape": str(list(info["shape"]))}
-            header[name] = {"dtype": "U8", "shape": [nbytes], "data_offsets": [off, off + nbytes]}
+            dtype = str(layout.DTYPES[info["dtype"]]).removeprefix("torch.")
+            infos[name] = {"dtype": dtype, "shape": str(list(info["shape"]))}
+            entries.append((name, "U8", [nbytes], nbytes))
         else:
-            header[name] = {"dtype": info["dtype"], "shape": list(info["shape"]),
-                            "data_offsets": [off, off + nbytes]}
-        off += nbytes
+            entries.append((name, info["dtype"], info["shape"], nbytes))
     md[METADATA_KEY] = json.dumps(infos)
-    hjson = json.dumps({"__metadata__": md, **header}, separators=(",", ":")).encode()
-    hjson += b" " * ((-(8 + len(hjson))) % 8)  # the data region on 8 bytes
-    data_start = 8 + len(hjson)
+    head = layout.header_bytes(entries, md)
+    offsets = len(head) + np.concatenate([[0], np.cumsum(sizes[:, 0])])
 
     if pid == 0:
         with open(out_path, "wb") as f:
-            f.truncate(data_start + off)
-            f.write(len(hjson).to_bytes(8, "little") + hjson)
+            f.truncate(int(offsets[-1]))
+            f.write(head)
     _barrier("znn-mh-st-header")
     t0 = time.perf_counter()
     with open(out_path, "r+b") as f:
-        for name in names:
+        for i, name in enumerate(names):
             if name in mine:
-                f.seek(data_start + header[name]["data_offsets"][0])
+                f.seek(int(offsets[i]))
                 f.write(blobs[name] if name in blobs else rdr.read_bytes(name))
     _clock("write_s", t0)
     _barrier("znn-mh-st-data")

@@ -72,24 +72,30 @@ def zipnn_hf(replace_local_file: bool = False, decode_device="cuda") -> None:
     """Patch transformers so ``from_pretrained`` loads ``.znn`` checkpoints,
     decoded on ``decode_device``."""
     try:
-        import transformers  # noqa: PLC0415
         from transformers import modeling_utils  # noqa: PLC0415
+        from transformers import utils as hf_utils  # noqa: PLC0415
         from transformers.modeling_utils import PreTrainedModel, _add_variant  # noqa: PLC0415
         from transformers.utils import (  # noqa: PLC0415
-            FLAX_WEIGHTS_NAME,
             SAFE_WEIGHTS_INDEX_NAME,
             SAFE_WEIGHTS_NAME,
-            TF2_WEIGHTS_NAME,
-            TF_WEIGHTS_NAME,
             WEIGHTS_INDEX_NAME,
             WEIGHTS_NAME,
             cached_file,
         )
     except ImportError as exc:
         raise ImportError(
-            "Hugging Face Transformers library is not installed. "
-            "Please install it to use ZipNN compression."
+            "Hugging Face Transformers library is not installed (or lacks the "
+            "loading functions this plugin patches). Please install it to use "
+            "ZipNN compression."
         ) from exc
+    # the TensorFlow and Flax weight names, which transformers 5 dropped
+    legacy_names = [
+        name for name in (
+            getattr(hf_utils, "TF_WEIGHTS_NAME", None) and hf_utils.TF_WEIGHTS_NAME + ".index",
+            getattr(hf_utils, "TF2_WEIGHTS_NAME", None),
+            getattr(hf_utils, "FLAX_WEIGHTS_NAME", None),
+        ) if name
+    ]
 
     import torch  # noqa: PLC0415
     from safetensors.torch import load as st_load  # noqa: PLC0415
@@ -155,9 +161,7 @@ def zipnn_hf(replace_local_file: bool = False, decode_device="cuda") -> None:
         }
         # candidate weight names, reference zipnn.py:1446-1459
         candidates = [
-            TF_WEIGHTS_NAME + ".index",
-            TF2_WEIGHTS_NAME,
-            FLAX_WEIGHTS_NAME,
+            *legacy_names,
             _add_variant(SAFE_WEIGHTS_NAME, variant),
             _add_variant(SAFE_WEIGHTS_INDEX_NAME, variant),
             _add_variant(WEIGHTS_NAME, variant),

@@ -7,12 +7,13 @@ name -> ``{"dtype": ..., "shape": ...}`` of the original tensor.  This is the
 reference's on-disk schema (zipnn/util_safetensors.py:9-58), so files written
 by the port, the JAX package or the reference load with any of them.
 
-``SafeOpen`` wraps ``safetensors.safe_open`` (reference
-zipnn/zipnn.py:1592-1626).  It decodes every compressed tensor on its
-``decode_device`` (the port's own keyword: the card unless the caller
-passes ``decode_device="cpu"``) and then hands the tensor to the
-``device`` its caller asked for, so a caller that opens a file with
-``device="cpu"`` (as transformers does) still decodes on the card.
+``SafeOpen`` stands in for ``safetensors.safe_open`` (reference
+zipnn/zipnn.py:1592-1626), reading the file with the port's own parser.
+It decodes every compressed tensor on its ``decode_device`` (the port's
+own keyword: the card unless the caller passes ``decode_device="cpu"``)
+and then hands the tensor to the ``device`` its caller asked for, so a
+caller that opens a file with ``device="cpu"`` (as transformers does)
+still decodes on the card.
 ``zipnn_safetensors()`` installs it as the ``safe_open`` of the torch and
 numpy frontends, propagated into spawned worker processes so vLLM/sglang
 engines pick it up.  The port holds no JAX arrays: the flax frontend is
@@ -28,8 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..io.serving import ShardDecoder
-from ..io.streaming import METADATA_KEY, tensor_from_flat
+from ..io.streaming import METADATA_KEY, SafetensorsStreamReader
 from ..zipnn import ZipNN
 from .patch import multi_process_patcher
 
@@ -116,32 +116,52 @@ def _to_framework(t, framework: str, device="cpu"):
 
 class SafeOpen:
     """Drop-in ``safetensors.safe_open`` with transparent decompression on
-    ``decode_device``."""
+    ``decode_device``.
+
+    The file is read by ``io.streaming.SafetensorsStreamReader``: ``keys``,
+    ``metadata``, ``get_tensor`` and ``get_tensors`` need no
+    ``safetensors`` package.  ``get_slice`` of an uncompressed tensor, and
+    any other attribute of the package's ``safe_open`` object, open the
+    file through the package when first asked for, and raise
+    ``ImportError`` where it is not installed.
+    """
 
     def __init__(self, filename, framework, device="cpu", decode_device="cuda"):
-        import safetensors  # noqa: PLC0415
-
+        self._filename = filename
+        self._framework_arg = framework
         self._framework = _framework(framework)
         self._device = device
-        self._decode_device = torch.device(decode_device)
-        # the stored bytes stay on the host: the decoder reads them there
-        self._f = safetensors.safe_open(filename, framework, device="cpu")
-        self.compressed_tensors_metadata = get_compressed_tensors_metadata(
-            self._f.metadata()
-        )
+        self._reader = SafetensorsStreamReader(filename, decode_device)
+        self._f = None  # the package's safe_open, opened on first need
+        self.compressed_tensors_metadata = self._reader.compressed
+
+    def _package(self, what: str):
+        """The package's ``safe_open`` of the file (the stored bytes stay on
+        the host), opened once."""
+        if self._f is None:
+            try:
+                import safetensors  # noqa: PLC0415
+            except ImportError as exc:
+                raise ImportError(
+                    f"SafeOpen.{what} needs the safetensors package, which is not "
+                    "installed (keys, metadata, get_tensor and get_tensors do not)"
+                ) from exc
+            self._f = safetensors.safe_open(self._filename, self._framework_arg, device="cpu")
+        return self._f
+
+    def keys(self):
+        """The tensor names, sorted (as ``safe_open.keys()``)."""
+        return sorted(self._reader.keys())
+
+    def metadata(self):
+        """The file's ``__metadata__``, or None where it has none."""
+        md = self._reader.raw_metadata
+        return None if md is None else dict(md)
 
     def get_tensor(self, name):
         if name in self.compressed_tensors_metadata:
             return self.get_tensors([name])[name]
-        stored = self._f.get_tensor(name)
-        return stored.to(self._device) if self._framework == "pt" else stored
-
-    def _stored_u8(self, name) -> np.ndarray:
-        """Raw stored uint8 payload of a compressed tensor as a host array."""
-        stored = self._f.get_tensor(name)
-        if self._framework == "pt":
-            return stored.numpy()
-        return np.asarray(stored).astype(np.uint8, copy=False)
+        return _to_framework(self._reader.stored(name), self._framework, self._device)
 
     def get_tensors(self, names=None):
         """Bulk load: ``{name: tensor}`` for ``names`` (default: all keys).
@@ -151,20 +171,15 @@ class SafeOpen:
         and uploads while tensor N's kernels run); ``get_tensor`` of a
         compressed name takes this same route.
         """
-        names = list(self._f.keys()) if names is None else list(names)
+        names = self.keys() if names is None else list(names)
         comp = [n for n in names if n in self.compressed_tensors_metadata]
-        dec = ShardDecoder(to_device=True, device=self._decode_device)
-        flats = dec.decompress_iter(self._stored_u8(n) for n in comp)
-        decoded = {
-            n: _to_framework(tensor_from_flat(f, self.compressed_tensors_metadata[n]),
-                             self._framework, self._device)
-            for n, f in zip(comp, flats)
-        }
+        decoded = {n: _to_framework(t, self._framework, self._device)
+                   for n, t in zip(comp, self._reader.decoded(comp))}
         return {n: decoded[n] if n in decoded else self.get_tensor(n) for n in names}
 
     def get_slice(self, name):
         if name not in self.compressed_tensors_metadata:
-            return self._f.get_slice(name)
+            return self._package("get_slice").get_slice(name)
         raise NotImplementedError(
             "get_slice on a znn-compressed tensor is not supported; use get_tensor"
         )
@@ -173,10 +188,14 @@ class SafeOpen:
         return self
 
     def __exit__(self, exc_type, exc_value, traceback):
-        return self._f.__exit__(exc_type, exc_value, traceback)
+        if self._f is not None:
+            self._f.__exit__(exc_type, exc_value, traceback)
+        return False
 
     def __getattr__(self, name):
-        return getattr(self._f, name)
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self._package(name), name)
 
 
 def _patch_safe_open(decode_device: str) -> None:
