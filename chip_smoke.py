@@ -234,6 +234,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -250,6 +251,24 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 TAIL_BF16 = 6002
 TAIL_FP32 = 6004  # 1501 trailing floats: a short tail chunk
 SMALL_MIB = 8  # the shared-table fixtures
+
+
+def ptxas_entries(build_log: str) -> dict:
+    """{entry function: its registers, static shared bytes and spilled
+    bytes} from the ``-Xptxas=-v`` report of a kernel build."""
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = {"registers": None, "smem": 0, "spill": 0}
+        elif entry and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            out[entry]["spill"] = int(m.group(1))
+        elif entry and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def log(*a):
@@ -599,9 +618,21 @@ def hold_encode_kernels(x_cpu: torch.Tensor, dev, parts: int = 1):
     check(torch.equal(f_k, f_p), "const_scan_rows != plain")
     ms8 = cuda_ms(lambda: const_scan.const_scan_rows(rows))
     n_const = int((f_k >> 8).sum())
+    # one PyTorch call with the same answer: a row is constant where its
+    # bytes' min equals their max, and that byte is the min (the flags' b0
+    # is each row's first byte, a view)
+    row_bytes = rows.view(torch.uint8)
+    lo8, hi8 = torch.aminmax(row_bytes, dim=1)
+    same = lo8 == hi8
+    check(torch.equal(same.to(torch.int32), f_k >> 8)
+          and torch.equal(lo8[same].to(torch.int32), (f_k & 0xFF)[same]),
+          "torch.aminmax disagrees with const_scan_rows")
+    del lo8, hi8, same
+    lib8 = cuda_ms(lambda: torch.aminmax(row_bytes, dim=1))
     log(f"[kernels] const_scan_rows ({k} chunks, {k * nb} rows of {4 * w} bytes): "
-        f"{ms8:.3f} ms (plain {plain8:.1f} ms), {n_const} constant rows, bit-exact")
-    k8 = {"ms": ms8, "plain_ms": plain8, "max_abs_err": 0,
+        f"{ms8:.3f} ms (plain {plain8:.1f} ms, torch.aminmax {lib8:.3f} ms), {n_const} "
+        f"constant rows, bit-exact")
+    k8 = {"ms": ms8, "plain_ms": plain8, "max_abs_err": 0, "library_ms": lib8,
           "bound_ms": 1e3 * (rows.numel() * 4 + 4 * k * nb) / HBM_BYTES_PER_S}
     return k8, hold_huf_encode(g, planes, tables, dev)
 
@@ -665,12 +696,17 @@ def hold_pc_encode_kernels(x_cpu: torch.Tensor, dev, chunk: int = 256 * 1024,
     ms7 = cuda_ms(lambda: huf_enc.huf_pc_encode(planes, tables, g.seg, streams))
     S = int(streams.numel())
     tl = int(np.max(plan.tables.view(np.uint16) >> 12))
+    # the warps a stream took (None: a package from before the split)
+    parts = (huf_enc.parts_per_stream(S, g.seg) if g.seg >= huf_enc.WARP_SYMBOLS else 0) \
+        if hasattr(huf_enc, "parts_per_stream") else None
     log(f"[kernels] huf_pc_encode ({S} streams of {g.seg} symbols, {plan.cand.size} "
-        f"tables, codes up to {tl} bits): {ms7:.3f} ms (plain {plain7:.1f} ms), bit-exact "
-        f"on every stream's bytes and total_bits")
+        f"tables, codes up to {tl} bits; split: "
+        + ("a lane a stream" if parts == 0 else f"{parts} warp(s) a stream")
+        + f"): {ms7:.3f} ms (plain {plain7:.1f} ms), bit-exact on every stream's bytes "
+        f"and total_bits")
     # symbols read, stream bytes written, tables, offsets, total_bits
     nbytes7 = S * g.seg + int(sb.sum()) + tables.numel() * 2 + 8 * S + 4 * S
-    k7 = {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0,
+    k7 = {"ms": ms7, "plain_ms": plain7, "max_abs_err": 0, "parts": parts,
           "bound_ms": 1e3 * nbytes7 / HBM_BYTES_PER_S}
     return hk, k7, {"rows": rows, "planes": planes, "tables": tables,
                     "streams": streams, "seg": g.seg,
@@ -1732,7 +1768,7 @@ def cli_and_trace(file, nat, base, tuned, c_bf16, x_bf16, event_ms, dev, smi) ->
         check(bytes(z.compress(x_dev)) == c_bf16, "traced encode input")
         prof_ms.update(traced(
             "encode bf16 per-chunk", lambda: z.compress(x_dev),
-            {"hist": "hist_cells_kernel", "k7pc": "huf_encode_warps_kernel",
+            {"hist": "hist_cells_kernel", "k7pc": "huf_pc_split_kernel",
              "splice_pc": "splice_kernel"},
             ("encode:split", "encode:hist", "encode:plan", "encode:kernel", "encode:decide",
              "encode:assemble", "encode:splice", "encode:download", "encode:unstage"),
@@ -2159,6 +2195,19 @@ def main() -> int:
     for line in kernels.build_log().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log("[build]", line.strip())
+    encoders = ptxas_entries(kernels.build_log())
+    for label, entry, count in (
+            ("huf_shared_encode (K7, a warp a stream)", "huf_encode_warps_kernel", 1),
+            ("huf_pc_encode (E, a stream over the warps of a block; tiles of 512, 1 024 "
+             "symbols)", "huf_pc_split_kernel", 2)):
+        got = [v for k, v in sorted(encoders.items()) if entry in k]
+        check(len(got) == count, f"ptxas lines of {entry}: {len(got)} found, want {count}")
+        for v in got:
+            log(f"[build] {label}: {v['registers']} registers, {v['smem']} bytes static "
+                f"shared memory, {v['spill']} bytes spilled")
+        if entry == "huf_encode_warps_kernel":
+            check((got[0]["registers"], got[0]["smem"], got[0]["spill"]) == (64, 5248, 0),
+                  "K7's ptxas line changed (want 64 registers, 5 248 bytes, no spill)")
 
     # ---- the three paths' containers --------------------------------------
     mib = args.mib << 20

@@ -638,6 +638,101 @@ def test_huf_pc_encode_kernel_matches_plain(card, seg, schedule, monkeypatch):
         assert bytes(rk[s, : nbytes[s]]) == bytes(rp[s, : nbytes[s]]), s
 
 
+def _split_inputs(n_streams, seg, codes, seed):
+    """Symbols, word offsets (every residue mod 4, so most streams start
+    and end off 16-byte boundaries) and per-cell tables for E's split:
+    ``mixed`` codes of up to 8, 11 or 12 bits; ``all_12_bit`` every symbol
+    12 bits (the row's worst fill); ``one_bit`` a near-constant stream of
+    1-bit codes (16 or 32 bits a lane; with 516 or 1 040 symbols the
+    segment's last 4 words make a part of 16 bits of its own); ``uncoded``
+    one symbol without a code in the middle of stream 0, so in one part
+    only."""
+    rng = np.random.default_rng(seed)
+    n_cells = -(-n_streams // 4)
+    if codes in ("mixed", "uncoded"):
+        tables, syms_of = _pc_tables(n_cells, seed)
+    else:
+        lengths = np.zeros(256, np.int64)
+        if codes == "all_12_bit":
+            lengths[:] = 12
+            vals = rng.permutation(4096)[:256]
+            syms_of = [np.arange(256)] * n_cells
+        else:
+            lengths[[7, 9]] = 1
+            vals = (np.arange(256) == 9).astype(np.int64)
+            syms_of = [np.array([7] * 31 + [9])] * n_cells
+        tables = torch.from_numpy(np.stack([huf_enc.pack_pc_table(vals, lengths)] * n_cells))
+    w = seg // 4
+    syms = np.zeros(4 * (n_streams * (w + 4) + 8), np.uint8)
+    offs = []
+    for s in range(n_streams):
+        o = s * (w + 4) + s % 4
+        syms[4 * o : 4 * o + seg] = rng.choice(syms_of[s // 4], seg)
+        offs.append(o)
+    if codes == "uncoded":
+        uncoded = np.nonzero((tables[0].numpy().view(np.uint16) >> 12) == 0)[0]
+        syms[4 * offs[0] + seg // 2 + 1] = uncoded[0]
+    return (torch.from_numpy(syms.view("<i4").copy()), tables,
+            torch.tensor(offs, dtype=torch.int64))
+
+
+def _same_stream_bytes(rows_k, rows_p, bits):
+    """Every row byte below ceil(bits / 8) of each stream equal."""
+    nbytes = ((bits.to(torch.int64) & 0x3FFFFFFF) + 7) // 8
+    width = int(nbytes.max()) if nbytes.numel() else 0
+    keep = torch.arange(width) < nbytes[:, None]
+    got = rows_k.cpu().view(torch.uint8)[:, :width][keep]
+    return torch.equal(got, rows_p.view(torch.uint8)[:, :width][keep])
+
+
+_SPLIT_CASES = {
+    "1x32768": (1, 32768, "mixed"),
+    "4x2048": (4, 2048, "mixed"),
+    "16x32768": (16, 32768, "mixed"),  # a 1 MiB bf16 frame's exponent planes
+    "4096x512": (4096, 512, "mixed"),
+    "4x131072": (4, 131072, "mixed"),
+    "4x2576": (4, 2576, "mixed"),  # 3 tiles of 1 024 symbols: no split of 2 or more divides them
+    "4x8192_all_12_bit": (4, 8192, "all_12_bit"),
+    "4x516_one_bit": (4, 516, "one_bit"),
+    "4x1040_one_bit": (4, 1040, "one_bit"),  # the same on tiles of 1 024 symbols
+    "1x32768_uncoded": (1, 32768, "uncoded"),
+}
+
+
+@pytest.mark.parametrize("parts", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_huf_pc_encode_split_matches_plain(card, case, parts, monkeypatch):
+    """E with each stream split over ``parts`` warps (``huf_enc.PARTS``
+    forces the split; None: the host's pick) against its plain version:
+    every ``total_bits`` and every row byte below ceil(bits / 8)."""
+    monkeypatch.setattr(huf_enc, "PARTS", parts)
+    n_streams, seg, codes = _SPLIT_CASES[case]
+    words, tables, streams = _split_inputs(n_streams, seg, codes, seed=seg + n_streams)
+    rows_p, bits_p = huf_enc.huf_pc_encode(words, tables, seg, streams)
+    kernels.reset_launches()
+    rows_k, bits_k = huf_enc.huf_pc_encode(*_to((words, tables), card), seg, streams.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["huf_pc_encode"] == 1
+    assert torch.equal(bits_k.cpu(), bits_p)
+    assert int((bits_p >> 30).sum()) == (1 if codes == "uncoded" else 0)
+    if codes == "uncoded":
+        assert int(bits_p[0]) >> 30 == 1
+    if codes == "all_12_bit":
+        assert torch.equal(bits_p, torch.full_like(bits_p, 12 * seg + 1))
+    assert _same_stream_bytes(rows_k, rows_p, bits_p)
+
+
+def test_huf_pc_encode_empty_launch(card):
+    """No stream: nothing launched, empty outputs of the row width."""
+    words = torch.zeros(64, dtype=torch.int32, device=card)
+    tables = torch.zeros((0, 256), dtype=torch.int16, device=card)
+    kernels.reset_launches()
+    rows, bits = huf_enc.huf_pc_encode(words, tables, 32768,
+                                       torch.zeros(0, dtype=torch.int64, device=card))
+    assert rows.shape == (0, huf_enc.row_words(32768, huf_enc.PC_TMAX)) and bits.shape == (0,)
+    assert kernels.launches["huf_pc_encode"] == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float8_e4m3fn,
                                    torch.float32])
 def test_pc_encode_on_card_matches_golden(card, dtype):

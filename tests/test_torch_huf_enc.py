@@ -130,6 +130,36 @@ def test_schedule_follows_stream_length(monkeypatch):
     assert huf_enc.streams_per_warp(32768) == 32
 
 
+@pytest.mark.parametrize("n_streams,seg,forced,parts", [
+    (16, 32768, None, 16),   # a 1 MiB bf16 frame's exponent planes
+    (64, 32768, None, 16),
+    (256, 32768, None, 4),
+    (512, 32768, None, 2),
+    (1024, 32768, None, 1),
+    (2048, 32768, None, 1),
+    (8192, 32768, None, 1),  # the main path's batch: 2 048 chunks of 256 KB
+    (16, 2048, None, 2),     # 2 tiles: a part keeps at least one
+    (16, 512, None, 1),
+    (8192, 32768, 8, 8),     # PARTS forces the split
+])
+def test_split_follows_stream_count(n_streams, seg, forced, parts, monkeypatch):
+    """``huf_pc_encode``'s warps a stream, picked from the launch's stream
+    count and length alone: doubled while the launch holds fewer than
+    ``PART_WARPS`` warps and each part keeps a tile; ``PARTS`` forces it."""
+    monkeypatch.setattr(huf_enc, "PARTS", forced)
+    assert huf_enc.parts_per_stream(n_streams, seg) == parts
+
+
+def test_forced_split_must_be_a_power_of_2(monkeypatch):
+    words = torch.zeros(64, dtype=torch.int32)
+    tables = torch.zeros((1, 256), dtype=torch.int16)
+    streams = torch.zeros(4, dtype=torch.int64)
+    for bad in (3, 2 * huf_enc.MAX_PARTS, 0):
+        monkeypatch.setattr(huf_enc, "PARTS", bad)
+        with pytest.raises(ValueError):
+            huf_enc.huf_pc_encode(words, tables, 64, streams)
+
+
 def test_pack_etable_matches_pack_etable8():
     lengths, vals = _table(np.clip(RNG.normal(128, 20, 50000), 0, 255).astype(np.uint8))
     got = huf_enc.pack_etable(vals, lengths).astype(np.int64) & 0xFFFF

@@ -6,7 +6,7 @@ Run from the repository root:
                             [--kernels k1,k6,k2,k7,hist,k7pc] [--chunks 16384]
                             [--max-mib 256]
                             [--chunk-sizes 256,1024,4096,8192,16384,262144]
-                            [--group-symbols N] [--warp-symbols N]
+                            [--group-symbols N] [--warp-symbols N] [--parts P]
 
 For each chunk size, bf16 and fp32 inputs of ``--chunks`` chunks (at most
 ``--max-mib`` MiB) of N(0, 0.05) from ``--seed`` are made.  The golden
@@ -44,7 +44,10 @@ N`` sets ``GROUP_SYMBOLS`` of K1 and K6 (``huf_pc``, ``huf_shared``): the
 mean stream length below which a launch decodes one stream per lane (0: a
 warp per stream always; a large N: a lane per stream always).
 ``--warp-symbols N`` sets K7's ``huf_enc.WARP_SYMBOLS`` the same way,
-where the package has it.
+where the package has it.  ``--parts P`` forces the warps each stream of
+``huf_pc_encode`` takes (``huf_enc.PARTS``: 1, 2, 4, 8 or 16), where the
+package splits streams; the ``huf_pc_encode`` line gives ``parts``, the
+split the launch took (null for a package without one).
 
 Prints the card's name and power limit, then one JSON line per kernel and
 chunk size: ``label``, ``kernel``, ``chunk``, ``streams`` (K1, K6, K7),
@@ -120,6 +123,7 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk-sizes", default="256,1024,4096,8192,16384,262144")
     ap.add_argument("--group-symbols", type=int, default=None)
     ap.add_argument("--warp-symbols", type=int, default=None)
+    ap.add_argument("--parts", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -133,6 +137,8 @@ def main(argv=None) -> None:
         huf_pc.GROUP_SYMBOLS = huf_shared.GROUP_SYMBOLS = args.group_symbols
     if args.warp_symbols is not None and hasattr(huf_enc, "WARP_SYMBOLS"):
         huf_enc.WARP_SYMBOLS = args.warp_symbols
+    if args.parts is not None and hasattr(huf_enc, "PARTS"):
+        huf_enc.PARTS = args.parts
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
@@ -152,7 +158,8 @@ def main(argv=None) -> None:
 
     def emit(kernel, chunk, **kw):
         print(json.dumps({"label": args.label, "group_symbols": args.group_symbols,
-                          "warp_symbols": args.warp_symbols, "kernel": kernel,
+                          "warp_symbols": args.warp_symbols, "parts_forced": args.parts,
+                          "kernel": kernel,
                           "chunk": chunk, **kw}), flush=True)
 
     for chunk in (int(c) for c in args.chunk_sizes.split(",")):
@@ -216,7 +223,7 @@ def main(argv=None) -> None:
         if which & {"hist", "k7pc"}:
             from zipnn_tpu_torch.ops import hist  # noqa: PLC0415
 
-            hk, k7, b = cs.hold_pc_encode_kernels(x, dev, chunk)
+            hk, k7, b = cs.hold_pc_encode_kernels(x, dev, chunk, min_chunks=1)
             cells = int(b["rows"].shape[0])
             if "hist" in which:
                 emit("hist_cells", chunk, cells=cells, ms=hk["ms"],
@@ -225,7 +232,8 @@ def main(argv=None) -> None:
                      bound_ms=hk["bound_ms"])
             if "k7pc" in which:
                 emit("huf_pc_encode", chunk, streams=int(b["streams"].numel()),
-                     symbols=b["seg"], ms=k7["ms"], plain_ms=k7["plain_ms"],
+                     symbols=b["seg"], parts=k7["parts"], ms=k7["ms"],
+                     plain_ms=k7["plain_ms"],
                      launch_ms=launch_ms(lambda: huf_enc.huf_pc_encode(
                          b["planes"], b["tables"], b["seg"], b["streams"])),
                      bound_ms=k7["bound_ms"])

@@ -4,18 +4,20 @@ entries' wrappers and their plain PyTorch versions.
 * ``huf_shared_encode``, the counterpart of the JAX package's
   ``ops/pallas_huf_enc.py`` (K7): the shared-table profile codes every
   cell of a byte plane with one table of at most 8-bit codes.
-* ``huf_pc_encode``, the counterpart of ``jax_entropy.encode_streams``
+* ``huf_pc_encode`` (E), the counterpart of ``jax_entropy.encode_streams``
   (XLA device code of the per-chunk encode, not a Pallas kernel): codes of
   at most 12 bits, each cell with its own table.
 
-The kernel (``csrc/huf_enc.cu``) encodes one HUF stream per warp (one per
-lane for short streams, ``streams_per_warp``).  Each stream's bytes equal
-``huf.encode_stream`` on the same symbols: symbols in descending index
-order, LSB-first codes, a closing sentinel bit, zero padding.
+The kernel (``csrc/huf_enc.cu``) encodes a shared-table stream per warp
+and a per-chunk stream over ``parts_per_stream`` warps of a block (one per
+lane for short streams of either, ``streams_per_warp``).  Each stream's
+bytes equal ``huf.encode_stream`` on the same symbols: symbols in
+descending index order, LSB-first codes, a closing sentinel bit, zero
+padding.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,14 @@ _M32 = 0xFFFFFFFF
 # a launch of streams of fewer symbols encodes one stream per lane
 # (``streams_per_warp``; the crossover measured by time_kernels.py)
 WARP_SYMBOLS = 512
+# ``huf_pc_encode`` splits each stream over up to MAX_PARTS warps of a
+# block (powers of 2; a part holds whole tiles of TILE_SYMBOLS symbols, a
+# shorter stream takes one part) until the launch holds PART_WARPS warps
+# (``parts_per_stream``); PARTS, when set, forces the split
+TILE_SYMBOLS = 1024
+MAX_PARTS = 16
+PART_WARPS = 1024
+PARTS: Optional[int] = None
 
 
 def streams_per_warp(seg: int) -> int:
@@ -36,6 +46,21 @@ def streams_per_warp(seg: int) -> int:
     one per lane by the serial chain.  Every stream of a launch has ``seg``
     symbols, so the host picks without looking at the data."""
     return 1 if seg >= WARP_SYMBOLS else 32
+
+
+def parts_per_stream(n_streams: int, seg: int) -> int:
+    """Warps each stream of a ``huf_pc_encode`` launch takes on the warp
+    schedule (a power of 2 up to ``MAX_PARTS``): doubled while the launch
+    holds fewer than ``PART_WARPS`` warps and each part keeps a tile of
+    ``TILE_SYMBOLS`` symbols.  ``PARTS`` overrides.  The host picks from
+    the stream count and length alone, without looking at the data."""
+    if PARTS is not None:
+        return PARTS
+    tiles = -(-seg // TILE_SYMBOLS)
+    p = 1
+    while p < MAX_PARTS and n_streams * p < PART_WARPS and 2 * p <= tiles:
+        p *= 2
+    return p
 
 
 def pack_etable(vals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -85,7 +110,8 @@ def _check(name, planes, tables, seg, streams):
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def _launch(name, planes, tables, seg, streams, code_bits):
+def _launch(name, planes, tables, seg, streams, code_bits, *split):
+    """``split``: ``huf_pc_encode``'s warps a stream (none for K7)."""
     dev = planes.device
     S = int(streams.numel())
     rw = row_words(seg, code_bits)
@@ -94,7 +120,8 @@ def _launch(name, planes, tables, seg, streams, code_bits):
     if S:
         kernels.launch(
             name, dev, planes.data_ptr(), streams.data_ptr(), tables.data_ptr(), S,
-            seg // 4, rw, streams_per_warp(seg), rows.data_ptr(), total_bits.data_ptr(),
+            seg // 4, rw, streams_per_warp(seg), *split, rows.data_ptr(),
+            total_bits.data_ptr(),
         )
     return rows, total_bits
 
@@ -126,23 +153,29 @@ def huf_shared_encode(
 def huf_pc_encode(
     planes: torch.Tensor, tables: torch.Tensor, seg: int, streams: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Encode S = 4 T streams of ``seg`` symbols, stream ``s`` with table
-    ``s // 4`` of ``tables`` ([T, 256] int16, :func:`pack_pc_table`'s
+    """Encode S streams of ``seg`` symbols, stream ``s`` with table ``s //
+    4`` of ``tables`` ([ceil(S / 4), 256] int16, :func:`pack_pc_table`'s
     entries: the 4 streams of each cell in turn).
 
     ``planes`` and ``streams`` as in :func:`huf_shared_encode`.  Returns
     (rows int32 [S, ceil((12 seg + 1) / 32)], total_bits int32 [S]), read
-    as :func:`huf_shared_encode`'s.
+    as :func:`huf_shared_encode`'s.  Streams of ``WARP_SYMBOLS`` symbols
+    or more are each split over :func:`parts_per_stream` warps.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     _check("huf_pc_encode", planes, tables, seg, streams)
-    if tables.dim() != 2 or tables.shape[1] != 256 or 4 * tables.shape[0] != streams.numel():
-        raise ValueError(f"huf_pc_encode: tables {tuple(tables.shape)} for "
-                         f"{streams.numel()} streams, want [S / 4, 256]")
+    S = int(streams.numel())
+    if tables.dim() != 2 or tables.shape[1] != 256 or tables.shape[0] != -(-S // 4):
+        raise ValueError(f"huf_pc_encode: tables {tuple(tables.shape)} for {S} streams, "
+                         f"want [ceil(S / 4), 256]")
+    parts = parts_per_stream(S, seg)
+    if parts < 1 or parts > MAX_PARTS or parts & (parts - 1):
+        raise ValueError(f"huf_pc_encode: {parts} parts a stream, want a power of 2 "
+                         f"<= {MAX_PARTS}")
     if planes.device.type == "cpu":
         return huf_pc_encode_plain(planes, tables, seg, streams)
-    return _launch("huf_pc_encode", planes, tables, seg, streams, PC_TMAX)
+    return _launch("huf_pc_encode", planes, tables, seg, streams, PC_TMAX, parts)
 
 
 def huf_shared_encode_plain(planes, table, seg: int, streams):

@@ -62,9 +62,9 @@ _SIGNATURES = {
     # planes, streams, table, n_streams, seg_words, row_words, group, rows,
     # total_bits, stream
     "huf_shared_encode": [_P] * 3 + [_I, _I, _I, _I, _P, _P, _P],
-    # planes, streams, tables, n_streams, seg_words, row_words, group, rows,
-    # total_bits, stream
-    "huf_pc_encode": [_P] * 3 + [_I, _I, _I, _I, _P, _P, _P],
+    # planes, streams, tables, n_streams, seg_words, row_words, group, parts,
+    # rows, total_bits, stream
+    "huf_pc_encode": [_P] * 3 + [_I, _I, _I, _I, _I, _P, _P, _P],
     # rows, n_rows, width, out, stream
     "const_scan_rows": [_P, _L, _L, _P, _P],
     # rows, n_rows, width, out, stream
