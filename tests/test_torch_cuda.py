@@ -10,11 +10,13 @@ PyTorch is installed:
 
 (``ZIPNN_TPU_TESTS=1`` keeps ``tests/conftest.py`` from importing JAX.)
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec, native
+from zipnn_tpu_torch import CorruptChunkError, ZipNN, codec, native, stats
 from zipnn_tpu_torch.ops import (
     combine, const_scan, decode, encode, hist, huf_enc, huf_pc, huf_shared, huf_sync, kernels,
     splice, staging, transforms,
@@ -952,6 +954,63 @@ def test_standalone_device_inputs_order_later_kernels(card, monkeypatch):
         assert len(st.inputs.events) == 4
         out = decode.finish(decode.start_staged(st))
         assert out.cpu().numpy().tobytes() == raws[0]
+
+
+def test_staged_decode_records_events_only_for_the_caller(card):
+    """``decode.start_staged`` records no CUDA events of its own (and
+    ``kernel_ms`` then reads 0); inside a caller's ``kernels.recording()``
+    each container's K1 and K2 launch lands in the caller's list."""
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+
+    raws, blobs = _shard_blobs(3, 8 * CHUNK + 6, seed=95)
+    dec = ShardDecoder(to_device=True)
+    staged = [dec.stage(b) for b in blobs]
+    for st, raw in zip(staged, raws):
+        run = decode.start_staged(st.staged)
+        assert "events" not in run.timings
+        assert decode.finish(run).cpu().numpy().tobytes() == raw
+        assert decode.kernel_ms() == {"huf_pc_decode": 0.0, "combine_cells": 0.0}
+    with kernels.recording() as events:
+        outs = dec.decompress_stacked(staged)
+    assert [o.cpu().numpy().tobytes() for o in outs] == raws
+    assert [name for name, _, _ in events] == ["huf_pc_decode", "combine_cells"] * 3
+    assert all(ms > 0 for ms in kernels.elapsed_ms(events).values())
+
+
+def test_traced_stacked_decode_shares_the_card_clock(card, tmp_path):
+    """In a traced ``decompress_stacked`` each container's kernel launches
+    (the host calls the profiler ties to its K1 and K2 by correlation) lie
+    inside that container's ``znn:decode:enqueue`` span, and each kernel
+    starts on the card after its span starts: the program's spans and the
+    device's events share one clock."""
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+
+    raws, blobs = _shard_blobs(3, 8 * CHUNK + 6, seed=97)
+    dec = ShardDecoder(to_device=True)
+    stk = dec.stack([dec.stage(b) for b in blobs])
+    dec.decompress_stacked(stk)
+    torch.cuda.synchronize()
+    with stats.trace(str(tmp_path)):
+        outs = dec.decompress_stacked(stk)
+        torch.cuda.synchronize()
+    assert [o.cpu().numpy().tobytes() for o in outs] == raws
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    xs = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in xs
+                   if e.get("cat") == "user_annotation" and e["name"] == "znn:decode:enqueue")
+    kern = [e for e in xs if e.get("cat") == "kernel"
+            and ("huf_pc_decode" in e["name"] or "combine_cells" in e["name"])]
+    host = {e["args"]["correlation"]: e for e in xs
+            if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+    assert len(spans) == 3 and len(kern) == 6, sorted({e.get("cat") for e in xs})
+    per = [0] * 3
+    for k in kern:
+        h = host[k["args"]["correlation"]]
+        assert "LaunchKernel" in h["name"], h["name"]
+        (i,) = [j for j, (a, b) in enumerate(spans) if a <= h["ts"] and h["ts"] + h["dur"] <= b]
+        per[i] += 1
+        assert k["ts"] >= spans[i][0]
+    assert per == [2, 2, 2]
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,14 @@ Mirrors ``tests/test_stats.py`` (``CodecStats`` of both ops, the per-plane
 histogram of ``frame_stats``, a trace written by ``trace``), and adds:
 ``frame_stats`` and ``file_stats`` equal to the reference's on per-chunk,
 shared, fp32, streaming multi-frame, whole-buffer zstd and empty
-containers; and a CPU trace of ``ZipNN(device="cpu")`` compress and
-decompress that holds the codec's ``znn:`` spans.  The card's trace is in
+containers; a CPU trace of ``ZipNN(device="cpu")`` compress and
+decompress that holds the codec's ``znn:`` spans; and a CPU trace of a
+staged ``ShardDecoder.decompress_stacked`` whose ``znn:decode:*`` spans
+nest as the serving path's do.  The card's trace is in
 ``test_torch_cuda.py`` and ``chip_smoke.py`` phase 13.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -99,6 +103,40 @@ def test_cpu_trace_holds_codec_spans(tmp_path):
                  "encode:decide", "encode:assemble", "encode:splice",
                  "decode:plan", "decode:geometry", "decode:plan-tables"):
         assert f"znn:{span}" in keys, (span, sorted(k for k in keys if k.startswith("znn:")))
+
+
+def test_stacked_decode_spans_nest(tmp_path):
+    """A traced staged decode of 3 containers on the CPU: bit-exact; each
+    container's ``znn:decode:enqueue`` holds one ``znn:decode:alloc``; one
+    ``znn:decode:validate`` after them holds the ``znn:decode:bits_fetch``;
+    all inside one ``znn:decode:stacked``."""
+    from zipnn_tpu_torch.io.serving import ShardDecoder  # noqa: PLC0415
+
+    datas = [_bf16_bytes(40_000 + 6 * i) for i in range(3)]
+    dec = ShardDecoder(device="cpu", to_device=True)
+    stk = dec.stack([dec.stage(ZipNN(engine="native", compression_chunk=16384).compress(d))
+                     for d in datas])
+    with stats.trace(str(tmp_path)):
+        outs = dec.decompress_stacked(stk)
+    assert [o.numpy().tobytes() for o in outs] == datas
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    spans = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e["name"].startswith("znn:decode:")):
+            spans.setdefault(e["name"][11:], []).append((e["ts"], e["ts"] + e["dur"]))
+
+    def inside(a, b):
+        return b[0] <= a[0] and a[1] <= b[1]
+
+    assert sorted(spans) == ["alloc", "bits_fetch", "enqueue", "stacked", "validate"]
+    (stacked,), (validate,), (fetch,) = spans["stacked"], spans["validate"], spans["bits_fetch"]
+    enqueues = sorted(spans["enqueue"])
+    assert len(enqueues) == 3 and len(spans["alloc"]) == 3
+    for e in enqueues:
+        assert inside(e, stacked) and sum(inside(a, e) for a in spans["alloc"]) == 1
+    assert inside(validate, stacked) and inside(fetch, validate)
+    assert validate[0] >= enqueues[-1][1]
 
 
 def test_phase_passes_exceptions_on():

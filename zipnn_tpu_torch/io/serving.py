@@ -48,7 +48,7 @@ from typing import Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from .. import codec
+from .. import codec, stats
 from ..core import dtypes
 from ..core.enums import EnumFormat, EnumLossy
 from ..core.header import HEADER_LEN, Header
@@ -226,17 +226,23 @@ class ShardDecoder:
     def decompress_stacked(self, stk_or_list) -> Optional[list]:
         """Decode a :meth:`stack` bundle (or stack a staged list inline):
         its shards' staged launches back to back, validated by one fetch;
-        returns per-shard outputs in order, or None when not stackable."""
+        returns per-shard outputs in order, or None when not stackable.
+        A ``znn:decode:stacked`` span (``stats.phase``) holds the call, a
+        ``znn:decode:enqueue`` span each shard's launches."""
         self._need_owned_output("decompress_stacked")
         stk = stk_or_list
         if isinstance(stk, (list, tuple)):
             stk = self.stack(stk)
         if stk is None:
             return None
-        self.timings = []
-        defer: list = []
-        outs = [self.start_staged(s, defer=defer).finish() for s in stk.shards]
-        self._validate_deferred([defer])
+        with stats.phase("decode:stacked"):
+            self.timings = []
+            defer: list = []
+            outs = []
+            for s in stk.shards:
+                with stats.phase("decode:enqueue"):
+                    outs.append(self.start_staged(s, defer=defer).finish())
+            self._validate_deferred([defer])
         return outs
 
     # -- bulk decode with deferred validation ----------------------------

@@ -527,7 +527,8 @@ class Started:
     def __init__(self, plan: Optional[Plan], orig_size: int, device: torch.device,
                  timings: Dict, defer):
         self.plan, self.orig_size, self.timings, self.defer = plan, orig_size, timings, defer
-        self.out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
+        with stats.phase("decode:alloc"):
+            self.out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
         self.bits: List[torch.Tensor] = []
         self.upload: List = []  # (first, last) copy-stream events of the uploads, per device
 
@@ -635,15 +636,15 @@ def start_staged(st: Staged, defer: Optional[list] = None) -> Started:
     """Queue the kernels of a :func:`stage`\\ d container; copies nothing
     to the card, so its plan, stage and upload seconds are 0 (the staged
     container's ``timings`` hold those of :func:`stage`).  A staged
-    container starts any number of times.  Not under a mesh: raises
-    ``ValueError``."""
+    container starts any number of times.  Records no CUDA events of its
+    own (its ``timings`` have no ``"events"``): a caller that times the
+    kernels opens ``kernels.recording()`` around it.  Not under a mesh:
+    raises ``ValueError``."""
     _no_mesh("start_staged")
     run = Started(st.plan, st.orig_size, st.device, {"plan_s": 0.0, "stage_s": 0.0}, defer)
     if st.plan is not None:
-        with kernels.recording() as events:
-            for i in range(len(st.inputs.batches)):
-                run.launch(st.inputs, i)
-        run.timings["events"] = events
+        for i in range(len(st.inputs.batches)):
+            run.launch(st.inputs, i)
     return run
 
 
@@ -693,13 +694,15 @@ def validate_deferred(entries: List[Deferred]) -> None:
     Fills each entry's ``upload_s``."""
     if not entries:
         return
-    flat = torch.cat([e.bits for e in entries]).cpu().numpy()
-    off = 0
-    for e in entries:
-        n = e.bits.numel()
-        e.timings["upload_s"] = e.upload_s()
-        check_streams(e.plan, flat[off : off + n])
-        off += n
+    with stats.phase("decode:validate"):
+        with stats.phase("decode:bits_fetch"):
+            flat = torch.cat([e.bits for e in entries]).cpu().numpy()
+        off = 0
+        for e in entries:
+            n = e.bits.numel()
+            e.timings["upload_s"] = e.upload_s()
+            check_streams(e.plan, flat[off : off + n])
+            off += n
 
 
 def decompress_payload(
@@ -739,7 +742,8 @@ def kernel_ms() -> Dict[str, float]:
     """Device milliseconds of the last CUDA decompress by kernel name (its
     decode kernel, K1 or K6, and K2; summed over batches), from the events
     that ``kernels.launch`` recorded around each launch; synchronises on
-    them."""
+    them.  :func:`start` records them; after :func:`start_staged`, which
+    records none, every name reads 0."""
     return kernels.elapsed_ms(
         last_timings.get("events", []),
         (last_timings.get("decoder", "huf_pc_decode"), "combine_cells"))
