@@ -15,6 +15,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -129,6 +130,15 @@ SAFETENSORS = {"st_per_chunk": {"engine": "cuda", **CPU},
                "st_shared": {"engine": "native", "huffman_table": "shared"}}
 
 
+def _reap(procs):
+    """Kill every worker still running (its wait timed out) and reap them
+    all, so none outlives the fixture."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
+
+
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     """Every scenario run by one pair of worker processes: {name: dir}."""
@@ -160,9 +170,13 @@ def pair(tmp_path_factory):
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for rank in range(2)]
     errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=240)
-        errs.append((p.returncode, err.decode()[-3000:]))
+    deadline = time.monotonic() + 120  # the pair takes ~12 s
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=max(0, deadline - time.monotonic()))
+            errs.append((p.returncode, err.decode()[-3000:]))
+    finally:
+        _reap(procs)
     for rc, err in errs:
         assert rc == 0, err
     return d
