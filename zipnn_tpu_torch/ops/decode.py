@@ -69,6 +69,7 @@ from ..parallel import sharded
 from . import combine, huf_pc, huf_shared, kernels, staging
 
 KIND_STORED, KIND_RLE, KIND_HUF = 0, 1, 2
+KIND_NAMES = tuple(kernels.combined_bytes)  # its keys, in the order of the kinds
 BATCH_BYTES = 512 << 20  # output bytes per device batch
 
 # what the last finished decode spent, for callers that report it:
@@ -306,6 +307,13 @@ def build_plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
         return Plan(g)
 
 
+def kind_bytes(g: Geometry, lo: int, hi: int) -> Dict[str, int]:
+    """Plane bytes of the cells of chunks [lo, hi), by kind
+    (:data:`KIND_NAMES`): what K2 assembles from each kind of cell."""
+    kind, want = g.kind[:, lo:hi], g.want[:, lo:hi]
+    return {name: int(want[kind == k].sum()) for k, name in enumerate(KIND_NAMES)}
+
+
 def payload_ranges(g: Geometry, lo: int, hi: int):
     """``(offset, length)`` of the payload bytes that the cells of chunks
     [lo, hi) occupy: a span per plane, from its first cell to its last,
@@ -450,6 +458,7 @@ class DeviceInputs:
         else:
             self.cells, self.tlogs, self.tables = views[7:]
         self.ranges = [payload_ranges(plan.g, lo, hi) for lo, hi in self.batches]
+        self.kind_bytes = [kind_bytes(plan.g, lo, hi) for lo, hi in self.batches]
         self.nbytes = packed.size + sum(n for r in self.ranges for _, n in r)  # bytes to the card
 
     def upload(self, i: int):
@@ -536,7 +545,7 @@ class Started:
         """Batch ``i`` of ``dv``, on its device: wait for its bytes, decode
         its Huffman streams, assemble its chunks into the output (through a
         buffer on that device and a copy, when the output lies on
-        another)."""
+        another); add its bytes by cell kind to ``kernels.combined_bytes``."""
         lo, hi = dv.batches[i]
         if dv.events:
             torch.cuda.current_stream(dv.device).wait_event(dv.events[i])
@@ -554,6 +563,8 @@ class Started:
             self.out[lo * cs : lo * cs + total].copy_(part[:total])
             bl = bl.to(self.out.device)
         self.bits.append(bl)
+        for name, n in dv.kind_bytes[i].items():
+            kernels.combined_bytes[name] += n
 
 
 def _device(device) -> torch.device:

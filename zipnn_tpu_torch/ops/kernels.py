@@ -9,7 +9,11 @@ of the headers they include (``csrc/*.cuh``), so an edited file is never
 served a stale library.
 
 ``launches`` counts kernel launches by wrapper name: a wrapper adds one
-where it launches its kernel and nowhere else.  Inside ``with
+where it launches its kernel and nowhere else.  ``combined_bytes`` counts,
+beside it, the plane bytes that K2 (``combine_cells``, or its plain
+version on the CPU) assembled, by the kind of cell they came from:
+``ops/decode.py`` adds each batch's totals as it launches the batch.
+``reset_launches`` zeroes both.  Inside ``with
 recording() as events``, each launch that the calling thread makes appends
 ``(name, start, end)`` to ``events``: CUDA events recorded on the launch's
 stream right before and right after the kernel, so their interval holds
@@ -38,6 +42,11 @@ launches: Dict[str, int] = {
     "huf_shared_encode": 0, "const_scan_rows": 0, "hist_cells": 0, "huf_pc_encode": 0,
     "splice_cells": 0,
 }
+
+# bytes K2 copied from stored cells, filled from RLE cells and took from
+# Huffman cells' symbol rows, keyed in the order of ``ops/decode.py``'s cell
+# kinds 0, 1, 2 (not in ``launches``: that one sums to a count)
+combined_bytes: Dict[str, int] = {"stored": 0, "rle": 0, "huffman": 0}
 
 # the event list of the innermost ``recording()`` block of this thread
 _recording: contextvars.ContextVar = contextvars.ContextVar("recording", default=None)
@@ -75,8 +84,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counter in (launches, combined_bytes):
+        for k in counter:
+            counter[k] = 0
 
 
 @contextlib.contextmanager
