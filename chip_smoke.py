@@ -29,7 +29,13 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    batch of the bf16 encode (both profiles: the cells phase 6 writes);
    and ``combine_cells`` at 4 planes with no sign rotation (``bit_reorder``
    0) at the first batch of phase 12's fp32 lossy INTEGER container (int32
-   planes);
+   planes); then (2b, ``hold_launch_set``) a unit of each resident cell
+   that makes one launch set (93 DeepSeek-V2-Lite experts, a Mistral-7B
+   block, a Nemotron-3-Nano fp32 MoE block), encoded and staged on the
+   card: ``combine_cells_grouped`` against its plain version and the
+   tensors, its launch counted alone and timed against its byte bound,
+   beside the set's K1 and the same containers decoded one by one, and
+   ``decompress_stacked`` of the unit, bit-exact, with its launches;
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
@@ -199,7 +205,7 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
     ``example_fused_serving``, ``example_safetensors``,
     ``example_multichip`` and the two multihost examples (each starts 2
     ranks by ``spawn``, whose launches are not counted); together they
-    must launch all eight kernels.  ``example_hf_model`` and
+    must launch all nine kernels.  ``example_hf_model`` and
     ``example_vllm`` are decided before the phase by whether
     ``transformers`` and ``vllm`` are installed (and vLLM's needs a model
     directory this script does not have) and printed as not run.
@@ -440,6 +446,109 @@ def hold_combine_of(label, container: bytes, original: torch.Tensor, dev, offset
     plan, dv, (lo, hi) = plan_of(container, dev)
     sym, _ = huf_pc.huf_pc_decode(*dv.k1_args(lo, hi))
     return hold_combine(label, plan, dv.k2_args(lo, hi, sym), original, lo, hi, offset)
+
+
+# A unit of each resident cell that makes one launch set: its tensors'
+# shapes in order and their dtype (the benchmark's configurations).
+SET_UNITS = {
+    "DeepSeek-V2-Lite MoE set, 93 experts' gate, up, down": (
+        torch.bfloat16, [(1408, 2048), (1408, 2048), (2048, 1408)] * 31),
+    "Mistral-7B block": (
+        torch.bfloat16, [(4096,), (4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096),
+                         (4096,), (14336, 4096), (14336, 4096), (4096, 14336)]),
+    "Nemotron-3-Nano fp32 MoE block": (
+        torch.float32, [(2688,), (128, 2688), (128,)] + [(1856, 2688), (2688, 1856)] * 8
+        + [(3712, 2688), (2688, 3712)]),
+}
+
+
+def hold_launch_set(label, dtype, shapes, seed: int, dev) -> dict:
+    """Phase 2b: one resident unit (``SET_UNITS``) drawn on the card
+    (N(0, 0.05)), encoded per chunk at 256 KB on the card, staged and
+    stacked by ``ShardDecoder``; the unit must make one launch set.  Its
+    grouped K2 against ``combine_cells_grouped_plain`` on the same inputs
+    and against the tensors, the launch counted alone, timed against its
+    byte bound; the set's K1 launches and the same containers decoded one
+    by one (K1 or K6, then ``combine_cells``) timed beside it; then
+    ``decompress_stacked`` of the unit, bit-exact, its launches counted
+    (the row's ``launches``)."""
+    from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
+    from zipnn_tpu_torch.io.serving import ShardDecoder  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import combine, huf_pc, kernels  # noqa: PLC0415
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = [(torch.randn(s, generator=g, device=dev) * 0.05).to(dtype) for s in shapes]
+    z = ZipNN(input_format="torch", engine="cuda", device=dev, compression_chunk=256 << 10)
+    dec = ShardDecoder(to_device=True, device=dev)
+    staged = [dec.stage(bytes(z.compress(x))) for x in xs]
+    stk = dec.stack(staged)
+    check([len(ms) for _, ms in stk.unit.steps] == [len(xs)]
+          and stk.unit.steps[0][0] is not None,
+          f"{label}: {len(xs)} tensors make {len(stk.unit.steps)} steps, want one launch set")
+    ls = stk.unit.steps[0][0]
+
+    hsym = torch.empty(ls.sym_bytes, dtype=torch.uint8, device=dev)
+
+    def k1_set():
+        for grp, args in ls.k1:
+            huf_pc.huf_pc_decode(*args, ls.sym_bytes, out=hsym, group=grp)
+
+    k1_ms = cuda_ms(k1_set)
+    args = (ls.payload, hsym, *ls.k2, 1, *ls.geometry)
+    out_k = torch.full((ls.out_bytes,), 0xA5, dtype=torch.uint8, device=dev)
+    out_p = out_k.clone()
+    kernels.reset_launches()
+    combine.combine_cells_grouped(*args, out_k)
+    launched = {k: v for k, v in kernels.launches.items() if v}
+    check(launched == {"combine_cells_grouped": 1}, f"{label}: launches {launched}")
+    (_, plain_ms) = host_ms(lambda: combine.combine_cells_grouped_plain(
+        ls.payload, hsym, *ls.k2, 1, *ls.geometry[1:], out_p))
+    err = int((out_k.int() - out_p.int()).abs().max())
+    check(torch.equal(out_k, out_p), f"{label}: combine_cells_grouped != plain")
+    for x, (o, n) in zip(xs, ls.views):
+        check(torch.equal(out_k[o : o + n], x.reshape(-1).view(torch.uint8)),
+              f"{label}: grouped K2 output != tensor")
+    ms = cuda_ms(lambda: combine.combine_cells_grouped(*args, out_k))
+    # plane bytes read (stored and Huffman cells), cell and chunk
+    # descriptors, the members' words written
+    n_chunks = int(ls.k2[2].numel())
+    nbytes = (ls.kind_bytes["stored"] + ls.kind_bytes["huffman"]
+              + 12 * int(ls.k2[0].numel()) + 12 * n_chunks
+              + sum(-(-n // 4) * 4 for _, n in ls.views))
+
+    # the same containers one by one, as decode.start_staged launches them
+    alone = []
+    for st in staged:
+        dv = st.staged.inputs
+        lo, hi = dv.batches[0]
+        _, wrapper, k_args = dv.decoder()
+        a = k_args(lo, hi)
+        sym = wrapper(*a)[0]
+        total = min(hi * dv.plan.g.chunk_size, dv.plan.g.orig_size)
+        alone.append((wrapper, a, dv.k2_args(lo, hi, sym),
+                      torch.empty(-(-total // 4) * 4, dtype=torch.uint8, device=dev)))
+    k1_alone_ms = cuda_ms(lambda: [w(*a) for w, a, _, _ in alone])
+    k2_alone_ms = cuda_ms(lambda: [combine.combine_cells(*a2, o) for _, _, a2, o in alone])
+    del alone
+
+    kernels.reset_launches()
+    outs = dec.decompress_stacked(stk)
+    path = {k: v for k, v in kernels.launches.items() if v}
+    check(all(torch.equal(o, x.reshape(-1).view(torch.uint8)) for o, x in zip(outs, xs)),
+          f"{label}: decompress_stacked != tensors")
+    check(kernels.launch_sets == {"sets": 1, "containers": len(xs)}
+          and path.get("combine_cells_grouped") == 1,
+          f"{label}: launch_sets {kernels.launch_sets}, launches {path}")
+    log(f"[kernels] combine_cells_grouped ({label}): {len(xs)} containers, {n_chunks} chunks "
+        f"of {ls.geometry[0]} B, {ls.geometry[1]} planes, {ls.out_bytes} B: {ms:.3f} ms vs "
+        f"bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms (plain {plain_ms:.1f} ms), bit-exact; "
+        f"as {len(xs)} combine_cells launches {k2_alone_ms:.3f} ms.  The set's K1 "
+        f"({len(ls.k1)} launches, {ls.n_streams} streams) {k1_ms:.3f} ms; one by one "
+        f"{k1_alone_ms:.3f} ms.  decompress_stacked launches {path}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "containers": len(xs),
+            "alone_ms": k2_alone_ms, "k1_set_ms": k1_ms, "k1_alone_ms": k1_alone_ms,
+            "path_launches": path.get("combine_cells_grouped", 0)}
 
 
 def drive(label, container, x_cpu, must_launch, must_not_launch, smi):
@@ -1140,8 +1249,10 @@ def serving_load(seed: int, dev, smi):
         wall = time.perf_counter() - t0
         launches = dict(kernels.launches)
         held(outs, way)
-        for kname in ("huf_pc_decode", "combine_cells"):
-            check(launches[kname] > 0, f"{kname} not launched by {way}")
+        check(launches["huf_pc_decode"] > 0, f"huf_pc_decode not launched by {way}")
+        # a staged bundle's launch sets assemble with the grouped K2
+        check(launches["combine_cells"] + launches["combine_cells_grouped"] > 0,
+              f"no K2 launched by {way}")
         log(f"[serving] {way}: {wall:.4f} s = {nbytes / wall / 1e9:.3f} GB/s; "
             f"{summed(timings)}; launches {launches}; card: {smi}")
         return wall
@@ -2108,8 +2219,9 @@ SPAWNING_EXAMPLES = ("example_multihost_shared", "example_multihost_safetensors"
 # examples that need a package the card's host may not have
 OPTIONAL_EXAMPLES = {"example_hf_model": ("transformers", ["--demo"]),
                      "example_vllm": ("vllm", None)}
-PATH_KERNELS = ("huf_pc_decode", "huf_shared_decode", "combine_cells", "huf_shared_encode",
-                "const_scan_rows", "hist_cells", "huf_pc_encode", "splice_cells")
+PATH_KERNELS = ("huf_pc_decode", "huf_shared_decode", "combine_cells", "combine_cells_grouped",
+                "huf_shared_encode", "const_scan_rows", "hist_cells", "huf_pc_encode",
+                "splice_cells")
 
 
 def examples_phase(smi) -> dict:
@@ -2282,6 +2394,11 @@ def main() -> int:
         (x_lossy * float(2**27)).to(torch.int32), dev)
     del c_lossy
     torch.cuda.empty_cache()
+    # the grouped K2 at a launch set of each resident cell's shapes
+    sets = {}
+    for i, (label, (dtype, shapes)) in enumerate(SET_UNITS.items()):
+        sets[label] = hold_launch_set(label, dtype, shapes, args.seed + 50 + i, dev)
+        torch.cuda.empty_cache()
 
     # ---- 3. fixtures ----------------------------------------------------
     fix = ROOT / "tests" / "fixtures"
@@ -2473,6 +2590,12 @@ def main() -> int:
             "zipnn_tpu/ops/jax_entropy.py:89 encode_streams (XLA device code, not a "
             "pl.pallas_call site)", "bf16 per-chunk encode", pc["bf16"]["huf_pc_encode"]),
     ]
+    for label, r in sets.items():
+        rows[label] = r
+        out.append(row(label, "combine_cells_grouped", "zipnn_tpu_torch/csrc/combine.cu",
+                       k2 + " (many containers' chunks in one launch: a launch set)",
+                       f"resident unit ({label}): ShardDecoder.decompress_stacked",
+                       r["path_launches"]))
     asm = ("zipnn_tpu/ops/jax_codec.py:1004-1280 _assemble (host code, no device kernel and "
            "no pl.pallas_call site)")
     for key, profile in (("splice_pc", "per_chunk"), ("splice_shared", "shared")):

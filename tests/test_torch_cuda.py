@@ -911,7 +911,8 @@ def test_serving_outputs_on_card_and_pool_bounded(card):
     """A 20-shard load (both profiles, one shard with no full chunk)
     through decompress_iter, decompress_all and replayed staged groups:
     outputs live on the card, and the pool's pinned bytes stay under its
-    bound."""
+    bound.  The shared-table shard decodes by K6 alone, and by K1 in the
+    staged groups' launch set, which covers all 20."""
     from zipnn_tpu_torch.io.serving import ShardDecoder
     from zipnn_tpu_torch.ops import staging
 
@@ -925,13 +926,16 @@ def test_serving_outputs_on_card_and_pool_bounded(card):
     assert [g.cpu().numpy().tobytes() for g in got] == raws
     assert len(dec.timings) == 20 and all(t["upload_s"] >= 0 for t in dec.timings)
     assert sum(t["upload_s"] for t in dec.timings) > 0
+    kernels.reset_launches()
     assert [g.cpu().numpy().tobytes() for g in dec.decompress_all(blobs)] == raws
+    assert kernels.launches["huf_shared_decode"] > 0
     units = dec.stack_groups([dec.stage(b) for b in blobs])
     for _ in range(2):
         kernels.reset_launches()
         got = dec.decompress_groups(units)
         assert [g.cpu().numpy().tobytes() for g in got] == raws
-        assert kernels.launches["huf_shared_decode"] > 0
+        assert kernels.launches["huf_shared_decode"] == 0
+        assert kernels.launch_sets == {"sets": 1, "containers": 20}
     pool = staging.pool(card)
     assert pool.held <= staging.POOL_BYTES
 
@@ -959,7 +963,8 @@ def test_standalone_device_inputs_order_later_kernels(card, monkeypatch):
 def test_staged_decode_records_events_only_for_the_caller(card):
     """``decode.start_staged`` records no CUDA events of its own (and
     ``kernel_ms`` then reads 0); inside a caller's ``kernels.recording()``
-    each container's K1 and K2 launch lands in the caller's list."""
+    a stack of 3 containers of one geometry lands in the caller's list as
+    one launch set: one K1 and one grouped K2 launch."""
     from zipnn_tpu_torch.io.serving import ShardDecoder
 
     raws, blobs = _shard_blobs(3, 8 * CHUNK + 6, seed=95)
@@ -970,19 +975,23 @@ def test_staged_decode_records_events_only_for_the_caller(card):
         assert "events" not in run.timings
         assert decode.finish(run).cpu().numpy().tobytes() == raw
         assert decode.kernel_ms() == {"huf_pc_decode": 0.0, "combine_cells": 0.0}
+    kernels.reset_launches()
     with kernels.recording() as events:
         outs = dec.decompress_stacked(staged)
     assert [o.cpu().numpy().tobytes() for o in outs] == raws
-    assert [name for name, _, _ in events] == ["huf_pc_decode", "combine_cells"] * 3
+    assert [name for name, _, _ in events] == ["huf_pc_decode", "combine_cells_grouped"]
+    assert kernels.launch_sets == {"sets": 1, "containers": 3}
     assert all(ms > 0 for ms in kernels.elapsed_ms(events).values())
 
 
 def test_traced_stacked_decode_shares_the_card_clock(card, tmp_path):
-    """In a traced ``decompress_stacked`` each container's kernel launches
-    (the host calls the profiler ties to its K1 and K2 by correlation) lie
-    inside that container's ``znn:decode:enqueue`` span, and each kernel
-    starts on the card after its span starts: the program's spans and the
-    device's events share one clock."""
+    """In a traced ``decompress_stacked`` of 3 containers of one geometry
+    (one launch set) the set's kernel launches (the host calls the
+    profiler ties to its K1 and grouped K2 by correlation) lie inside the
+    set's ``znn:decode:enqueue`` span, and each kernel starts on the card
+    after its span starts: the program's spans and the device's events
+    share one clock.  The grouped K2's device name holds
+    ``combine_cells``, which the benchmark's K2 roofline reads."""
     from zipnn_tpu_torch.io.serving import ShardDecoder
 
     raws, blobs = _shard_blobs(3, 8 * CHUNK + 6, seed=97)
@@ -1002,15 +1011,83 @@ def test_traced_stacked_decode_shares_the_card_clock(card, tmp_path):
             and ("huf_pc_decode" in e["name"] or "combine_cells" in e["name"])]
     host = {e["args"]["correlation"]: e for e in xs
             if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
-    assert len(spans) == 3 and len(kern) == 6, sorted({e.get("cat") for e in xs})
-    per = [0] * 3
+    assert len(spans) == 1 and len(kern) == 2, sorted({e.get("cat") for e in xs})
+    assert any("combine_cells_grouped" in k["name"] for k in kern), [k["name"] for k in kern]
+    per = [0]
     for k in kern:
         h = host[k["args"]["correlation"]]
         assert "LaunchKernel" in h["name"], h["name"]
         (i,) = [j for j, (a, b) in enumerate(spans) if a <= h["ts"] and h["ts"] + h["dur"] <= b]
         per[i] += 1
         assert k["ts"] >= spans[i][0]
-    assert per == [2, 2, 2]
+    assert per == [2]
+
+
+def test_stacked_mix_on_card_equals_each_member_alone(card, monkeypatch):
+    """``tests/test_torch_launch_sets.py``'s mix on the card: sets closed on
+    geometry and on size, both K1 schedules in one set, a shared-table
+    member through K1, lone members; every output equal to the member's
+    own staged decode, twice; the launches counted."""
+    from test_torch_launch_sets import SMALL_BATCH, as_bytes, mixed_unit, stage_mixed
+    from zipnn_tpu_torch.io.serving import ShardDecoder
+
+    monkeypatch.setattr(decode, "BATCH_BYTES", SMALL_BATCH)
+    names, inputs, blobs = mixed_unit()
+    dec = ShardDecoder(to_device=True)
+    staged, alone = stage_mixed(dec, blobs)
+    for name, data, got in zip(names, inputs, alone):
+        if data is not None:
+            assert got == data, name
+    stk = dec.stack(staged)
+    sets = [ls for ls, _ in stk.unit.steps if ls is not None]
+    assert any([g for g, _ in ls.k1] == [1, 32] for ls in sets)
+    for _ in range(2):
+        kernels.reset_launches()
+        outs = dec.decompress_stacked(stk)
+        assert all(o.is_cuda for o in outs)
+        assert [as_bytes(o) for o in outs] == alone
+    assert kernels.launch_sets == {"sets": len(sets), "containers": sum(ls.n for ls in sets)}
+    assert kernels.launches["combine_cells_grouped"] == len(sets)
+    assert kernels.launches["huf_pc_decode"] >= sum(len(ls.k1) for ls in sets)
+    assert kernels.launches["huf_shared_decode"] == 0
+    # the members' own arrays left the card; each still decodes alone
+    members = [m for ls, ms in stk.unit.steps if ls is not None for m in ms]
+    assert all(staged[m].staged.inputs.starts is None for m in members)
+    for m in members:
+        assert as_bytes(dec.start_staged(staged[m]).finish()) == alone[m], names[m]
+
+
+@pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder", [
+    (1, 0, 0), (2, 10, 1), (2, 1, 1), (2, 8, 0), (4, 220, 1), (4, 220, 0)])
+@pytest.mark.parametrize("chunk", [64, 1024])
+def test_combine_grouped_kernel_matches_combine_cells(card, num_buf, byte_reorder,
+                                                      bit_reorder, chunk):
+    """``combine_cells_grouped`` on the card against ``combine_cells`` on the
+    card, member by member: ragged last chunks, members at 256-byte
+    offsets of one output, Huffman rows at byte offsets of one symbol
+    buffer; each member's padding up to its next word is zero."""
+    from test_torch_launch_sets import grouped_case
+
+    sizes = (5 * chunk + 44, chunk, 7 * chunk + 4, 45)
+    payload, hsym, members, grouped, n_out = grouped_case(num_buf, byte_reorder, 12,
+                                                          chunk=chunk, sizes=sizes)
+    payload, hsym = payload.to(card), hsym.to(card)
+    out = torch.full((n_out,), 0xA5, dtype=torch.uint8, device=card)
+    kernels.reset_launches()
+    combine.combine_cells_grouped(payload, hsym, *(t.to(card) for t in grouped), 1, chunk,
+                                  num_buf, byte_reorder, bit_reorder, out)
+    assert kernels.launches["combine_cells_grouped"] == 1
+    plain = torch.full((n_out,), 0xA5, dtype=torch.uint8)
+    combine.combine_cells_grouped(payload.cpu(), hsym.cpu(), *grouped, 1, chunk, num_buf,
+                                  byte_reorder, bit_reorder, plain)
+    for off, total, kinds, srcs, sym_off, row in members:
+        own = torch.full((-(-total // 4) * 4,), 0x5A, dtype=torch.uint8, device=card)
+        combine.combine_cells(payload, hsym[sym_off:].contiguous(),
+                              torch.from_numpy(kinds).to(card), torch.from_numpy(srcs).to(card),
+                              row, chunk, total, num_buf, byte_reorder, bit_reorder, own)
+        got = out[off : off + own.numel()].cpu()
+        assert torch.equal(got, own.cpu()), (off, total)
+        assert torch.equal(got, plain[off : off + own.numel()]), (off, total)
 
 
 # ---------------------------------------------------------------------------

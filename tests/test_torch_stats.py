@@ -106,10 +106,10 @@ def test_cpu_trace_holds_codec_spans(tmp_path):
 
 
 def test_stacked_decode_spans_nest(tmp_path):
-    """A traced staged decode of 3 containers on the CPU: bit-exact; each
-    container's ``znn:decode:enqueue`` holds one ``znn:decode:alloc``; one
-    ``znn:decode:validate`` after them holds the ``znn:decode:bits_fetch``;
-    all inside one ``znn:decode:stacked``."""
+    """A traced staged decode of 3 containers of one geometry on the CPU:
+    bit-exact; their launch set's ``znn:decode:enqueue`` holds one
+    ``znn:decode:alloc``; one ``znn:decode:validate`` after it holds the
+    ``znn:decode:bits_fetch``; all inside one ``znn:decode:stacked``."""
     from zipnn_tpu_torch.io.serving import ShardDecoder  # noqa: PLC0415
 
     datas = [_bf16_bytes(40_000 + 6 * i) for i in range(3)]
@@ -132,7 +132,7 @@ def test_stacked_decode_spans_nest(tmp_path):
     assert sorted(spans) == ["alloc", "bits_fetch", "enqueue", "stacked", "validate"]
     (stacked,), (validate,), (fetch,) = spans["stacked"], spans["validate"], spans["bits_fetch"]
     enqueues = sorted(spans["enqueue"])
-    assert len(enqueues) == 3 and len(spans["alloc"]) == 3
+    assert len(enqueues) == 1 and len(spans["alloc"]) == 1
     for e in enqueues:
         assert inside(e, stacked) and sum(inside(a, e) for a in spans["alloc"]) == 1
     assert inside(validate, stacked) and inside(fetch, validate)

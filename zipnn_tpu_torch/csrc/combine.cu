@@ -244,28 +244,23 @@ __device__ __forceinline__ uint4 group16(const Cells<planes_of<L>()>& d,
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// One warp's 512-byte tile of chunk c, whose chunk_len bytes start at byte
+// `base` of `out`: lane `lane` assembles the 16 bytes from p0 (the padding
+// of a ragged last chunk up to its next word is zero).
 template <int L>
-__global__ void __launch_bounds__(32 * kWarps) combine_cells_kernel(
-    Bufs bufs,
+__device__ __forceinline__ void combine_tile(
+    const Bufs& bufs,
     const int32_t* __restrict__ kinds,
     const int64_t* __restrict__ srcs,
-    int chunk_size,
-    int64_t total_bytes,
-    uint32_t tiles,    // tiles per chunk
-    uint32_t n_units,  // chunks * tiles
+    uint32_t c,
+    int lane,
+    int p0,
+    int64_t base,
+    int chunk_len,
     int keep,
     int bit_reorder,
     uint8_t* __restrict__ out) {
   constexpr int NB = planes_of<L>();
-  const int lane = threadIdx.x & 31;
-  const uint32_t u = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (u >= n_units) return;  // the whole warp
-  const uint32_t c = u / tiles;
-  const int p0 = (int)(u - c * tiles) * kTile + lane * kVec;
-  const int64_t base = (int64_t)c * chunk_size;
-  const int64_t rem = total_bytes - base;
-  const int chunk_len = rem < chunk_size ? (int)rem : chunk_size;
-
   int kind = 0;
   int64_t src = 0;
   if (lane < NB) {
@@ -290,6 +285,55 @@ __global__ void __launch_bounds__(32 * kWarps) combine_cells_kernel(
     if (4 * j >= chunk_len) break;
     reinterpret_cast<uint32_t*>(dst)[k] = word_at<L>(d, bufs, j, chunk_len, keep, bit_reorder);
   }
+}
+
+template <int L>
+__global__ void __launch_bounds__(32 * kWarps) combine_cells_kernel(
+    Bufs bufs,
+    const int32_t* __restrict__ kinds,
+    const int64_t* __restrict__ srcs,
+    int chunk_size,
+    int64_t total_bytes,
+    uint32_t tiles,    // tiles per chunk
+    uint32_t n_units,  // chunks * tiles
+    int keep,
+    int bit_reorder,
+    uint8_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t u = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (u >= n_units) return;  // the whole warp
+  const uint32_t c = u / tiles;
+  const int p0 = (int)(u - c * tiles) * kTile + lane * kVec;
+  const int64_t base = (int64_t)c * chunk_size;
+  const int64_t rem = total_bytes - base;
+  combine_tile<L>(bufs, kinds, srcs, c, lane, p0, base,
+                  rem < chunk_size ? (int)rem : chunk_size, keep, bit_reorder, out);
+}
+
+// The grouped instance: the chunks of many containers of one geometry (a
+// launch set of ops/decode.py) in one launch.  Chunk c holds
+// chunk_lens[c] <= chunk_size bytes from byte chunk_offs[c] of `out` (a
+// multiple of 4); its tiles are combine_cells_kernel's, so each
+// container's ragged last chunk is zero-padded to its next word.
+template <int L>
+__global__ void __launch_bounds__(32 * kWarps) combine_cells_grouped_kernel(
+    Bufs bufs,
+    const int32_t* __restrict__ kinds,
+    const int64_t* __restrict__ srcs,
+    const int64_t* __restrict__ chunk_offs,
+    const int32_t* __restrict__ chunk_lens,
+    uint32_t tiles,    // tiles per chunk of chunk_size bytes
+    uint32_t n_units,  // chunks * tiles
+    int keep,
+    int bit_reorder,
+    uint8_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t u = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (u >= n_units) return;  // the whole warp
+  const uint32_t c = u / tiles;
+  const int p0 = (int)(u - c * tiles) * kTile + lane * kVec;
+  combine_tile<L>(bufs, kinds, srcs, c, lane, p0, __ldg(chunk_offs + c),
+                  __ldg(chunk_lens + c), keep, bit_reorder, out);
 }
 
 // A thread per output byte (chunks off word boundaries): byte p & 3 of
@@ -370,5 +414,40 @@ extern "C" int combine_cells(
     return (int)cudaErrorInvalidValue;
   }
 #undef ZIPNN_COMBINE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int combine_cells_grouped(
+    const void* payload, const void* hsym, const void* kinds,
+    const void* srcs, const void* chunk_offs, const void* chunk_lens,
+    long long n_chunks, long long chunk_size, long long hsym_row, int num_buf,
+    int byte_reorder, int bit_reorder, void* out, void* stream) {
+  if (n_chunks <= 0) return 0;
+  if (chunk_size <= 0 || chunk_size >= (1LL << 31) || chunk_size % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (chunk_size + kTile - 1) / kTile;
+  const long long units = n_chunks * tiles;
+  if (units >= (1LL << 32) - kWarps) return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((units + kWarps - 1) / kWarps);
+  const Bufs bufs{(const uint8_t*)payload, (const uint8_t*)hsym, (int64_t)hsym_row};
+  const int keep = byte_reorder == 8;
+  cudaStream_t st = (cudaStream_t)stream;
+#define ZIPNN_GROUPED(L)                                                       \
+  combine_cells_grouped_kernel<L><<<blocks, 32 * kWarps, 0, st>>>(             \
+      bufs, (const int32_t*)kinds, (const int64_t*)srcs,                       \
+      (const int64_t*)chunk_offs, (const int32_t*)chunk_lens, (uint32_t)tiles, \
+      (uint32_t)units, keep, bit_reorder, (uint8_t*)out)
+  if (num_buf == 1) {
+    ZIPNN_GROUPED(kOne);
+  } else if (num_buf == 2 && byte_reorder == 10) {
+    ZIPNN_GROUPED(kTwo);
+  } else if (num_buf == 2) {
+    ZIPNN_GROUPED(kKeep);
+  } else if (num_buf == 4) {
+    ZIPNN_GROUPED(kFour);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ZIPNN_GROUPED
   return (int)cudaGetLastError();
 }

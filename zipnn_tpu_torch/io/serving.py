@@ -13,6 +13,10 @@ container's host plan, uploads and validation fetch in turn.
   fetches container N's ``bits_left``;
 * :meth:`ShardDecoder.stage` does the plan and every upload ahead of
   time, so :meth:`ShardDecoder.start_staged` only queues kernels;
+* :meth:`ShardDecoder.stack` bundles staged containers into one unit that
+  :meth:`ShardDecoder.decompress_stacked` decodes in launch sets
+  (``decode.LaunchSet``): one K1 launch per schedule and one grouped K2
+  launch for many containers of one geometry;
 * :meth:`ShardDecoder.decompress_all` defers every container's
   end-of-stream check to one fetch for the whole load.
 
@@ -79,14 +83,24 @@ class _StagedShard:
         self.hdr, self.staged, self.upload_bytes = hdr, staged, upload_bytes
 
 
+def _lossy_int(hdr) -> bool:
+    """A lossy container that stores integers: its output takes the
+    int-to-float step after the decode."""
+    return hdr.lossy_type == EnumLossy.INTEGER.value and hdr.lossy_is_int
+
+
 class _Stack:
-    """Staged shards that :meth:`ShardDecoder.decompress_stacked` runs
-    back to back, with one deferred validation."""
+    """Staged shards that :meth:`ShardDecoder.decompress_stacked` decodes as
+    one unit (``decode.Stack``: their payloads in one buffer, launch sets
+    planned), with one deferred validation.  A lossy-integer shard decodes
+    alone, for its int-to-float step."""
 
-    __slots__ = ("shards",)
+    __slots__ = ("shards", "unit")
 
-    def __init__(self, shards):
+    def __init__(self, shards, device):
         self.shards = list(shards)
+        self.unit = decode.Stack([s.staged for s in self.shards],
+                                 [_lossy_int(s.hdr) for s in self.shards], device)
 
 
 class ShardDecoder:
@@ -159,7 +173,7 @@ class ShardDecoder:
 
     def _finisher(self, run, hdr):
         self.timings.append(run.timings)
-        if hdr.lossy_type == EnumLossy.INTEGER.value and hdr.lossy_is_int:
+        if _lossy_int(hdr):
             return lambda: self._marshal(lossy_to_float(
                 decode.finish(run), hdr.dtype_code, hdr.lossy_factor).view(torch.uint8))
         return lambda: self._marshal(decode.finish(run))
@@ -214,10 +228,12 @@ class ShardDecoder:
     # -- staged bundles --------------------------------------------------
     def stack(self, staged_list) -> Optional[_Stack]:
         """Bundle staged shards for :meth:`decompress_stacked`; None when
-        one of them is not a :meth:`stage` handle."""
+        one of them is not a :meth:`stage` handle.  Set-up work: moves
+        their payloads into one buffer on the card (each shard's staged
+        payload becomes a view of it) and plans the launch sets."""
         if not all(isinstance(s, _StagedShard) for s in staged_list):
             return None
-        return _Stack(staged_list)
+        return _Stack(staged_list, self.device)
 
     def _need_owned_output(self, what: str) -> None:
         if not (self.to_device or self.as_numpy):
@@ -225,10 +241,12 @@ class ShardDecoder:
 
     def decompress_stacked(self, stk_or_list) -> Optional[list]:
         """Decode a :meth:`stack` bundle (or stack a staged list inline):
-        its shards' staged launches back to back, validated by one fetch;
+        its launch sets and lone shards in order, validated by one fetch;
         returns per-shard outputs in order, or None when not stackable.
-        A ``znn:decode:stacked`` span (``stats.phase``) holds the call, a
-        ``znn:decode:enqueue`` span each shard's launches."""
+        With ``to_device``, the outputs of one launch set are views of one
+        buffer, freed when the last of them is.  A ``znn:decode:stacked``
+        span (``stats.phase``) holds the call, a ``znn:decode:enqueue``
+        span each launch set's launches (each lone shard's)."""
         self._need_owned_output("decompress_stacked")
         stk = stk_or_list
         if isinstance(stk, (list, tuple)):
@@ -237,13 +255,30 @@ class ShardDecoder:
             return None
         with stats.phase("decode:stacked"):
             self.timings = []
-            defer: list = []
-            outs = []
-            for s in stk.shards:
-                with stats.phase("decode:enqueue"):
-                    outs.append(self.start_staged(s, defer=defer).finish())
-            self._validate_deferred([defer])
+            outs, check = self._start_stack(stk)
+            decode.validate_deferred([check])
         return outs
+
+    def _start_stack(self, stk: _Stack):
+        """Queue a stack's launches, step by step; returns its outputs in
+        order and its deferred check."""
+        outs: list = []
+        parts: list = []
+        solo: list = []
+        for ls, members in stk.unit.steps:
+            with stats.phase("decode:enqueue"):
+                if ls is None:
+                    defer: list = []
+                    outs.append(self.start_staged(stk.shards[members[0]], defer=defer).finish())
+                    solo += defer
+                    parts += [b for e in defer for b in e.parts]
+                else:
+                    views, bits = ls.start()
+                    parts += bits
+                    outs += [self._marshal(v) for v in views]
+                    self.timings += [{"plan_s": 0.0, "stage_s": 0.0, "upload_s": 0.0,
+                                      "decoder": "huf_pc_decode"} for _ in views]
+        return outs, decode.StackCheck(stk.unit, parts, solo)
 
     # -- bulk decode with deferred validation ----------------------------
     def decompress_all(self, items, depth: int = 4) -> list:
@@ -257,8 +292,8 @@ class ShardDecoder:
 
     def stack_groups(self, items) -> list:
         """Group ``items`` into execution units: each run of two or more
-        consecutive :meth:`stage` handles is one bundle, anything else a
-        unit of its own.  The list replays through
+        consecutive :meth:`stage` handles is one bundle (as :meth:`stack`
+        makes it), anything else a unit of its own.  The list replays through
         :meth:`decompress_groups` any number of times; its staged units
         copy nothing to the card again."""
         items = list(items)
@@ -269,7 +304,7 @@ class ShardDecoder:
             while j < len(items) and isinstance(items[j], _StagedShard):
                 j += 1
             if j - i >= 2:
-                units.append(("stk", _Stack(items[i:j]), list(range(i, j))))
+                units.append(("stk", _Stack(items[i:j], self.device), list(range(i, j))))
                 i = j
                 continue
             units.append(("one", items[i], i))
@@ -289,8 +324,10 @@ class ShardDecoder:
         for unit in units[:-1]:
             if unit[0] == "stk":
                 _kind, stk, idxs = unit
-                for s, gi in zip(stk.shards, idxs):
-                    outs[gi] = self.start_staged(s, defer=defers[gi]).finish()
+                got, check = self._start_stack(stk)
+                for gi, out in zip(idxs, got):
+                    outs[gi] = out
+                defers[idxs[0]].append(check)
                 continue
             _kind, it, i = unit
             if isinstance(it, _StagedShard):

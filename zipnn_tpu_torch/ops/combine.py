@@ -17,6 +17,11 @@ ragged last one; the output is written as words, so up to 3 bytes past
 ``total_bytes`` are written (as zero).  Chunks of 1 or 2 bytes (whose
 cells are stored or RLE) start off word boundaries; the kernel writes
 them byte by byte.
+
+:func:`combine_cells_grouped` assembles the chunks of many containers of
+one geometry in one launch (a launch set of ``ops/decode.py``), each
+chunk at its own offset of the output; there the Huffman sources are byte
+offsets into the set's symbol buffer (``hsym_row`` 1).
 """
 from __future__ import annotations
 
@@ -95,6 +100,74 @@ def _cell_bytes(payload, hsym, kind: int, src: int, hsym_row: int, n: int):
     return hsym[src * hsym_row : src * hsym_row + n]
 
 
+def combine_cells_grouped(
+    payload: torch.Tensor,
+    hsym: torch.Tensor,
+    kinds: torch.Tensor,
+    srcs: torch.Tensor,
+    chunk_offs: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    hsym_row: int,
+    chunk_size: int,
+    num_buf: int,
+    byte_reorder: int,
+    bit_reorder: int,
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """Assemble the chunks of many containers of one geometry into ``out``
+    in one launch: chunk ``c`` (cells ``c * num_buf`` on of ``kinds`` and
+    ``srcs``) holds ``chunk_lens[c]`` bytes, at most ``chunk_size``, from
+    byte ``chunk_offs[c]`` of ``out``, a multiple of 4.  The bytes from a
+    chunk's end to its next word are written as zero, as
+    :func:`combine_cells` writes a container's padding.  ``chunk_size`` is
+    a multiple of 4 (a word-aligned grid).  Returns ``out``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    dev = out.device
+    if num_buf not in (1, 2, 4) or (num_buf == 4 and byte_reorder != 220):
+        raise ValueError(
+            f"combine_cells_grouped: {num_buf} planes in mode {byte_reorder} not supported"
+        )
+    if chunk_size < 4 or chunk_size % 4:
+        raise ValueError(f"combine_cells_grouped: chunk_size {chunk_size} not a multiple of 4")
+    for name, t, dt in (
+        ("payload", payload, torch.uint8), ("hsym", hsym, torch.uint8),
+        ("kinds", kinds, torch.int32), ("srcs", srcs, torch.int64),
+        ("chunk_offs", chunk_offs, torch.int64), ("chunk_lens", chunk_lens, torch.int32),
+        ("out", out, torch.uint8),
+    ):
+        if t.device != dev:
+            raise ValueError(f"combine_cells_grouped: {name} on {t.device}, out on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"combine_cells_grouped: {name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"combine_cells_grouped: {name} must be contiguous")
+    n_chunks = int(chunk_offs.numel())
+    if (chunk_lens.shape != (n_chunks,) or kinds.shape != (n_chunks * num_buf,)
+            or srcs.shape != kinds.shape):
+        raise ValueError(
+            f"combine_cells_grouped: chunk_lens must be [{n_chunks}], "
+            f"kinds/srcs [{n_chunks * num_buf}]")
+    if out.data_ptr() % 4:
+        raise ValueError("combine_cells_grouped: out not 4-byte aligned")
+    if dev.type == "cpu":
+        return combine_cells_grouped_plain(
+            payload, hsym, kinds, srcs, chunk_offs, chunk_lens, hsym_row, num_buf,
+            byte_reorder, bit_reorder, out,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"combine_cells_grouped: unsupported device {dev}")
+    if n_chunks:
+        kernels.launch(
+            "combine_cells_grouped", dev,
+            payload.data_ptr(), hsym.data_ptr(), kinds.data_ptr(), srcs.data_ptr(),
+            chunk_offs.data_ptr(), chunk_lens.data_ptr(), n_chunks, int(chunk_size),
+            int(hsym_row), int(num_buf), int(byte_reorder), int(bit_reorder), out.data_ptr(),
+        )
+    return out
+
+
 def combine_cells_plain(
     payload, hsym, kinds, srcs, hsym_row: int, chunk_size: int,
     total_bytes: int, num_buf: int, byte_reorder: int, bit_reorder: int, out,
@@ -104,19 +177,41 @@ def combine_cells_plain(
     220) or a strided copy (modes 1/8) and revert the rotation on the
     chunk's whole words."""
     n_chunks = -(-total_bytes // chunk_size)
-    kinds_h = kinds.cpu().tolist()
-    srcs_h = srcs.cpu().tolist()
     end = -(-total_bytes // 4) * 4
     out[total_bytes:end] = 0
-    for c in range(n_chunks):
-        clen = min(chunk_size, total_bytes - c * chunk_size)
+    chunks = [(c * chunk_size, min(chunk_size, total_bytes - c * chunk_size))
+              for c in range(n_chunks)]
+    return _assemble_plain(payload, hsym, kinds, srcs, hsym_row, num_buf, byte_reorder,
+                           bit_reorder, out, chunks)
+
+
+def combine_cells_grouped_plain(
+    payload, hsym, kinds, srcs, chunk_offs, chunk_lens, hsym_row: int, num_buf: int,
+    byte_reorder: int, bit_reorder: int, out,
+):
+    """Plain PyTorch version of :func:`combine_cells_grouped`: each chunk
+    as :func:`combine_cells_plain` makes it, at its own offset."""
+    chunks = list(zip(chunk_offs.cpu().tolist(), chunk_lens.cpu().tolist()))
+    for off, clen in chunks:
+        out[off + clen : off + -(-clen // 4) * 4] = 0
+    return _assemble_plain(payload, hsym, kinds, srcs, hsym_row, num_buf, byte_reorder,
+                           bit_reorder, out, chunks)
+
+
+def _assemble_plain(payload, hsym, kinds, srcs, hsym_row: int, num_buf: int,
+                    byte_reorder: int, bit_reorder: int, out, chunks):
+    """Chunk ``c`` of ``chunks``, ``(offset, length)`` pairs, assembled from
+    its cells into ``out[offset : offset + length]``."""
+    kinds_h = kinds.cpu().tolist()
+    srcs_h = srcs.cpu().tolist()
+    for c, (off, clen) in enumerate(chunks):
         lens = plane_lengths(clen, num_buf, byte_reorder)
         planes = [
             _cell_bytes(payload, hsym, kinds_h[c * num_buf + b],
                         srcs_h[c * num_buf + b], hsym_row, lens[b])
             for b in range(num_buf)
         ]
-        dst = out[c * chunk_size : c * chunk_size + clen]
+        dst = out[off : off + clen]
         if num_buf == 1:
             dst.copy_(planes[0])
             continue

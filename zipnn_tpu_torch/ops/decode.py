@@ -49,14 +49,20 @@ ranges, and each shard's K1/K6 and K2 launch on its device, writing into
 the output (or, from another device, through a copy).
 
 :func:`stage` runs steps 1 and 2 only, for a later :func:`start_staged`
-that copies nothing to the card; neither runs under a mesh.  On CPU tensors there is no staging (the
-plan's arrays are the kernels' inputs) and the kernels' plain versions
-run, so the same pipeline decodes on the host for the tests.
+that copies nothing to the card; neither runs under a mesh.  A
+:class:`Stack` decodes many staged containers as one unit: their payloads
+in one buffer, each run of containers of one geometry a
+:class:`LaunchSet` (one K1 launch per schedule and one
+``combine.combine_cells_grouped`` launch for up to :data:`BATCH_BYTES` of
+output), and one fetch of every ``bits_left``.  On CPU tensors there is
+no staging (the plan's arrays are the kernels' inputs) and the kernels'
+plain versions run, so the same pipeline decodes on the host for the
+tests.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -406,6 +412,12 @@ _TORCH = {np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
           np.dtype(np.int64): torch.int64}
 
 
+def _views(buf: torch.Tensor, layout) -> List[torch.Tensor]:
+    """The arrays that :func:`_packed` laid out, as views of ``buf``."""
+    return [buf[o : o + int(np.prod(shape)) * dt.itemsize].view(_TORCH[dt]).reshape(shape)
+            for o, dt, shape in layout]
+
+
 class DeviceInputs:
     """A plan's arrays on ``device``: the payload bytes, the per-stream
     arrays, the decode kernel's tables and K2's cell descriptors.
@@ -427,10 +439,7 @@ class DeviceInputs:
                         else batches)
         self.events: List = []
         self.timings: Dict = {"stage_s": 0.0}
-        arrays = [plan.starts, plan.lens, plan.bits0, plan.out_offs, plan.out_lens,
-                  plan.kinds, plan.srcs]
-        arrays += [plan.table8] if plan.shared else [plan.cells, plan.tlogs, plan.tables]
-        packed, layout = _packed(arrays)
+        packed, layout = _packed(self._plan_arrays())
         self.src = staging.as_tensor(plan.g.payload_np)
         self.pool = None
         if device.type == "cuda":
@@ -449,17 +458,36 @@ class DeviceInputs:
                                self.timings, label="decode")
         else:
             self.payload, buf = self.src, torch.from_numpy(packed)
-        views = [buf[o : o + int(np.prod(shape)) * dt.itemsize].view(_TORCH[dt]).reshape(shape)
-                 for o, dt, shape in layout]
-        (self.starts, self.lens, self.bits0, self.out_offs, self.out_lens,
-         self.kinds, self.srcs) = views[:7]
-        if plan.shared:
-            (self.table8,) = views[7:]
-        else:
-            self.cells, self.tlogs, self.tables = views[7:]
+        self._hold(_views(buf, layout))
         self.ranges = [payload_ranges(plan.g, lo, hi) for lo, hi in self.batches]
         self.kind_bytes = [kind_bytes(plan.g, lo, hi) for lo, hi in self.batches]
         self.nbytes = packed.size + sum(n for r in self.ranges for _, n in r)  # bytes to the card
+
+    def _plan_arrays(self) -> list:
+        plan = self.plan
+        arrays = [plan.starts, plan.lens, plan.bits0, plan.out_offs, plan.out_lens,
+                  plan.kinds, plan.srcs]
+        return arrays + ([plan.table8] if plan.shared else [plan.cells, plan.tlogs, plan.tables])
+
+    def _hold(self, views) -> None:
+        (self.starts, self.lens, self.bits0, self.out_offs, self.out_lens,
+         self.kinds, self.srcs) = views[:7]
+        if self.plan.shared:
+            (self.table8,) = views[7:]
+        else:
+            self.cells, self.tlogs, self.tables = views[7:]
+
+    def drop_arrays(self) -> None:
+        """Free the device copy of the plan's arrays (a :class:`LaunchSet`
+        holds its members' in its own layout); the next
+        :meth:`k1_args`, :meth:`k6_args` or :meth:`k2_args` uploads them
+        again."""
+        self._hold([None] * (8 if self.plan.shared else 10))
+
+    def _arrays_held(self) -> None:
+        if self.starts is None:
+            packed, layout = _packed(self._plan_arrays())
+            self._hold(_views(_to_device(packed, self.device), layout))
 
     def upload(self, i: int):
         """Queue batch ``i``'s payload bytes on the copy stream (batches in
@@ -481,6 +509,7 @@ class DeviceInputs:
         return "huf_pc_decode", huf_pc.huf_pc_decode, self.k1_args
 
     def _streams(self, lo: int, hi: int):
+        self._arrays_held()
         plan = self.plan
         h0, h1 = plan.cell_range(lo, hi)
         s = slice(4 * h0, 4 * h1)
@@ -504,6 +533,7 @@ class DeviceInputs:
 
     def k2_args(self, lo: int, hi: int, hsym: torch.Tensor):
         """``combine_cells`` arguments (all but ``out``) for chunks [lo, hi)."""
+        self._arrays_held()
         g = self.plan.g
         h0, _ = self.plan.cell_range(lo, hi)
         nb, cs = g.num_buf, g.chunk_size
@@ -661,11 +691,13 @@ def start_staged(st: Staged, defer: Optional[list] = None) -> Started:
 
 class Deferred:
     """One container's end-of-stream check, waiting for
-    :func:`validate_deferred`."""
+    :func:`validate_deferred`: its ``bits_left`` (``bits``, the one tensor
+    of ``parts``) and :meth:`check` of what the fetch read of it."""
 
     def __init__(self, run: Started):
         self.plan, self.timings = run.plan, run.timings
         self.bits = torch.cat(run.bits) if len(run.bits) > 1 else run.bits[0]
+        self.parts = [self.bits]
         self.upload = run.upload
 
     def upload_s(self) -> float:
@@ -677,6 +709,11 @@ class Deferred:
         for _, last in self.upload:
             last.synchronize()
         return max(first.elapsed_time(last) for first, last in self.upload) / 1e3
+
+    def check(self, bits_left: np.ndarray) -> None:
+        """Fill ``upload_s``; raise for the first stream not fully consumed."""
+        self.timings["upload_s"] = self.upload_s()
+        check_streams(self.plan, bits_left)
 
 
 def finish(run: Started) -> torch.Tensor:
@@ -698,22 +735,284 @@ def finish(run: Started) -> torch.Tensor:
     return out
 
 
-def validate_deferred(entries: List[Deferred]) -> None:
-    """Fetch the ``bits_left`` of every entry at once and check each
-    container in order: the first bad one raises the
+def validate_deferred(entries) -> None:
+    """Fetch the ``bits_left`` of every entry (a :class:`Deferred` or a
+    :class:`StackCheck`) at once and check each in
+    order: the first bad container raises the
     ``CorruptChunkError(plane, chunk, stream)`` its own decode raises.
-    Fills each entry's ``upload_s``."""
+    Fills each container's ``upload_s``."""
     if not entries:
         return
     with stats.phase("decode:validate"):
         with stats.phase("decode:bits_fetch"):
-            flat = torch.cat([e.bits for e in entries]).cpu().numpy()
+            parts = [b for e in entries for b in e.parts]
+            flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
         off = 0
         for e in entries:
-            n = e.bits.numel()
-            e.timings["upload_s"] = e.upload_s()
-            check_streams(e.plan, flat[off : off + n])
+            n = sum(b.numel() for b in e.parts)
+            e.check(flat[off : off + n])
             off += n
+
+
+# ---------------------------------------------------------------------------
+# launch sets: many staged containers of one geometry in one launch set
+# ---------------------------------------------------------------------------
+
+SET_ALIGN = 256  # a member's output and symbol rows start on this boundary of its set's buffers
+
+
+def _round_up(n, align: int):
+    return -(-n // align) * align
+
+
+def _cumulative(sizes) -> np.ndarray:
+    """Offsets of ``sizes`` laid back to back, and their total (last)."""
+    return np.concatenate([[0], np.cumsum(np.asarray(sizes, dtype=np.int64))]).astype(np.int64)
+
+
+def set_key(plan: Plan):
+    """What the members of a launch set share: planes, byte and bit
+    reorder, chunk size (the run's grid for frames)."""
+    g = plan.g
+    return (g.num_buf, g.byte_reorder, g.bit_reorder, g.chunk_size)
+
+
+def joins_set(st: Staged) -> bool:
+    """Whether a staged container can join a launch set: it holds bytes,
+    its chunks lie on a word grid (the grouped K2 has no bytewise
+    instance), and its output is one batch (no more than
+    :data:`BATCH_BYTES`)."""
+    return (st.plan is not None and st.plan.g.chunk_size % 4 == 0
+            and len(st.inputs.batches) == 1)
+
+
+def _to_device(packed: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``packed`` on ``device`` for the compute stream: through the staging
+    pool on a CUDA device (the compute stream waits for the copy), the
+    array itself on the CPU."""
+    if device.type != "cuda":
+        return torch.from_numpy(packed)
+    pool = staging.pool(device)
+    compute = torch.cuda.current_stream(device)
+    with torch.cuda.stream(pool.stream):
+        buf = torch.empty(packed.size, dtype=torch.uint8, device=device)
+    buf.record_stream(compute)
+    compute.wait_event(staging.upload(pool, staging.as_tensor(packed), buf, [(0, packed.size)],
+                                      {}, label="decode"))
+    return buf
+
+
+class LaunchSet:
+    """Staged containers of one geometry (:func:`set_key`), each one batch,
+    decoded by one K1 launch per schedule and one
+    ``combine.combine_cells_grouped`` launch.
+
+    Built once, from the members' plans: K1's per-stream arrays with each
+    stream's start re-based into the unit's payload buffer (``payload``;
+    ``payload_offs``, each member's offset there) and its output into the
+    set's symbol buffer, where each member's rows start on a
+    :data:`SET_ALIGN` boundary; the members' decode tables at the widest
+    stride among them, ``cells`` re-based.  Each member goes to the
+    schedule that ``huf_pc.streams_per_warp`` gives its own streams, so a
+    set launches K1 at most twice: the warp-schedule members' streams,
+    then the lane-schedule ones'.  Every Huffman cell goes to K1, a
+    shared-table one too (K1 decodes any tableLog <= 12).  K2's
+    descriptors are the members' cells in order, stored sources re-based
+    into the payload buffer and Huffman sources as byte offsets into the
+    symbol buffer, with each chunk's output offset (each member's output
+    on a :data:`SET_ALIGN` boundary) and length.  The members' own device
+    arrays are then freed (:meth:`DeviceInputs.drop_arrays`), so the card
+    holds each descriptor once.
+    """
+
+    def __init__(self, members: Sequence[Staged], payload: torch.Tensor,
+                 payload_offs: Sequence[int]):
+        plans = [m.plan for m in members]
+        g0 = plans[0].g
+        self.n = len(plans)
+        self.payload = payload
+        self.device = payload.device
+        self.geometry = (g0.chunk_size, g0.num_buf, g0.byte_reorder, g0.bit_reorder)
+        sizes = [p.g.orig_size for p in plans]
+        out_base = _cumulative([_round_up(n, SET_ALIGN) for n in sizes])
+        self.out_bytes = int(out_base[-1])
+        self.views = list(zip(out_base[:-1].tolist(), sizes))
+        sym_base = _cumulative([_round_up(p.n_huf * p.row, SET_ALIGN) for p in plans])
+        self.sym_bytes = int(sym_base[-1])
+        group = [huf_pc.streams_per_warp(p.n_huf * p.row, 4 * p.n_huf, huf_pc.GROUP_SYMBOLS)
+                 for p in plans]
+        order = [m for g in (1, 32) for m in range(self.n) if group[m] == g and plans[m].n_huf]
+        n_streams = [4 * plans[m].n_huf for m in order]
+        stream_base = _cumulative(n_streams)
+        self.n_streams = int(stream_base[-1])
+        # each member's streams [lo, hi) in the order of the K1 launches' bits_left
+        self.streams = [(0, 0)] * self.n
+        for m, lo, hi in zip(order, stream_base[:-1].tolist(), stream_base[1:].tolist()):
+            self.streams[m] = (lo, hi)
+        width = max((plans[m].tables.shape[1] for m in order), default=1)
+        table_base = _cumulative([plans[m].tables.shape[0] for m in order])
+        tables = np.zeros((int(table_base[-1]), width), dtype=np.int16)
+        for m, t0 in zip(order, table_base.tolist()):
+            t = plans[m].tables
+            tables[t0 : t0 + t.shape[0], : t.shape[1]] = t
+
+        def cat(arrays, dtype):
+            return np.concatenate([np.zeros(0, dtype)] + list(arrays)).astype(dtype)
+
+        k1 = [
+            cat((plans[m].starts + payload_offs[m] for m in order), np.int64),
+            cat((plans[m].lens for m in order), np.int32),
+            cat((plans[m].bits0 for m in order), np.int32),
+            cat((plans[m].out_offs + sym_base[m] for m in order), np.int64),
+            cat((plans[m].out_lens for m in order), np.int32),
+            cat((plans[m].cells + t0 for m, t0 in zip(order, table_base.tolist())), np.int32),
+            cat((plans[m].tlogs for m in order), np.int32),
+            tables,
+        ]
+        srcs = []
+        for m, p in enumerate(plans):
+            src = p.srcs.copy()
+            src[p.kinds == KIND_STORED] += payload_offs[m]
+            huf = p.kinds == KIND_HUF
+            src[huf] = sym_base[m] + src[huf] * p.row
+            srcs.append(src)
+        cs = g0.chunk_size
+        firsts = [np.arange(p.g.n_chunks, dtype=np.int64) * cs for p in plans]
+        k2 = [
+            cat((p.kinds for p in plans), np.int32),
+            cat(srcs, np.int64),
+            cat((out_base[m] + f for m, f in enumerate(firsts)), np.int64),
+            cat((np.minimum(cs, p.g.orig_size - f) for p, f in zip(plans, firsts)), np.int32),
+        ]
+        packed, layout = _packed(k1 + k2)
+        views = _views(_to_device(packed, self.device), layout)
+        self.k2 = tuple(views[8:])
+        n_warp = sum(n for m, n in zip(order, n_streams) if group[m] == 1)
+        self.k1 = [(g, (payload, *(v[lo:hi] for v in views[:6]), *views[6:8]))
+                   for g, lo, hi in ((1, 0, n_warp), (32, n_warp, self.n_streams)) if hi > lo]
+        self.kind_bytes = {name: sum(m.inputs.kind_bytes[0][name] for m in members)
+                           for name in KIND_NAMES}
+        for m in members:
+            m.inputs.drop_arrays()
+
+    def start(self):
+        """Queue the set's launches on the compute stream.  Returns the
+        members' outputs in order (uint8 views of the set's output buffer,
+        each ``orig_size`` bytes: the buffer is freed with the last of
+        them) and the K1 launches' ``bits_left`` (:attr:`streams` indexes
+        them)."""
+        dev = self.device
+        with stats.phase("decode:alloc"):
+            out = torch.empty(self.out_bytes, dtype=torch.uint8, device=dev)
+            hsym = torch.empty(self.sym_bytes, dtype=torch.uint8, device=dev)
+        bits = [huf_pc.huf_pc_decode(*args, self.sym_bytes, out=hsym, group=g)[1]
+                for g, args in self.k1]
+        combine.combine_cells_grouped(self.payload, hsym, *self.k2, 1, *self.geometry, out)
+        kernels.launch_sets["sets"] += 1
+        kernels.launch_sets["containers"] += self.n
+        for name, n in self.kind_bytes.items():
+            kernels.combined_bytes[name] += n
+        return [out[o : o + n] for o, n in self.views], bits
+
+
+def _unit_payload(staged: Sequence[Staged], device: torch.device):
+    """One buffer holding every member's staged payload, each at a 16-byte
+    offset, copied card to card on the compute stream once the member's
+    uploads are done; each member's ``inputs.payload`` becomes its view,
+    so no payload is held twice.  Returns (buffer, offsets)."""
+    sizes = [st.inputs.payload.numel() if st.inputs else 0 for st in staged]
+    offs = _cumulative([_round_up(n, 16) for n in sizes])
+    unit = torch.empty(int(offs[-1]), dtype=torch.uint8, device=device)
+    for st, o, n in zip(staged, offs.tolist(), sizes):
+        dv = st.inputs
+        if dv is None:
+            continue
+        for event in dv.events:
+            torch.cuda.current_stream(device).wait_event(event)
+        unit[o : o + n].copy_(dv.payload)
+        dv.payload = unit[o : o + n]
+    return unit, offs[:-1].tolist()
+
+
+class Stack:
+    """Staged containers decoded as one unit (``io.serving``'s stacks).
+
+    At construction their payloads move into one buffer
+    (:func:`_unit_payload`) and the members form ``steps``, in order:
+    ``(LaunchSet, member indices)`` for each run of members that
+    :func:`joins_set` admits and ``solo`` does not mark, closed where the
+    geometry changes or its output would pass :data:`BATCH_BYTES`; ``(None,
+    [index])`` for each other member, which the caller decodes alone
+    (``start_staged``).  :class:`StackCheck` is the unit's check for
+    :func:`validate_deferred`.  Not under a mesh, as :func:`start_staged`.
+    """
+
+    def __init__(self, staged: Sequence[Staged], solo: Sequence[bool], device):
+        _no_mesh("stack")
+        self.plans = [st.plan for st in staged]
+        self.payload, offs = _unit_payload(staged, torch.device(device))
+        self.steps: List = []
+        run: List[int] = []
+        key, size = None, 0
+
+        def close():
+            if run:
+                self.steps.append((LaunchSet([staged[m] for m in run], self.payload,
+                                             [offs[m] for m in run]), list(run)))
+                run.clear()
+
+        for m, st in enumerate(staged):
+            if solo[m] or not joins_set(st):
+                close()
+                self.steps.append((None, [m]))
+                continue
+            n = _round_up(st.orig_size, SET_ALIGN)
+            if run and (set_key(st.plan) != key or size + n > BATCH_BYTES):
+                close()
+            if not run:
+                key, size = set_key(st.plan), 0
+            run.append(m)
+            size += n
+        close()
+        # each member's streams [lo, hi) in the unit's bits_left, in the
+        # order of the steps' parts, and the member each stream is of
+        self.streams = [(0, 0)] * len(staged)
+        pos = 0
+        for ls, ms in self.steps:
+            if ls is None:
+                plan = self.plans[ms[0]]
+                n = 4 * plan.n_huf if plan is not None else 0
+                self.streams[ms[0]] = (pos, pos + n)
+            else:
+                n = ls.n_streams
+                for m, (lo, hi) in zip(ms, ls.streams):
+                    self.streams[m] = (pos + lo, pos + hi)
+            pos += n
+        self.owner = np.zeros(pos, dtype=np.int64)
+        for m, (lo, hi) in enumerate(self.streams):
+            self.owner[lo:hi] = m
+
+
+class StackCheck:
+    """A :class:`Stack`'s end-of-stream check, waiting for
+    :func:`validate_deferred`: ``parts``, the ``bits_left`` of its steps in
+    order (a lone member's are its :class:`Deferred`'s), and ``solo``, the
+    lone members' :class:`Deferred` entries, whose ``upload_s`` it fills.
+    One ``flatnonzero`` over the unit's streams, then ``check_streams`` of
+    the first member in order with a bad one, so that member's own
+    ``CorruptChunkError`` is raised."""
+
+    def __init__(self, stack: Stack, parts: List[torch.Tensor], solo: List[Deferred]):
+        self.stack, self.parts, self.solo = stack, parts, solo
+
+    def check(self, bits_left: np.ndarray) -> None:
+        for e in self.solo:
+            e.timings["upload_s"] = e.upload_s()
+        bad = np.flatnonzero(bits_left)
+        if bad.size:
+            m = int(self.stack.owner[bad].min())
+            lo, hi = self.stack.streams[m]
+            check_streams(self.stack.plans[m], bits_left[lo:hi])
 
 
 def decompress_payload(

@@ -122,8 +122,11 @@ def huf_pc_decode(
     tlogs: torch.Tensor,
     tables: torch.Tensor,
     n_out: int,
+    out: Optional[torch.Tensor] = None,
+    group: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode S streams into one uint8 buffer of ``n_out`` bytes.
+    """Decode S streams into one uint8 buffer of ``n_out`` bytes: a new
+    one, or ``out`` (of ``n_out`` bytes), written in place.
 
     Stream ``s`` covers payload bytes ``[starts[s], starts[s] + lens[s])``,
     starts at bit ``bits0[s]``, uses table row ``cells[s]`` (tableLog
@@ -134,8 +137,10 @@ def huf_pc_decode(
     [1, 12] and ``2^tlog <= tables.shape[1]`` (as :func:`distinct_tables`
     gives them).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which also leaves its per-stream sync passes in ``last_sync_passes``.
+    ``group`` (1 or 32) sets the kernel's schedule, else
+    :func:`streams_per_warp` of ``n_out`` and S does.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel, which also leaves
+    its per-stream sync passes in ``last_sync_passes``.
     """
     global last_sync_passes
     dev = payload.device
@@ -159,15 +164,21 @@ def huf_pc_decode(
             raise ValueError(f"huf_pc_decode: {name} shape {tuple(t.shape)} != ({S},)")
     if tables.dim() != 2 or tlogs.shape != (tables.shape[0],):
         raise ValueError("huf_pc_decode: tables must be [n_cells, T], tlogs [n_cells]")
+    if out is not None and (out.device != dev or out.dtype != torch.uint8
+                            or out.shape != (n_out,)):
+        raise ValueError(f"huf_pc_decode: out must be a uint8 [{n_out}] tensor on {dev}")
+    if group not in (None, 1, 32):
+        raise ValueError(f"huf_pc_decode: group {group} is not 1 or 32")
     if dev.type == "cpu":
         last_sync_passes = None
         return huf_pc_decode_plain(
             payload, starts, lens, bits0, out_offs, out_lens, cells, tlogs,
-            tables, n_out,
+            tables, n_out, out,
         )
     if dev.type != "cuda":
         raise ValueError(f"huf_pc_decode: unsupported device {dev}")
-    out = torch.empty(n_out, dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     bits_left = torch.empty(S, dtype=torch.int32, device=dev)
     passes = torch.empty(S, dtype=torch.int32, device=dev)
     if S:
@@ -177,7 +188,7 @@ def huf_pc_decode(
             bits0.data_ptr(), out_offs.data_ptr(), out_lens.data_ptr(),
             cells.data_ptr(), tlogs.data_ptr(), tables.data_ptr(),
             int(tables.shape[1]), S, LANES, MIN_SEG_BITS,
-            streams_per_warp(n_out, S, GROUP_SYMBOLS),
+            streams_per_warp(n_out, S, GROUP_SYMBOLS) if group is None else group,
             out.data_ptr(), bits_left.data_ptr(), passes.data_ptr(),
         )
     last_sync_passes = passes
@@ -186,14 +197,16 @@ def huf_pc_decode(
 
 def huf_pc_decode_plain(
     payload, starts, lens, bits0, out_offs, out_lens, cells, tlogs, tables,
-    n_out: int,
+    n_out: int, out=None,
 ):
     """Plain PyTorch version: all streams advance in lockstep (the schedule
     of ``jax_entropy.decode_streams``), two symbols per step from tables
-    precomputed per bit position (``_step_tables``)."""
+    precomputed per bit position (``_step_tables``); into ``out`` when
+    given, else a new zeroed buffer."""
     dev = payload.device
     S = int(starts.numel())
-    out = torch.zeros(n_out, dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.zeros(n_out, dtype=torch.uint8, device=dev)
     if S == 0:
         return out, torch.zeros(0, dtype=torch.int32, device=dev)
     i64 = torch.int64

@@ -13,7 +13,8 @@ where it launches its kernel and nowhere else.  ``combined_bytes`` counts,
 beside it, the plane bytes that K2 (``combine_cells``, or its plain
 version on the CPU) assembled, by the kind of cell they came from:
 ``ops/decode.py`` adds each batch's totals as it launches the batch.
-``reset_launches`` zeroes both.  Inside ``with
+``launch_sets`` counts the launch sets of ``ops/decode.py`` and the
+containers they decoded.  ``reset_launches`` zeroes all three.  Inside ``with
 recording() as events``, each launch that the calling thread makes appends
 ``(name, start, end)`` to ``events``: CUDA events recorded on the launch's
 stream right before and right after the kernel, so their interval holds
@@ -39,14 +40,19 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 launches: Dict[str, int] = {
     "huf_pc_decode": 0, "huf_shared_decode": 0, "combine_cells": 0,
-    "huf_shared_encode": 0, "const_scan_rows": 0, "hist_cells": 0, "huf_pc_encode": 0,
-    "splice_cells": 0,
+    "combine_cells_grouped": 0, "huf_shared_encode": 0, "const_scan_rows": 0,
+    "hist_cells": 0, "huf_pc_encode": 0, "splice_cells": 0,
 }
 
 # bytes K2 copied from stored cells, filled from RLE cells and took from
 # Huffman cells' symbol rows, keyed in the order of ``ops/decode.py``'s cell
 # kinds 0, 1, 2 (not in ``launches``: that one sums to a count)
 combined_bytes: Dict[str, int] = {"stored": 0, "rle": 0, "huffman": 0}
+
+# launch sets started (``ops/decode.py`` ``LaunchSet``: one K1 launch per
+# schedule and one ``combine_cells_grouped`` for many containers) and the
+# containers they covered (not in ``launches`` either)
+launch_sets: Dict[str, int] = {"sets": 0, "containers": 0}
 
 # the event list of the innermost ``recording()`` block of this thread
 _recording: contextvars.ContextVar = contextvars.ContextVar("recording", default=None)
@@ -68,6 +74,9 @@ _SIGNATURES = {
     # payload, hsym, kinds, srcs, hsym_row, chunk_size, total_bytes,
     # num_buf, byte_reorder, bit_reorder, out, stream
     "combine_cells": [_P] * 4 + [_L, _L, _L, _I, _I, _I, _P, _P],
+    # payload, hsym, kinds, srcs, chunk_offs, chunk_lens, n_chunks,
+    # chunk_size, hsym_row, num_buf, byte_reorder, bit_reorder, out, stream
+    "combine_cells_grouped": [_P] * 6 + [_L, _L, _L, _I, _I, _I, _P, _P],
     # planes, streams, table, n_streams, seg_words, row_words, group, rows,
     # total_bits, stream
     "huf_shared_encode": [_P] * 3 + [_I, _I, _I, _I, _P, _P, _P],
@@ -84,7 +93,7 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for counter in (launches, combined_bytes):
+    for counter in (launches, combined_bytes, launch_sets):
         for k in counter:
             counter[k] = 0
 
