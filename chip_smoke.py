@@ -34,8 +34,9 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    block, a Nemotron-3-Nano fp32 MoE block), encoded and staged on the
    card: ``combine_cells_grouped`` against its plain version and the
    tensors, its launch counted alone and timed against its byte bound,
-   beside the set's K1 and the same containers decoded one by one, and
-   ``decompress_stacked`` of the unit, bit-exact, with its launches;
+   beside the set's K1 and the same containers decoded one by one (each a
+   stack of one), and ``decompress_stacked`` of the unit, bit-exact, with
+   its launches;
 3. decode the committed libzstd-made fixtures ``tests/fixtures/
    {bf16_gauss,fp16_mixed,fp8_gauss,fp32_gauss}.znn`` and shared-table
    containers of bf16, fp16, fp8 and fp32 (8 MiB each from ``--seed``,
@@ -98,10 +99,11 @@ from ``zipnn_tpu_torch/csrc/ztpu_core.cpp``) and no network.  Phases:
    profile (k_proj's container byte-equal to the golden encoder's), decoded
    by ``io.serving.ShardDecoder(to_device=True)`` through
    ``decompress_iter``, ``decompress_all`` (first call, then staged
-   ``stack_groups`` replayed twice through ``decompress_groups``) and by
-   one ``ZipNN.decompress`` per container in a row; every output equal to
-   its original; each way's wall, GB/s and summed plan, stage and upload
-   seconds;
+   ``stack_groups`` replayed twice through ``decompress_groups``: one
+   unit, each container one piece of a launch set, every K2 the grouped
+   one) and by one ``ZipNN.decompress`` per container in a row; every
+   output equal to its original; each way's wall, GB/s and summed plan,
+   stage and upload seconds;
 8. a checkpoint save of the same 18 tensors, from the card, in each
    profile (per-chunk, then shared): one ``ZipNN.compress`` per tensor,
    then ``io.serving.ShardEncoder.compress_iter`` with ``pool_staging``
@@ -465,16 +467,17 @@ SET_UNITS = {
 def hold_launch_set(label, dtype, shapes, seed: int, dev) -> dict:
     """Phase 2b: one resident unit (``SET_UNITS``) drawn on the card
     (N(0, 0.05)), encoded per chunk at 256 KB on the card, staged and
-    stacked by ``ShardDecoder``; the unit must make one launch set.  Its
-    grouped K2 against ``combine_cells_grouped_plain`` on the same inputs
-    and against the tensors, the launch counted alone, timed against its
-    byte bound; the set's K1 launches and the same containers decoded one
-    by one (K1 or K6, then ``combine_cells``) timed beside it; then
-    ``decompress_stacked`` of the unit, bit-exact, its launches counted
-    (the row's ``launches``)."""
+    stacked by ``ShardDecoder``; the unit must make one launch set, a
+    whole container a piece.  Its grouped K2 against
+    ``combine_cells_grouped_plain`` on the same inputs and against the
+    tensors, the launch counted alone, timed against its byte bound; the
+    set's K1 launches and the same containers decoded one by one (each a
+    stack of one, as ``decode.start_staged`` decodes it: its K1, then its
+    grouped K2) timed beside it; then ``decompress_stacked`` of the unit,
+    bit-exact, its launches counted (the row's ``launches``)."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.io.serving import ShardDecoder  # noqa: PLC0415
-    from zipnn_tpu_torch.ops import combine, huf_pc, kernels  # noqa: PLC0415
+    from zipnn_tpu_torch.ops import combine, decode, huf_pc, kernels  # noqa: PLC0415
 
     g = torch.Generator(device=dev).manual_seed(seed)
     xs = [(torch.randn(s, generator=g, device=dev) * 0.05).to(dtype) for s in shapes]
@@ -482,10 +485,13 @@ def hold_launch_set(label, dtype, shapes, seed: int, dev) -> dict:
     dec = ShardDecoder(to_device=True, device=dev)
     staged = [dec.stage(bytes(z.compress(x))) for x in xs]
     stk = dec.stack(staged)
-    check([len(ms) for _, ms in stk.unit.steps] == [len(xs)]
-          and stk.unit.steps[0][0] is not None,
-          f"{label}: {len(xs)} tensors make {len(stk.unit.steps)} steps, want one launch set")
-    ls = stk.unit.steps[0][0]
+    unit = stk.unit
+    check(len(unit.sets) == 1 and unit.sets[0].pieces == [
+        (m, 0, st.staged.plan.g.n_chunks) for m, st in enumerate(staged)],
+          f"{label}: {len(xs)} tensors make {len(unit.sets)} launch sets, want one of whole "
+          "containers")
+    ls = unit.sets[0]
+    descs = ls.k2[1][:4]  # kinds, srcs, chunk_offs, chunk_lens
 
     hsym = torch.empty(ls.sym_bytes, dtype=torch.uint8, device=dev)
 
@@ -494,41 +500,39 @@ def hold_launch_set(label, dtype, shapes, seed: int, dev) -> dict:
             huf_pc.huf_pc_decode(*args, ls.sym_bytes, out=hsym, group=grp)
 
     k1_ms = cuda_ms(k1_set)
-    args = (ls.payload, hsym, *ls.k2, 1, *ls.geometry)
-    out_k = torch.full((ls.out_bytes,), 0xA5, dtype=torch.uint8, device=dev)
+    args = (ls.payload, hsym, *descs, 1, *ls.geometry)
+    out_k = torch.full((unit.out_bytes,), 0xA5, dtype=torch.uint8, device=dev)
     out_p = out_k.clone()
     kernels.reset_launches()
     combine.combine_cells_grouped(*args, out_k)
     launched = {k: v for k, v in kernels.launches.items() if v}
     check(launched == {"combine_cells_grouped": 1}, f"{label}: launches {launched}")
     (_, plain_ms) = host_ms(lambda: combine.combine_cells_grouped_plain(
-        ls.payload, hsym, *ls.k2, 1, *ls.geometry[1:], out_p))
+        ls.payload, hsym, *descs, 1, *ls.geometry[1:], out_p))
     err = int((out_k.int() - out_p.int()).abs().max())
     check(torch.equal(out_k, out_p), f"{label}: combine_cells_grouped != plain")
-    for x, (o, n) in zip(xs, ls.views):
+    for x, (o, n) in zip(xs, unit.views):
         check(torch.equal(out_k[o : o + n], x.reshape(-1).view(torch.uint8)),
               f"{label}: grouped K2 output != tensor")
     ms = cuda_ms(lambda: combine.combine_cells_grouped(*args, out_k))
     # plane bytes read (stored and Huffman cells), cell and chunk
     # descriptors, the members' words written
-    n_chunks = int(ls.k2[2].numel())
+    n_chunks = int(descs[2].numel())
     nbytes = (ls.kind_bytes["stored"] + ls.kind_bytes["huffman"]
-              + 12 * int(ls.k2[0].numel()) + 12 * n_chunks
-              + sum(-(-n // 4) * 4 for _, n in ls.views))
+              + 12 * int(descs[0].numel()) + 12 * n_chunks
+              + sum(-(-n // 4) * 4 for _, n in unit.views))
 
-    # the same containers one by one, as decode.start_staged launches them
+    # the same containers one by one, each a stack of one (one set, one
+    # piece), as decode.start_staged decodes it
     alone = []
     for st in staged:
-        dv = st.staged.inputs
-        lo, hi = dv.batches[0]
-        _, wrapper, k_args = dv.decoder()
-        a = k_args(lo, hi)
-        sym = wrapper(*a)[0]
-        total = min(hi * dv.plan.g.chunk_size, dv.plan.g.orig_size)
-        alone.append((wrapper, a, dv.k2_args(lo, hi, sym),
-                      torch.empty(-(-total // 4) * 4, dtype=torch.uint8, device=dev)))
-    k1_alone_ms = cuda_ms(lambda: [w(*a) for w, a, _, _ in alone])
-    k2_alone_ms = cuda_ms(lambda: [combine.combine_cells(*a2, o) for _, _, a2, o in alone])
+        one = decode.Stack([st.staged], dev)
+        (s1,) = one.sets
+        alone.append((s1, torch.empty(s1.sym_bytes, dtype=torch.uint8, device=dev),
+                      torch.empty(one.out_bytes, dtype=torch.uint8, device=dev)))
+    k1_alone_ms = cuda_ms(lambda: [huf_pc.huf_pc_decode(*a, s1.sym_bytes, out=h, group=grp)
+                                   for s1, h, _ in alone for grp, a in s1.k1])
+    k2_alone_ms = cuda_ms(lambda: [s1.k2[0](s1.payload, h, *s1.k2[1], o) for s1, h, o in alone])
     del alone
 
     kernels.reset_launches()
@@ -540,9 +544,9 @@ def hold_launch_set(label, dtype, shapes, seed: int, dev) -> dict:
           and path.get("combine_cells_grouped") == 1,
           f"{label}: launch_sets {kernels.launch_sets}, launches {path}")
     log(f"[kernels] combine_cells_grouped ({label}): {len(xs)} containers, {n_chunks} chunks "
-        f"of {ls.geometry[0]} B, {ls.geometry[1]} planes, {ls.out_bytes} B: {ms:.3f} ms vs "
+        f"of {ls.geometry[0]} B, {ls.geometry[1]} planes, {unit.out_bytes} B: {ms:.3f} ms vs "
         f"bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms (plain {plain_ms:.1f} ms), bit-exact; "
-        f"as {len(xs)} combine_cells launches {k2_alone_ms:.3f} ms.  The set's K1 "
+        f"as {len(xs)} one-container sets {k2_alone_ms:.3f} ms.  The set's K1 "
         f"({len(ls.k1)} launches, {ls.n_streams} streams) {k1_ms:.3f} ms; one by one "
         f"{k1_alone_ms:.3f} ms.  decompress_stacked launches {path}")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
@@ -1209,10 +1213,12 @@ def serving_load(seed: int, dev, smi):
     """Phase 7: the Llama-3-8B two-layer load decoded on the card by
     ``ShardDecoder(to_device=True).decompress_iter``, by
     ``decompress_all`` (first call, then staged ``stack_groups`` replayed
-    through ``decompress_groups``) and by one ``ZipNN.decompress`` per
-    container in a row; every output equal to its original, the launch
-    counts set to 0 before each way and read after.  Prints each way's wall
-    and GB/s and the summed plan, stage and upload seconds."""
+    through ``decompress_groups``: one unit whose launch sets hold each
+    container whole, launched as exactly those sets) and by one
+    ``ZipNN.decompress`` per container in a row; every output equal to its
+    original, the launch counts set to 0 before each way and read after.
+    Prints each way's wall and GB/s and the summed plan, stage and upload
+    seconds."""
     from zipnn_tpu_torch import ZipNN  # noqa: PLC0415
     from zipnn_tpu_torch.io.serving import ShardDecoder  # noqa: PLC0415
     from zipnn_tpu_torch.ops import decode, kernels, staging  # noqa: PLC0415
@@ -1240,7 +1246,7 @@ def serving_load(seed: int, dev, smi):
         return "plan {:.4f} s, stage {:.4f} s, upload {:.4f} s".format(
             *(sum(t[key] for t in timings) for key in ("plan_s", "stage_s", "upload_s")))
 
-    def run(way, fn):
+    def run(way, fn, want=None):
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1253,6 +1259,9 @@ def serving_load(seed: int, dev, smi):
         # a staged bundle's launch sets assemble with the grouped K2
         check(launches["combine_cells"] + launches["combine_cells_grouped"] > 0,
               f"no K2 launched by {way}")
+        if want is not None:  # (launch counts, kernels.launch_sets) of a staged replay
+            got = ({k: launches[k] for k in want[0]}, dict(kernels.launch_sets))
+            check(got == want, f"{way}: launches and sets {got}, want {want}")
         log(f"[serving] {way}: {wall:.4f} s = {nbytes / wall / 1e9:.3f} GB/s; "
             f"{summed(timings)}; launches {launches}; card: {smi}")
         return wall
@@ -1275,10 +1284,18 @@ def serving_load(seed: int, dev, smi):
     units = dec.stack_groups([dec.stage(b) for b in blobs])
     torch.cuda.synchronize()
     stage_wall = time.perf_counter() - t0
-    log(f"[serving] stage + stack_groups of {len(blobs)} containers: {stage_wall:.4f} s")
+    check([u[0] for u in units] == ["stk", "n"], f"stack_groups units {[u[0] for u in units]}")
+    sets = units[0][1].unit.sets
+    pieces = [p for ls in sets for p in ls.pieces]
+    check([(m, lo) for m, lo, _ in pieces] == [(m, 0) for m in range(len(blobs))],
+          f"{len(blobs)} containers make pieces {pieces}, want each whole")
+    want = ({"combine_cells": 0, "combine_cells_grouped": len(sets), "huf_shared_decode": 0},
+            {"sets": len(sets), "containers": len(blobs)})
+    log(f"[serving] stage + stack_groups of {len(blobs)} containers: {stage_wall:.4f} s, "
+        f"{len(sets)} launch sets")
     for rep in (1, 2):
         walls[f"groups{rep}"] = run(f"ShardDecoder.decompress_groups (staged, replay {rep})",
-                                    lambda: (dec.decompress_groups(units), dec.timings))
+                                    lambda: (dec.decompress_groups(units), dec.timings), want)
     del units
     walls["zipnn"] = run("ZipNN.decompress per container", per_container)
     walls["iter2"] = run("ShardDecoder.decompress_iter (again)",

@@ -955,7 +955,7 @@ def test_standalone_device_inputs_order_later_kernels(card, monkeypatch):
     payload = memoryview(blobs[0])[after:]
     for _ in range(20):
         st = decode.stage(payload, 2, 1, 10, CHUNK, len(raws[0]), device=card)
-        assert len(st.inputs.events) == 4
+        assert len(st.events) == 4
         out = decode.finish(decode.start_staged(st))
         assert out.cpu().numpy().tobytes() == raws[0]
 
@@ -1026,9 +1026,14 @@ def test_traced_stacked_decode_shares_the_card_clock(card, tmp_path):
 def test_stacked_mix_on_card_equals_each_member_alone(card, monkeypatch):
     """``tests/test_torch_launch_sets.py``'s mix on the card: sets closed on
     geometry and on size, both K1 schedules in one set, a shared-table
-    member through K1, lone members; every output equal to the member's
-    own staged decode, twice; the launches counted."""
-    from test_torch_launch_sets import SMALL_BATCH, as_bytes, mixed_unit, stage_mixed
+    member through K1, the member over ``BATCH_BYTES`` cut into pieces in
+    two sets, the 2-byte chunks a set of their own (K2 by
+    ``combine_cells``), the lossy member in a set, the empty one in none;
+    every output equal to the original bytes and the member's own
+    ``decode.start``, twice; the launches counted; no member holding its
+    descriptors, and each member's stack of one equal too."""
+    from test_torch_launch_sets import (SMALL_BATCH, as_bytes, held_on_card, mixed_unit,
+                                        stage_mixed)
     from zipnn_tpu_torch.io.serving import ShardDecoder
 
     monkeypatch.setattr(decode, "BATCH_BYTES", SMALL_BATCH)
@@ -1039,22 +1044,29 @@ def test_stacked_mix_on_card_equals_each_member_alone(card, monkeypatch):
         if data is not None:
             assert got == data, name
     stk = dec.stack(staged)
-    sets = [ls for ls, _ in stk.unit.steps if ls is not None]
+    sets = stk.unit.sets
     assert any([g for g, _ in ls.k1] == [1, 32] for ls in sets)
+    in_sets = [[names[m] for m, _, _ in ls.pieces] for ls in sets]
+    assert sum(ms.count("bf16_big") for ms in in_sets) == 2
+    assert "empty" not in sum(in_sets, []) and ["sub_word"] in in_sets
+    assert any("lossy" in ms for ms in in_sets)
+    grouped = [ls for ls in sets if ls.k2[0] is combine.combine_cells_grouped]
+    assert len(grouped) == len(sets) - 1
     for _ in range(2):
         kernels.reset_launches()
         outs = dec.decompress_stacked(stk)
         assert all(o.is_cuda for o in outs)
         assert [as_bytes(o) for o in outs] == alone
     assert kernels.launch_sets == {"sets": len(sets), "containers": sum(ls.n for ls in sets)}
-    assert kernels.launches["combine_cells_grouped"] == len(sets)
-    assert kernels.launches["huf_pc_decode"] >= sum(len(ls.k1) for ls in sets)
+    assert kernels.launches["combine_cells_grouped"] == len(grouped)
+    assert kernels.launches["combine_cells"] == 1
+    assert kernels.launches["huf_pc_decode"] == sum(len(ls.k1) for ls in sets)
     assert kernels.launches["huf_shared_decode"] == 0
-    # the members' own arrays left the card; each still decodes alone
-    members = [m for ls, ms in stk.unit.steps if ls is not None for m in ms]
-    assert all(staged[m].staged.inputs.starts is None for m in members)
-    for m in members:
-        assert as_bytes(dec.start_staged(staged[m]).finish()) == alone[m], names[m]
+    # no member holds its descriptors on the card; each decodes alone (a
+    # stack of one) after the stack moved its payload
+    assert all(held_on_card(st) in ([], ["payload"]) for st in staged)
+    for m, st in enumerate(staged):
+        assert as_bytes(dec.start_staged(st).finish()) == alone[m], names[m]
 
 
 @pytest.mark.parametrize("num_buf,byte_reorder,bit_reorder", [

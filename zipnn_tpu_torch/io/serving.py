@@ -11,12 +11,14 @@ container's host plan, uploads and validation fetch in turn.
   pinned memory and their DMA on the copy stream, its kernels queued
   behind them) runs while container N's kernels run; ``finish`` then
   fetches container N's ``bits_left``;
-* :meth:`ShardDecoder.stage` does the plan and every upload ahead of
-  time, so :meth:`ShardDecoder.start_staged` only queues kernels;
-* :meth:`ShardDecoder.stack` bundles staged containers into one unit that
-  :meth:`ShardDecoder.decompress_stacked` decodes in launch sets
-  (``decode.LaunchSet``): one K1 launch per schedule and one grouped K2
-  launch for many containers of one geometry;
+* :meth:`ShardDecoder.stage` does the plan and the payload's upload ahead
+  of time; every staged container then decodes in launch sets
+  (``decode.LaunchSet``: one K1 launch per schedule and one K2 launch for
+  many containers of one geometry, up to ``decode.BATCH_BYTES`` of
+  output): :meth:`ShardDecoder.stack` bundles staged containers into one
+  unit that :meth:`ShardDecoder.decompress_stacked` decodes, and
+  :meth:`ShardDecoder.start_staged` decodes one container as a unit of
+  its own;
 * :meth:`ShardDecoder.decompress_all` defers every container's
   end-of-stream check to one fetch for the whole load.
 
@@ -75,7 +77,7 @@ class _Started:
 
 class _StagedShard:
     """A staged container: its header, its ``decode.Staged`` (plan and
-    every device input uploaded) and the bytes those inputs hold."""
+    payload uploaded) and the bytes uploaded."""
 
     __slots__ = ("hdr", "staged", "upload_bytes")
 
@@ -92,15 +94,13 @@ def _lossy_int(hdr) -> bool:
 class _Stack:
     """Staged shards that :meth:`ShardDecoder.decompress_stacked` decodes as
     one unit (``decode.Stack``: their payloads in one buffer, launch sets
-    planned), with one deferred validation.  A lossy-integer shard decodes
-    alone, for its int-to-float step."""
+    planned), with one deferred validation."""
 
     __slots__ = ("shards", "unit")
 
     def __init__(self, shards, device):
         self.shards = list(shards)
-        self.unit = decode.Stack([s.staged for s in self.shards],
-                                 [_lossy_int(s.hdr) for s in self.shards], device)
+        self.unit = decode.Stack([s.staged for s in self.shards], device)
 
 
 class ShardDecoder:
@@ -173,10 +173,14 @@ class ShardDecoder:
 
     def _finisher(self, run, hdr):
         self.timings.append(run.timings)
+        return lambda: self._output(decode.finish(run), hdr)
+
+    def _output(self, flat: torch.Tensor, hdr):
+        """A container's decoded bytes as the caller takes them: a lossy
+        container's after its int-to-float step."""
         if _lossy_int(hdr):
-            return lambda: self._marshal(lossy_to_float(
-                decode.finish(run), hdr.dtype_code, hdr.lossy_factor).view(torch.uint8))
-        return lambda: self._marshal(decode.finish(run))
+            flat = lossy_to_float(flat, hdr.dtype_code, hdr.lossy_factor).view(torch.uint8)
+        return self._marshal(flat)
 
     def start(self, data, defer=None) -> _Started:
         """Host plan, uploads and kernel launches of one container; the
@@ -187,15 +191,16 @@ class ShardDecoder:
         return _Started(self._finisher(run, hdr), run.out, hdr)
 
     def stage(self, data) -> _StagedShard:
-        """Parse, plan and upload every device input of one container, for
-        :meth:`start_staged`, which copies nothing to the card."""
+        """Parse, plan and upload the payload of one container, for
+        :meth:`start_staged` or :meth:`stack`, which copy no payload to the
+        card."""
         hdr, args, frames = self._plan_container(data)
         st = decode.stage(*args, device=self.device, frames=frames)
-        return _StagedShard(hdr, st, st.inputs.nbytes if st.inputs else 0)
+        return _StagedShard(hdr, st, st.nbytes)
 
     def start_staged(self, st: _StagedShard, defer=None) -> _Started:
-        """Queue the kernels of a :meth:`stage`\\ d container (any number of
-        times)."""
+        """Queue the kernels of a :meth:`stage`\\ d container, a unit of its
+        own (``decode.start_staged``), any number of times."""
         run = decode.start_staged(st.staged, defer=defer)
         return _Started(self._finisher(run, st.hdr), run.out, st.hdr)
 
@@ -241,12 +246,11 @@ class ShardDecoder:
 
     def decompress_stacked(self, stk_or_list) -> Optional[list]:
         """Decode a :meth:`stack` bundle (or stack a staged list inline):
-        its launch sets and lone shards in order, validated by one fetch;
-        returns per-shard outputs in order, or None when not stackable.
-        With ``to_device``, the outputs of one launch set are views of one
-        buffer, freed when the last of them is.  A ``znn:decode:stacked``
-        span (``stats.phase``) holds the call, a ``znn:decode:enqueue``
-        span each launch set's launches (each lone shard's)."""
+        its launch sets in order, validated by one fetch; returns per-shard
+        outputs in order, or None when not stackable.  With ``to_device``,
+        the outputs are views of one buffer, freed when the last of them
+        is.  A ``znn:decode:stacked`` span (``stats.phase``) holds the
+        call, a ``znn:decode:enqueue`` span each launch set's launches."""
         self._need_owned_output("decompress_stacked")
         stk = stk_or_list
         if isinstance(stk, (list, tuple)):
@@ -260,25 +264,11 @@ class ShardDecoder:
         return outs
 
     def _start_stack(self, stk: _Stack):
-        """Queue a stack's launches, step by step; returns its outputs in
-        order and its deferred check."""
-        outs: list = []
-        parts: list = []
-        solo: list = []
-        for ls, members in stk.unit.steps:
-            with stats.phase("decode:enqueue"):
-                if ls is None:
-                    defer: list = []
-                    outs.append(self.start_staged(stk.shards[members[0]], defer=defer).finish())
-                    solo += defer
-                    parts += [b for e in defer for b in e.parts]
-                else:
-                    views, bits = ls.start()
-                    parts += bits
-                    outs += [self._marshal(v) for v in views]
-                    self.timings += [{"plan_s": 0.0, "stage_s": 0.0, "upload_s": 0.0,
-                                      "decoder": "huf_pc_decode"} for _ in views]
-        return outs, decode.StackCheck(stk.unit, parts, solo)
+        """Queue a stack's launches; returns its outputs in order and its
+        deferred check."""
+        views, check = stk.unit.start()
+        self.timings += [dict(decode.STAGED_TIMINGS) for _ in views]
+        return [self._output(v, s.hdr) for v, s in zip(views, stk.shards)], check
 
     # -- bulk decode with deferred validation ----------------------------
     def decompress_all(self, items, depth: int = 4) -> list:

@@ -48,16 +48,17 @@ output), each device gets the plan's arrays and its shards' payload
 ranges, and each shard's K1/K6 and K2 launch on its device, writing into
 the output (or, from another device, through a copy).
 
-:func:`stage` runs steps 1 and 2 only, for a later :func:`start_staged`
-that copies nothing to the card; neither runs under a mesh.  A
-:class:`Stack` decodes many staged containers as one unit: their payloads
-in one buffer, each run of containers of one geometry a
-:class:`LaunchSet` (one K1 launch per schedule and one
-``combine.combine_cells_grouped`` launch for up to :data:`BATCH_BYTES` of
-output), and one fetch of every ``bits_left``.  On CPU tensors there is
-no staging (the plan's arrays are the kernels' inputs) and the kernels'
-plain versions run, so the same pipeline decodes on the host for the
-tests.
+:func:`stage` runs step 1 and the payload's upload only.  A staged
+container decodes in launch sets, one route for all: a :class:`Stack`
+decodes many staged containers as one unit (their payloads in one
+buffer; each container cut into pieces, a batch each; each run of pieces
+of one geometry a :class:`LaunchSet`, one K1 launch per schedule and one
+K2 launch for up to :data:`BATCH_BYTES` of output, its descriptors sent
+up once, packed; the outputs views of one buffer; one fetch of every
+``bits_left``), and :func:`start_staged` decodes a stack of one.
+Neither runs under a mesh.  On CPU tensors there is no staging (the
+plan's arrays are the kernels' inputs) and the kernels' plain versions
+run, so the same pipeline decodes on the host for the tests.
 """
 from __future__ import annotations
 
@@ -439,7 +440,10 @@ class DeviceInputs:
                         else batches)
         self.events: List = []
         self.timings: Dict = {"stage_s": 0.0}
-        packed, layout = _packed(self._plan_arrays())
+        arrays = [plan.starts, plan.lens, plan.bits0, plan.out_offs, plan.out_lens,
+                  plan.kinds, plan.srcs]
+        arrays += [plan.table8] if plan.shared else [plan.cells, plan.tlogs, plan.tables]
+        packed, layout = _packed(arrays)
         self.src = staging.as_tensor(plan.g.payload_np)
         self.pool = None
         if device.type == "cuda":
@@ -458,36 +462,15 @@ class DeviceInputs:
                                self.timings, label="decode")
         else:
             self.payload, buf = self.src, torch.from_numpy(packed)
-        self._hold(_views(buf, layout))
-        self.ranges = [payload_ranges(plan.g, lo, hi) for lo, hi in self.batches]
-        self.kind_bytes = [kind_bytes(plan.g, lo, hi) for lo, hi in self.batches]
-        self.nbytes = packed.size + sum(n for r in self.ranges for _, n in r)  # bytes to the card
-
-    def _plan_arrays(self) -> list:
-        plan = self.plan
-        arrays = [plan.starts, plan.lens, plan.bits0, plan.out_offs, plan.out_lens,
-                  plan.kinds, plan.srcs]
-        return arrays + ([plan.table8] if plan.shared else [plan.cells, plan.tlogs, plan.tables])
-
-    def _hold(self, views) -> None:
+        views = _views(buf, layout)
         (self.starts, self.lens, self.bits0, self.out_offs, self.out_lens,
          self.kinds, self.srcs) = views[:7]
-        if self.plan.shared:
+        if plan.shared:
             (self.table8,) = views[7:]
         else:
             self.cells, self.tlogs, self.tables = views[7:]
-
-    def drop_arrays(self) -> None:
-        """Free the device copy of the plan's arrays (a :class:`LaunchSet`
-        holds its members' in its own layout); the next
-        :meth:`k1_args`, :meth:`k6_args` or :meth:`k2_args` uploads them
-        again."""
-        self._hold([None] * (8 if self.plan.shared else 10))
-
-    def _arrays_held(self) -> None:
-        if self.starts is None:
-            packed, layout = _packed(self._plan_arrays())
-            self._hold(_views(_to_device(packed, self.device), layout))
+        self.ranges = [payload_ranges(plan.g, lo, hi) for lo, hi in self.batches]
+        self.kind_bytes = [kind_bytes(plan.g, lo, hi) for lo, hi in self.batches]
 
     def upload(self, i: int):
         """Queue batch ``i``'s payload bytes on the copy stream (batches in
@@ -509,7 +492,6 @@ class DeviceInputs:
         return "huf_pc_decode", huf_pc.huf_pc_decode, self.k1_args
 
     def _streams(self, lo: int, hi: int):
-        self._arrays_held()
         plan = self.plan
         h0, h1 = plan.cell_range(lo, hi)
         s = slice(4 * h0, 4 * h1)
@@ -533,7 +515,6 @@ class DeviceInputs:
 
     def k2_args(self, lo: int, hi: int, hsym: torch.Tensor):
         """``combine_cells`` arguments (all but ``out``) for chunks [lo, hi)."""
-        self._arrays_held()
         g = self.plan.g
         h0, _ = self.plan.cell_range(lo, hi)
         nb, cs = g.num_buf, g.chunk_size
@@ -549,25 +530,37 @@ class DeviceInputs:
 
 
 class Staged:
-    """A container planned and uploaded by :func:`stage`: ``plan`` (None
-    for an empty container), ``inputs`` (its :class:`DeviceInputs`) and
-    ``timings`` (``plan_s``, ``stage_s``)."""
+    """A container planned by :func:`stage`, its payload on the device:
+    ``plan`` (None for an empty container), ``payload`` (the payload
+    bytes on ``device``: on the CPU the host's own), ``events`` (on a CUDA
+    device, the copy-stream event behind each batch's bytes), ``nbytes``
+    (the bytes copied to the card) and ``timings`` (``plan_s``,
+    ``stage_s``).  The plan's arrays stay on the host until a
+    :class:`Stack` packs them into its launch sets."""
 
-    def __init__(self, plan: Optional[Plan], inputs: Optional[DeviceInputs],
-                 orig_size: int, device: torch.device, timings: Dict):
-        self.plan, self.inputs, self.orig_size = plan, inputs, orig_size
-        self.device, self.timings = device, timings
+    def __init__(self, plan: Optional[Plan], orig_size: int, device: torch.device,
+                 timings: Dict):
+        self.plan, self.orig_size, self.device, self.timings = plan, orig_size, device, timings
+        self.payload: Optional[torch.Tensor] = None
+        self.events: List = []
+        self.nbytes = 0
 
 
 class Started:
     """A decode in flight: every batch's kernels queued on the compute
-    stream; :func:`finish` checks the streams and returns the output."""
+    stream; :func:`finish` checks the streams and returns the output.
+    ``check`` is the check that :func:`finish` defers or runs: a
+    :class:`StackCheck` for :func:`start_staged`, else None (the
+    container's :class:`Deferred`)."""
 
     def __init__(self, plan: Optional[Plan], orig_size: int, device: torch.device,
-                 timings: Dict, defer):
+                 timings: Dict, defer, out: Optional[torch.Tensor] = None,
+                 check: Optional[StackCheck] = None):
         self.plan, self.orig_size, self.timings, self.defer = plan, orig_size, timings, defer
-        with stats.phase("decode:alloc"):
-            self.out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
+        if out is None:
+            with stats.phase("decode:alloc"):
+                out = torch.empty(-(-orig_size // 4) * 4, dtype=torch.uint8, device=device)
+        self.out, self.check = out, check
         self.bits: List[torch.Tensor] = []
         self.upload: List = []  # (first, last) copy-stream events of the uploads, per device
 
@@ -657,36 +650,38 @@ def start(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
 
 def stage(payload, num_buf, bit_reorder, byte_reorder, chunk_size, orig_size,
           device="cuda", frames=None) -> Staged:
-    """The plan and every upload of a container (the counterpart of the
-    JAX package's ``stage_dev_batches``), for :func:`start_staged`.  Not
-    under a mesh: raises ``ValueError``."""
+    """The plan of a container and its payload's upload, batch by batch
+    (the counterpart of the JAX package's ``stage_dev_batches``), for
+    :func:`start_staged` or a :class:`Stack`.  Not under a mesh: raises
+    ``ValueError``."""
     _no_mesh("stage")
     device = _device(device)
     plan, timings = _plan(payload, num_buf, bit_reorder, byte_reorder, chunk_size,
                           orig_size, frames)
-    dv = None
+    st = Staged(plan, orig_size, device, timings)
     if plan is not None:
-        dv = DeviceInputs(plan, device)
-        for i in range(len(dv.batches)):
-            dv.upload(i)
-        timings["stage_s"] = dv.timings["stage_s"]
-    return Staged(plan, dv, orig_size, device, timings)
+        g = plan.g
+        ranges = [payload_ranges(g, lo, hi) for lo, hi in plan_batches(g.n_chunks, g.chunk_size)]
+        st.nbytes = sum(n for r in ranges for _, n in r)
+        st.payload = staging.as_tensor(g.payload_np)
+        if device.type == "cuda":
+            with stats.phase("decode:upload"):
+                st.payload, st.events = _upload(st.payload, device, ranges, timings)
+    return st
 
 
 def start_staged(st: Staged, defer: Optional[list] = None) -> Started:
-    """Queue the kernels of a :func:`stage`\\ d container; copies nothing
-    to the card, so its plan, stage and upload seconds are 0 (the staged
+    """Decode a :func:`stage`\\ d container as a :class:`Stack` of one: its
+    payload read in place, its launch sets' descriptors packed and sent up
+    at each start, so its plan, stage and upload seconds are 0 (the staged
     container's ``timings`` hold those of :func:`stage`).  A staged
     container starts any number of times.  Records no CUDA events of its
     own (its ``timings`` have no ``"events"``): a caller that times the
     kernels opens ``kernels.recording()`` around it.  Not under a mesh:
     raises ``ValueError``."""
     _no_mesh("start_staged")
-    run = Started(st.plan, st.orig_size, st.device, {"plan_s": 0.0, "stage_s": 0.0}, defer)
-    if st.plan is not None:
-        for i in range(len(st.inputs.batches)):
-            run.launch(st.inputs, i)
-    return run
+    (out,), check = Stack([st], st.device).start()
+    return Started(st.plan, st.orig_size, st.device, dict(STAGED_TIMINGS), defer, out, check)
 
 
 class Deferred:
@@ -726,7 +721,7 @@ def finish(run: Started) -> torch.Tensor:
     last_timings.update(run.timings)
     if run.plan is None:
         return out
-    entry = Deferred(run)
+    entry = Deferred(run) if run.check is None else run.check
     if run.defer is not None:
         run.defer.append(entry)
         return out
@@ -755,10 +750,12 @@ def validate_deferred(entries) -> None:
 
 
 # ---------------------------------------------------------------------------
-# launch sets: many staged containers of one geometry in one launch set
+# launch sets: staged containers decoded as one unit
 # ---------------------------------------------------------------------------
 
-SET_ALIGN = 256  # a member's output and symbol rows start on this boundary of its set's buffers
+SET_ALIGN = 256  # a container's output and a piece's symbol rows start on this boundary
+# the timings of each container of a staged decode: it plans and copies nothing
+STAGED_TIMINGS = {"plan_s": 0.0, "stage_s": 0.0, "upload_s": 0.0, "decoder": "huf_pc_decode"}
 
 
 def _round_up(n, align: int):
@@ -771,19 +768,23 @@ def _cumulative(sizes) -> np.ndarray:
 
 
 def set_key(plan: Plan):
-    """What the members of a launch set share: planes, byte and bit
+    """What the pieces of a launch set share: planes, byte and bit
     reorder, chunk size (the run's grid for frames)."""
     g = plan.g
     return (g.num_buf, g.byte_reorder, g.bit_reorder, g.chunk_size)
 
 
-def joins_set(st: Staged) -> bool:
-    """Whether a staged container can join a launch set: it holds bytes,
-    its chunks lie on a word grid (the grouped K2 has no bytewise
-    instance), and its output is one batch (no more than
-    :data:`BATCH_BYTES`)."""
-    return (st.plan is not None and st.plan.g.chunk_size % 4 == 0
-            and len(st.inputs.batches) == 1)
+def _upload(src: torch.Tensor, device: torch.device, ranges, timings: Dict):
+    """``src`` (host bytes) into a new buffer on the CUDA ``device``
+    through the staging pool, one list of ``(offset, length)`` ranges of
+    ``ranges`` after another.  The buffer is allocated on the copy stream
+    and marked as used by the compute stream (``record_stream``).  Returns
+    it and the copy-stream event behind each list."""
+    pool = staging.pool(device)
+    with torch.cuda.stream(pool.stream):
+        buf = torch.empty(src.numel(), dtype=torch.uint8, device=device)
+    buf.record_stream(torch.cuda.current_stream(device))
+    return buf, [staging.upload(pool, src, buf, r, timings, label="decode") for r in ranges]
 
 
 def _to_device(packed: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -792,227 +793,243 @@ def _to_device(packed: np.ndarray, device: torch.device) -> torch.Tensor:
     array itself on the CPU."""
     if device.type != "cuda":
         return torch.from_numpy(packed)
-    pool = staging.pool(device)
-    compute = torch.cuda.current_stream(device)
-    with torch.cuda.stream(pool.stream):
-        buf = torch.empty(packed.size, dtype=torch.uint8, device=device)
-    buf.record_stream(compute)
-    compute.wait_event(staging.upload(pool, staging.as_tensor(packed), buf, [(0, packed.size)],
-                                      {}, label="decode"))
+    buf, (event,) = _upload(staging.as_tensor(packed), device, [[(0, packed.size)]], {})
+    torch.cuda.current_stream(device).wait_event(event)
     return buf
 
 
 class LaunchSet:
-    """Staged containers of one geometry (:func:`set_key`), each one batch,
-    decoded by one K1 launch per schedule and one
-    ``combine.combine_cells_grouped`` launch.
+    """Pieces of staged containers of one geometry (:func:`set_key`),
+    decoded by one K1 launch per schedule and one K2 launch.  A piece
+    ``(m, lo, hi)`` is container ``m``'s chunks [lo, hi).
 
-    Built once, from the members' plans: K1's per-stream arrays with each
-    stream's start re-based into the unit's payload buffer (``payload``;
-    ``payload_offs``, each member's offset there) and its output into the
-    set's symbol buffer, where each member's rows start on a
-    :data:`SET_ALIGN` boundary; the members' decode tables at the widest
-    stride among them, ``cells`` re-based.  Each member goes to the
+    Built once, from the containers' plans: K1's per-stream arrays of each
+    piece (its streams, ``Plan.cell_range``) with each stream's start
+    re-based into the unit's payload buffer (``payload``;
+    ``payload_offs``, each container's offset there) and its output into
+    the set's symbol rows, where each piece's rows start on a
+    :data:`SET_ALIGN` boundary; the pieces' decode tables at the widest
+    stride among them, ``cells`` re-based.  Each piece goes to the
     schedule that ``huf_pc.streams_per_warp`` gives its own streams, so a
-    set launches K1 at most twice: the warp-schedule members' streams,
-    then the lane-schedule ones'.  Every Huffman cell goes to K1, a
+    set launches K1 at most twice: the warp-schedule pieces' streams, then
+    the lane-schedule ones'.  Every Huffman cell goes to K1, a
     shared-table one too (K1 decodes any tableLog <= 12).  K2's
-    descriptors are the members' cells in order, stored sources re-based
+    descriptors are the pieces' cells in order, stored sources re-based
     into the payload buffer and Huffman sources as byte offsets into the
-    symbol buffer, with each chunk's output offset (each member's output
-    on a :data:`SET_ALIGN` boundary) and length.  The members' own device
-    arrays are then freed (:meth:`DeviceInputs.drop_arrays`), so the card
-    holds each descriptor once.
+    symbol rows, with each chunk's offset in the unit's output
+    (``out_base``, each container's offset there) and length.  K2 is
+    ``combine.combine_cells_grouped`` on a word grid (a chunk size that is
+    a multiple of 4); else the set is one piece (:class:`Stack` makes it
+    so) and K2 is ``combine.combine_cells`` on it, with ``hsym_row`` 1,
+    since its Huffman sources are already byte offsets.  The descriptors
+    reach the card here, once, packed into one buffer.
     """
 
-    def __init__(self, members: Sequence[Staged], payload: torch.Tensor,
-                 payload_offs: Sequence[int]):
-        plans = [m.plan for m in members]
-        g0 = plans[0].g
-        self.n = len(plans)
+    def __init__(self, plans: Sequence[Plan], pieces, payload: torch.Tensor,
+                 payload_offs: Sequence[int], out_base: np.ndarray):
+        self.pieces = pieces
+        g0 = plans[pieces[0][0]].g
+        self.n = len({m for m, _, _ in pieces})  # containers
         self.payload = payload
-        self.device = payload.device
         self.geometry = (g0.chunk_size, g0.num_buf, g0.byte_reorder, g0.bit_reorder)
-        sizes = [p.g.orig_size for p in plans]
-        out_base = _cumulative([_round_up(n, SET_ALIGN) for n in sizes])
-        self.out_bytes = int(out_base[-1])
-        self.views = list(zip(out_base[:-1].tolist(), sizes))
-        sym_base = _cumulative([_round_up(p.n_huf * p.row, SET_ALIGN) for p in plans])
+        cs, nb = g0.chunk_size, g0.num_buf
+        cells = [plans[m].cell_range(lo, hi) for m, lo, hi in pieces]
+        n_huf = [h1 - h0 for h0, h1 in cells]
+        rows = [plans[m].row for m, _, _ in pieces]
+        sym_base = _cumulative([_round_up(n * r, SET_ALIGN) for n, r in zip(n_huf, rows)])
         self.sym_bytes = int(sym_base[-1])
-        group = [huf_pc.streams_per_warp(p.n_huf * p.row, 4 * p.n_huf, huf_pc.GROUP_SYMBOLS)
-                 for p in plans]
-        order = [m for g in (1, 32) for m in range(self.n) if group[m] == g and plans[m].n_huf]
-        n_streams = [4 * plans[m].n_huf for m in order]
+        group = [huf_pc.streams_per_warp(n * r, 4 * n, huf_pc.GROUP_SYMBOLS)
+                 for n, r in zip(n_huf, rows)]
+        order = [i for g in (1, 32) for i in range(len(pieces)) if group[i] == g and n_huf[i]]
+        n_streams = [4 * n_huf[i] for i in order]
         stream_base = _cumulative(n_streams)
         self.n_streams = int(stream_base[-1])
-        # each member's streams [lo, hi) in the order of the K1 launches' bits_left
-        self.streams = [(0, 0)] * self.n
-        for m, lo, hi in zip(order, stream_base[:-1].tolist(), stream_base[1:].tolist()):
-            self.streams[m] = (lo, hi)
-        width = max((plans[m].tables.shape[1] for m in order), default=1)
-        table_base = _cumulative([plans[m].tables.shape[0] for m in order])
+        # each piece's streams [lo, hi) in the order of the K1 launches' bits_left
+        self.streams = [(0, 0)] * len(pieces)
+        for i, lo, hi in zip(order, stream_base[:-1].tolist(), stream_base[1:].tolist()):
+            self.streams[i] = (lo, hi)
+        # each K1 piece's plan, its slice of the plan's per-stream arrays, and its index
+        mine = [(plans[pieces[i][0]], slice(4 * cells[i][0], 4 * cells[i][1]), i) for i in order]
+        width = max((p.tables.shape[1] for p, _, _ in mine), default=1)
+        table_base = _cumulative([p.tables.shape[0] for p, _, _ in mine])
         tables = np.zeros((int(table_base[-1]), width), dtype=np.int16)
-        for m, t0 in zip(order, table_base.tolist()):
-            t = plans[m].tables
-            tables[t0 : t0 + t.shape[0], : t.shape[1]] = t
+        for (p, _, _), t0 in zip(mine, table_base.tolist()):
+            tables[t0 : t0 + p.tables.shape[0], : p.tables.shape[1]] = p.tables
 
         def cat(arrays, dtype):
             return np.concatenate([np.zeros(0, dtype)] + list(arrays)).astype(dtype)
 
         k1 = [
-            cat((plans[m].starts + payload_offs[m] for m in order), np.int64),
-            cat((plans[m].lens for m in order), np.int32),
-            cat((plans[m].bits0 for m in order), np.int32),
-            cat((plans[m].out_offs + sym_base[m] for m in order), np.int64),
-            cat((plans[m].out_lens for m in order), np.int32),
-            cat((plans[m].cells + t0 for m, t0 in zip(order, table_base.tolist())), np.int32),
-            cat((plans[m].tlogs for m in order), np.int32),
+            cat((p.starts[s] + payload_offs[pieces[i][0]] for p, s, i in mine), np.int64),
+            cat((p.lens[s] for p, s, _ in mine), np.int32),
+            cat((p.bits0[s] for p, s, _ in mine), np.int32),
+            cat((p.out_offs[s] - cells[i][0] * p.row + sym_base[i] for p, s, i in mine),
+                np.int64),
+            cat((p.out_lens[s] for p, s, _ in mine), np.int32),
+            cat((p.cells[s] + t0 for (p, s, _), t0 in zip(mine, table_base.tolist())), np.int32),
+            cat((p.tlogs for p, _, _ in mine), np.int32),
             tables,
         ]
+        kinds = [plans[m].kinds[lo * nb : hi * nb] for m, lo, hi in pieces]
         srcs = []
-        for m, p in enumerate(plans):
-            src = p.srcs.copy()
-            src[p.kinds == KIND_STORED] += payload_offs[m]
-            huf = p.kinds == KIND_HUF
-            src[huf] = sym_base[m] + src[huf] * p.row
+        for i, ((m, lo, hi), kind) in enumerate(zip(pieces, kinds)):
+            src = plans[m].srcs[lo * nb : hi * nb].copy()
+            src[kind == KIND_STORED] += payload_offs[m]
+            huf = kind == KIND_HUF
+            src[huf] = sym_base[i] + (src[huf] - cells[i][0]) * plans[m].row
             srcs.append(src)
-        cs = g0.chunk_size
-        firsts = [np.arange(p.g.n_chunks, dtype=np.int64) * cs for p in plans]
+        firsts = [np.arange(lo, hi, dtype=np.int64) * cs for _, lo, hi in pieces]
         k2 = [
-            cat((p.kinds for p in plans), np.int32),
+            cat(kinds, np.int32),
             cat(srcs, np.int64),
-            cat((out_base[m] + f for m, f in enumerate(firsts)), np.int64),
-            cat((np.minimum(cs, p.g.orig_size - f) for p, f in zip(plans, firsts)), np.int32),
+            cat((out_base[m] + f for (m, _, _), f in zip(pieces, firsts)), np.int64),
+            cat((np.minimum(cs, plans[m].g.orig_size - f) for (m, _, _), f in zip(pieces, firsts)),
+                np.int32),
         ]
         packed, layout = _packed(k1 + k2)
-        views = _views(_to_device(packed, self.device), layout)
-        self.k2 = tuple(views[8:])
-        n_warp = sum(n for m, n in zip(order, n_streams) if group[m] == 1)
+        views = _views(_to_device(packed, payload.device), layout)
+        n_warp = sum(n for i, n in zip(order, n_streams) if group[i] == 1)
         self.k1 = [(g, (payload, *(v[lo:hi] for v in views[:6]), *views[6:8]))
                    for g, lo, hi in ((1, 0, n_warp), (32, n_warp, self.n_streams)) if hi > lo]
-        self.kind_bytes = {name: sum(m.inputs.kind_bytes[0][name] for m in members)
-                           for name in KIND_NAMES}
-        for m in members:
-            m.inputs.drop_arrays()
+        # K2's kernel, its arguments between ``hsym`` and ``out``, and where
+        # in the unit's output its ``out`` starts
+        if cs % 4 == 0:
+            self.k2 = (combine.combine_cells_grouped, (*views[8:], 1, *self.geometry), 0)
+        else:
+            (m, lo, hi), = pieces
+            total = min(hi * cs, plans[m].g.orig_size) - lo * cs
+            self.k2 = (combine.combine_cells, (*views[8:10], 1, cs, total, *self.geometry[1:]),
+                       int(out_base[m]) + lo * cs)
+        per_piece = [kind_bytes(plans[m].g, lo, hi) for m, lo, hi in pieces]
+        self.kind_bytes = {name: sum(b[name] for b in per_piece) for name in KIND_NAMES}
 
-    def start(self):
-        """Queue the set's launches on the compute stream.  Returns the
-        members' outputs in order (uint8 views of the set's output buffer,
-        each ``orig_size`` bytes: the buffer is freed with the last of
-        them) and the K1 launches' ``bits_left`` (:attr:`streams` indexes
-        them)."""
-        dev = self.device
-        with stats.phase("decode:alloc"):
-            out = torch.empty(self.out_bytes, dtype=torch.uint8, device=dev)
-            hsym = torch.empty(self.sym_bytes, dtype=torch.uint8, device=dev)
-        bits = [huf_pc.huf_pc_decode(*args, self.sym_bytes, out=hsym, group=g)[1]
+    def start(self, out: torch.Tensor, hsym: torch.Tensor) -> List[torch.Tensor]:
+        """Queue the set's launches on the compute stream: K1 into the
+        first :attr:`sym_bytes` of ``hsym`` (the unit's symbol buffer), K2
+        into ``out`` (the unit's output).  Returns the K1 launches'
+        ``bits_left`` (:attr:`streams` indexes them)."""
+        sym = hsym[: self.sym_bytes]
+        bits = [huf_pc.huf_pc_decode(*args, self.sym_bytes, out=sym, group=g)[1]
                 for g, args in self.k1]
-        combine.combine_cells_grouped(self.payload, hsym, *self.k2, 1, *self.geometry, out)
+        k2, args, at = self.k2
+        k2(self.payload, hsym, *args, out[at:])
         kernels.launch_sets["sets"] += 1
         kernels.launch_sets["containers"] += self.n
         for name, n in self.kind_bytes.items():
             kernels.combined_bytes[name] += n
-        return [out[o : o + n] for o, n in self.views], bits
+        return bits
 
 
 def _unit_payload(staged: Sequence[Staged], device: torch.device):
-    """One buffer holding every member's staged payload, each at a 16-byte
-    offset, copied card to card on the compute stream once the member's
-    uploads are done; each member's ``inputs.payload`` becomes its view,
-    so no payload is held twice.  Returns (buffer, offsets)."""
-    sizes = [st.inputs.payload.numel() if st.inputs else 0 for st in staged]
+    """One buffer holding every container's staged payload, each at a
+    16-byte offset, copied card to card on the compute stream once the
+    container's uploads are done; each container's ``payload`` becomes its
+    view, so no payload is held twice.  A stack of one reads its
+    container's payload in place.  Returns (buffer, offsets)."""
+    for st in staged:
+        for event in st.events:
+            torch.cuda.current_stream(device).wait_event(event)
+    if len(staged) == 1 and staged[0].payload is not None:
+        return staged[0].payload, [0]
+    sizes = [st.payload.numel() if st.payload is not None else 0 for st in staged]
     offs = _cumulative([_round_up(n, 16) for n in sizes])
     unit = torch.empty(int(offs[-1]), dtype=torch.uint8, device=device)
     for st, o, n in zip(staged, offs.tolist(), sizes):
-        dv = st.inputs
-        if dv is None:
-            continue
-        for event in dv.events:
-            torch.cuda.current_stream(device).wait_event(event)
-        unit[o : o + n].copy_(dv.payload)
-        dv.payload = unit[o : o + n]
+        if st.payload is not None:
+            unit[o : o + n].copy_(st.payload)
+            st.payload = unit[o : o + n]
     return unit, offs[:-1].tolist()
 
 
 class Stack:
-    """Staged containers decoded as one unit (``io.serving``'s stacks).
+    """Staged containers decoded as one unit: ``io.serving``'s stacks, and
+    :func:`start_staged`'s stack of one.
 
     At construction their payloads move into one buffer
-    (:func:`_unit_payload`) and the members form ``steps``, in order:
-    ``(LaunchSet, member indices)`` for each run of members that
-    :func:`joins_set` admits and ``solo`` does not mark, closed where the
-    geometry changes or its output would pass :data:`BATCH_BYTES`; ``(None,
-    [index])`` for each other member, which the caller decodes alone
-    (``start_staged``).  :class:`StackCheck` is the unit's check for
-    :func:`validate_deferred`.  Not under a mesh, as :func:`start_staged`.
+    (:func:`_unit_payload`) and each container that holds bytes is cut
+    into pieces, one per batch of :func:`plan_batches` (one piece for a
+    container of at most :data:`BATCH_BYTES` of output).  The pieces form
+    ``sets`` in order: each run of pieces of one geometry up to
+    :data:`BATCH_BYTES` of output is a :class:`LaunchSet`, but for a piece
+    whose chunk size is not a multiple of 4, which is a set of its own.
+    ``views`` holds each container's (offset, size) in the unit's output,
+    on a :data:`SET_ALIGN` boundary.  :meth:`start` decodes the unit.  Not
+    under a mesh, as :func:`start_staged`.
     """
 
-    def __init__(self, staged: Sequence[Staged], solo: Sequence[bool], device):
+    def __init__(self, staged: Sequence[Staged], device):
         _no_mesh("stack")
+        self.device = torch.device(device)
         self.plans = [st.plan for st in staged]
-        self.payload, offs = _unit_payload(staged, torch.device(device))
-        self.steps: List = []
-        run: List[int] = []
+        self.payload, offs = _unit_payload(staged, self.device)
+        sizes = [st.orig_size for st in staged]
+        out_base = _cumulative([_round_up(n, SET_ALIGN) for n in sizes])
+        self.out_bytes = int(out_base[-1])
+        self.views = list(zip(out_base[:-1].tolist(), sizes))
+        self.sets: List[LaunchSet] = []
+        run: List = []
         key, size = None, 0
 
         def close():
             if run:
-                self.steps.append((LaunchSet([staged[m] for m in run], self.payload,
-                                             [offs[m] for m in run]), list(run)))
+                self.sets.append(LaunchSet(self.plans, list(run), self.payload, offs, out_base))
                 run.clear()
 
-        for m, st in enumerate(staged):
-            if solo[m] or not joins_set(st):
-                close()
-                self.steps.append((None, [m]))
+        for m, plan in enumerate(self.plans):
+            if plan is None:
                 continue
-            n = _round_up(st.orig_size, SET_ALIGN)
-            if run and (set_key(st.plan) != key or size + n > BATCH_BYTES):
-                close()
-            if not run:
-                key, size = set_key(st.plan), 0
-            run.append(m)
-            size += n
+            cs = plan.g.chunk_size
+            for lo, hi in plan_batches(plan.g.n_chunks, cs):
+                n = _round_up(min(hi * cs, plan.g.orig_size) - lo * cs, SET_ALIGN)
+                if run and (set_key(plan) != key or size + n > BATCH_BYTES or cs % 4):
+                    close()
+                if not run:
+                    key, size = set_key(plan), 0
+                run.append((m, lo, hi))
+                size += n
         close()
-        # each member's streams [lo, hi) in the unit's bits_left, in the
-        # order of the steps' parts, and the member each stream is of
-        self.streams = [(0, 0)] * len(staged)
+        self.sym_bytes = max((ls.sym_bytes for ls in self.sets), default=0)
+        # each container's streams in the unit's bits_left, as ranges in its
+        # own stream order
+        self.ranges: List[List] = [[] for _ in staged]
         pos = 0
-        for ls, ms in self.steps:
-            if ls is None:
-                plan = self.plans[ms[0]]
-                n = 4 * plan.n_huf if plan is not None else 0
-                self.streams[ms[0]] = (pos, pos + n)
-            else:
-                n = ls.n_streams
-                for m, (lo, hi) in zip(ms, ls.streams):
-                    self.streams[m] = (pos + lo, pos + hi)
-            pos += n
-        self.owner = np.zeros(pos, dtype=np.int64)
-        for m, (lo, hi) in enumerate(self.streams):
-            self.owner[lo:hi] = m
+        for ls in self.sets:
+            for (m, _, _), (lo, hi) in zip(ls.pieces, ls.streams):
+                self.ranges[m].append((pos + lo, pos + hi))
+            pos += ls.n_streams
+
+    def start(self):
+        """Queue the unit's launches on the compute stream, set by set,
+        each set inside a ``znn:decode:enqueue`` span (``stats.phase``).
+        Returns the containers' outputs in order (uint8 views of one
+        buffer, each ``orig_size`` bytes: the buffer is freed with the last
+        of them) and the unit's :class:`StackCheck`."""
+        with stats.phase("decode:alloc"):
+            out = torch.empty(self.out_bytes, dtype=torch.uint8, device=self.device)
+            hsym = torch.empty(self.sym_bytes, dtype=torch.uint8, device=self.device)
+        parts: List[torch.Tensor] = []
+        for ls in self.sets:
+            with stats.phase("decode:enqueue"):
+                parts += ls.start(out, hsym)
+        return [out[o : o + n] for o, n in self.views], StackCheck(self, parts)
 
 
 class StackCheck:
     """A :class:`Stack`'s end-of-stream check, waiting for
-    :func:`validate_deferred`: ``parts``, the ``bits_left`` of its steps in
-    order (a lone member's are its :class:`Deferred`'s), and ``solo``, the
-    lone members' :class:`Deferred` entries, whose ``upload_s`` it fills.
-    One ``flatnonzero`` over the unit's streams, then ``check_streams`` of
-    the first member in order with a bad one, so that member's own
-    ``CorruptChunkError`` is raised."""
+    :func:`validate_deferred`: ``parts``, the ``bits_left`` of its sets'
+    K1 launches in order.  One ``any`` over the unit's streams; if one is
+    bad, ``check_streams`` of each container in order over its streams in
+    its own order, so the first container with a bad one raises its own
+    ``CorruptChunkError``."""
 
-    def __init__(self, stack: Stack, parts: List[torch.Tensor], solo: List[Deferred]):
-        self.stack, self.parts, self.solo = stack, parts, solo
+    def __init__(self, stack: Stack, parts: List[torch.Tensor]):
+        self.stack, self.parts = stack, parts
 
     def check(self, bits_left: np.ndarray) -> None:
-        for e in self.solo:
-            e.timings["upload_s"] = e.upload_s()
-        bad = np.flatnonzero(bits_left)
-        if bad.size:
-            m = int(self.stack.owner[bad].min())
-            lo, hi = self.stack.streams[m]
-            check_streams(self.stack.plans[m], bits_left[lo:hi])
+        if np.any(bits_left):
+            for plan, ranges in zip(self.stack.plans, self.stack.ranges):
+                if ranges:
+                    check_streams(plan, np.concatenate([bits_left[lo:hi] for lo, hi in ranges]))
 
 
 def decompress_payload(

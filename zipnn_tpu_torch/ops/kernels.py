@@ -50,8 +50,8 @@ launches: Dict[str, int] = {
 combined_bytes: Dict[str, int] = {"stored": 0, "rle": 0, "huffman": 0}
 
 # launch sets started (``ops/decode.py`` ``LaunchSet``: one K1 launch per
-# schedule and one ``combine_cells_grouped`` for many containers) and the
-# containers they covered (not in ``launches`` either)
+# schedule and one K2 launch for pieces of many containers) and the
+# containers they covered, each once a set (not in ``launches`` either)
 launch_sets: Dict[str, int] = {"sets": 0, "containers": 0}
 
 # the event list of the innermost ``recording()`` block of this thread
